@@ -1,0 +1,97 @@
+"""Box geometry in torch for the postprocess (pillars_tpu/geometry/boxes.py).
+
+Same formulas and corner order as the JAX package. Everything stays in f32;
+the small matrix products are written out elementwise or run with TF32 off
+(the JAX package uses Precision.HIGHEST here), so the card computes them in
+full f32.
+
+Box convention (lidar): [x, y, z, w, l, h, r] with z at the box BOTTOM and r
+a clockwise-positive yaw around +z.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# unit-square corner layout, clockwise from the minimum point (the
+# reference's corners_nd reordering [0, 1, 3, 2])
+_CORNERS_NORM_2D = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
+_CORNERS_NORM_3D = ((0.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, 1.0, 1.0),
+                    (0.0, 1.0, 0.0), (1.0, 0.0, 0.0), (1.0, 0.0, 1.0),
+                    (1.0, 1.0, 1.0), (1.0, 1.0, 0.0))
+
+
+def limit_period(val, offset: float = 0.5, period: float = math.pi):
+    """Wrap angles into [-offset*period, (1-offset)*period)."""
+    return val - torch.floor(val / period + offset) * period
+
+
+def corners_nd(dims: torch.Tensor, origin=0.5) -> torch.Tensor:
+    """[N, ndim] dims -> [N, 2**ndim, ndim] corners relative to the center."""
+    ndim = dims.shape[-1]
+    norm = torch.tensor(_CORNERS_NORM_2D if ndim == 2 else _CORNERS_NORM_3D,
+                        dtype=dims.dtype, device=dims.device)
+    norm = norm - torch.as_tensor(origin, dtype=dims.dtype, device=dims.device)
+    return dims[..., None, :] * norm[None]
+
+
+def rotation_2d(points: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate [N, P, 2] point sets clockwise-positive by [N] angles:
+    out[a, i, k] = sum_j points[a, i, j] * rot[a, j, k] with rows
+    (cos, -sin) and (sin, cos)."""
+    s = torch.sin(angles)[:, None]
+    c = torch.cos(angles)[:, None]
+    px, py = points[..., 0], points[..., 1]
+    return torch.stack([px * c + py * s, px * -s + py * c], dim=-1)
+
+
+def center_to_corner_box2d(centers, dims, angles=None, origin=0.5):
+    """[N,2] centers + [N,2] dims (+[N] yaw) -> [N,4,2] BEV corners."""
+    corners = corners_nd(dims, origin=origin)
+    if angles is not None:
+        corners = rotation_2d(corners, angles)
+    return corners + centers[..., None, :]
+
+
+def corner_to_standup(boxes_corner: torch.Tensor) -> torch.Tensor:
+    """[N, K, ndim] corners -> [N, 2*ndim] (mins..., maxs...)."""
+    return torch.cat([boxes_corner.amin(dim=-2), boxes_corner.amax(dim=-2)],
+                     dim=-1)
+
+
+def second_box_decode(box_encodings: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """SECOND residual decode of [..., 7] encodings against [..., 7] anchors
+    (z at the box bottom)."""
+    xa, ya, za, wa, la, ha, ra = anchors.split(1, dim=-1)
+    xt, yt, zt, wt, lt, ht, rt = box_encodings.split(1, dim=-1)
+    za = za + ha / 2
+    diagonal = torch.sqrt(la ** 2 + wa ** 2)
+    xg = xt * diagonal + xa
+    yg = yt * diagonal + ya
+    zg = zt * ha + za
+    lg = torch.exp(lt) * la
+    wg = torch.exp(wt) * wa
+    hg = torch.exp(ht) * ha
+    rg = rt + ra
+    zg = zg - hg / 2
+    return torch.cat([xg, yg, zg, wg, lg, hg, rg], dim=-1)
+
+
+def lidar_to_camera(points, r_rect, velo2cam):
+    """[..., N, 3] lidar points -> camera, with [..., 4, 4] matrices."""
+    ones = torch.ones(points.shape[:-1] + (1,), dtype=points.dtype,
+                      device=points.device)
+    pts = torch.cat([points, ones], dim=-1)
+    cam = pts @ (r_rect @ velo2cam).transpose(-1, -2)
+    return cam[..., :3]
+
+
+def box_lidar_to_camera(boxes, r_rect, velo2cam):
+    """[..., N, 7] lidar (x,y,z,w,l,h,r) -> camera (x,y,z,l,h,w,r)."""
+    xyz = lidar_to_camera(boxes[..., :3], r_rect, velo2cam)
+    w, l, h = boxes[..., 3:4], boxes[..., 4:5], boxes[..., 5:6]
+    r = boxes[..., 6:7]
+    return torch.cat([xyz, l, h, w, r], dim=-1)

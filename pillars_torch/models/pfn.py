@@ -1,0 +1,116 @@
+"""Dense-cell PillarFeatureNet in eval mode (pillars_tpu/models/pfn.py::
+DenseCellPFN and _PointwiseMaskedBN; reference model/pointpillars.py:65-225).
+
+Per point: 8 features (xyz, offset to the cell's point mean, offset to the
+pillar centre), Linear 8->128 without bias, BatchNorm with the running
+statistics, ReLU. Per cell: one sorted scatter-max that also carries the
+cell's point count as channel F. Cells with fewer than N points also take
+the max with relu(bn(0)), the processed zero row of the reference's padded
+layout; empty cells are zero.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pillars_torch.config import ModelConfig
+
+
+class _PointwiseMaskedBN(nn.Module):
+    """Eval-mode BatchNorm over point-major activations. Returns
+    (bn(x), bn(0)). Training statistics (dense-layout row counts) are a
+    later slice."""
+
+    def __init__(self, features: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError("masked BN training is not ported yet")
+        mean = self.running_mean
+        inv = torch.rsqrt(self.running_var + self.eps)
+        y = (x - mean) * inv * self.weight + self.bias
+        zero_vec = (0.0 - mean) * inv * self.weight + self.bias
+        return y, zero_vec
+
+
+class DenseCellPFN(nn.Module):
+    """PFN over the dense CELL grid (ops/voxelize.py CellVoxelized layout).
+
+    Returns (cell_feats [BC, F], num_points [BC] int32) with BC = batch *
+    n_cells; rows of empty cells are zero."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        pcfg = cfg.pfn
+        in_features = cfg.num_point_features + 5
+        if pcfg.with_distance:
+            raise NotImplementedError("pfn.with_distance is not ported yet")
+        self.dense = nn.Linear(in_features, pcfg.num_filters, bias=False)
+        self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps)
+
+    def forward(self, points, cell_local, cell_global, kept, count, mean,
+                n_cells_total: int):
+        """points [M, D] (cell-sorted, batch-folded), cell_local [M] (id in
+        the per-sample grid; sentinel n_cells when invalid), cell_global [M]
+        (batch-offset), kept [M], count [M], mean [M, 3]."""
+        vcfg = self.cfg.voxel
+        vx, vy = vcfg.voxel_size[:2]
+        pcr = vcfg.point_cloud_range
+        x_offset = vx / 2 + pcr[0]
+        y_offset = vy / 2 + pcr[1]
+        nx, ny, nz = vcfg.grid_size
+        n_filters = self.cfg.pfn.num_filters
+        N = vcfg.max_points_per_voxel
+
+        # pillar-centre offsets straight from the cell id
+        rem = torch.remainder(cell_local, ny * nx)
+        cyi = torch.div(rem, nx, rounding_mode="floor")
+        cxi = rem - cyi * nx
+        cx = cxi.to(points.dtype) * vx + x_offset
+        cy = cyi.to(points.dtype) * vy + y_offset
+
+        feats = torch.cat([points, points[:, :3] - mean,
+                           (points[:, 0] - cx)[:, None],
+                           (points[:, 1] - cy)[:, None]], dim=-1)
+        feats = torch.where(kept[:, None], feats, torch.zeros_like(feats))
+
+        x, zero_vec = self.bn(self.dense(feats))
+        x = torch.relu(x)
+        zero_contrib = torch.relu(zero_vec)
+
+        neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+        xm = torch.where(kept[:, None], x, neg)
+        # the per-cell count rides the same scatter as channel F: every
+        # valid row of a cell carries the same count, so max == count;
+        # invalid rows are -inf everywhere and cannot corrupt the row they
+        # alias (a sample's sentinel is the next sample's cell 0)
+        valid = cell_local < nx * ny * nz
+        cnt_ch = torch.where(valid, count.to(x.dtype), neg)
+        aug = torch.cat([xm, cnt_ch[:, None]], dim=-1)
+
+        # one spare row takes the last sample's sentinel
+        seg = torch.full((n_cells_total + 1, n_filters + 1), float("-inf"),
+                         dtype=x.dtype, device=x.device)
+        seg.scatter_reduce_(0, cell_global.long()[:, None].expand_as(aug),
+                            aug, "amax")
+        seg = seg[:n_cells_total]
+        cell_feats = seg[:, :n_filters]
+        npts = seg[:, n_filters]
+
+        occupied = npts > 0
+        pad_rows = npts < N  # empty cells (-inf) are masked below anyway
+        cell_feats = torch.maximum(
+            cell_feats, torch.where(pad_rows[:, None], zero_contrib[None], neg))
+        cell_feats = torch.where(occupied[:, None], cell_feats,
+                                 torch.zeros_like(cell_feats))
+        num_points = torch.where(occupied, npts,
+                                 torch.zeros_like(npts)).to(torch.int32)
+        return cell_feats, num_points

@@ -1,0 +1,168 @@
+"""Timing on the card: CUDA-event timers, a per-stage breakdown of the d435i
+inference path and a torch.profiler pass for the device's busy share.
+
+    python -m pillars_torch.utils.profiling [--iters 50] [--out FILE]
+
+runs ``PillarsDetector(Config.default())`` with the trained checkpoint on
+d435i-sized clouds (19200 points, NumPy seed 0) at B=1 and prints, in ms per
+cloud: each stage alone (CUDA events, warm), the whole path (three times, for
+the spread), the device time per cloud summed over its kernels, the idle
+share, the kernel launches per cloud and the longest kernels. Needs
+a card; the numbers name it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import time
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+
+def cuda_ms(fn: Callable[[], object], iters: int) -> float:
+    """Warm mean ms per call of ``fn`` between two CUDA events. When the
+    host issues work slower than the card runs it, this is the issue rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_stages(det, state, points, num_valid, rect, trv2c,
+                   iters: int) -> Dict[str, float]:
+    """ms per call of each stage of the dense-cell path, each timed alone on
+    inputs made by the stage before it, and of the whole path."""
+    thr = det.config.eval_input.anchor_area_threshold
+    net = det.network
+    net.load_state_dict(state)
+    b = points.shape[0]
+    nx, ny, nz = det.mcfg.voxel.grid_size
+    n_cells = nx * ny * nz
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
+
+    def front(cv):
+        offset = torch.arange(b, dtype=torch.int32,
+                              device=points.device)[:, None] * n_cells
+        feats, npts = net.pfn(flat(cv.points), flat(cv.cell),
+                              flat(cv.cell + offset), flat(cv.kept),
+                              flat(cv.count), flat(cv.mean), b * n_cells)
+        return feats.reshape(b, nz, ny, nx, -1).sum(dim=1), npts
+
+    fn = det.make_inference_fn()
+    with torch.inference_mode():
+        cv = net.cell_voxelize(points, num_valid)
+        canvas, _ = front(cv)
+        preds_full, amask = det._forward_dense(state, points, num_valid, thr)
+        return {
+            "t_voxelize": cuda_ms(lambda: net.cell_voxelize(points, num_valid),
+                                  iters),
+            "t_pfn_canvas": cuda_ms(lambda: front(cv), iters),
+            "t_rpn": cuda_ms(lambda: net.rpn(canvas), iters),
+            "t_forward_dense": cuda_ms(
+                lambda: det._forward_dense(state, points, num_valid, thr),
+                iters),
+            "t_postprocess": cuda_ms(
+                lambda: det.postprocess(preds_full, amask, rect, trv2c),
+                iters),
+            **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
+                                                 rect, trv2c), iters)
+               for i in range(3)},
+        }
+
+
+def device_busy(fn: Callable[[], object], iters: int):
+    """(host wall ms per call, device ms per call summed over kernels,
+    kernels by device time [(name, calls per call, device ms per call)])
+    from torch.profiler over ``iters`` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    rows = [(e.key, e.count / iters, e.self_device_time_total / 1e3 / iters)
+            for e in kernels]
+    return wall, device, rows
+
+
+def main():
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    root = pathlib.Path(__file__).resolve().parents[2]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--weights", default=str(
+        root / "benchmarks" / "hard_synth" / "weights_59.pkl"))
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--out", default=None, help="write the result as JSON")
+    args = ap.parse_args()
+
+    cfg = Config.default()
+    det = PillarsDetector(cfg)
+    state = det.state_to_device(
+        from_jax_variables(*load_params(args.weights), cfg))
+    rng = np.random.RandomState(0)
+    n, maxpts = 19200, cfg.model.voxel.max_points
+    pts = np.zeros((1, maxpts, 3), np.float32)
+    pts[0, :n] = np.stack([rng.uniform(0.0, 6.4, n),
+                           rng.uniform(-2.56, 2.56, n),
+                           rng.uniform(-3.0, 3.0, n)], 1)
+    points = torch.from_numpy(pts).cuda()
+    num = torch.tensor([n], dtype=torch.int32, device="cuda")
+    eye = torch.eye(4, device="cuda")[None]
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    stages = profile_stages(det, state, points, num, eye, eye, args.iters)
+    fn = det.make_inference_fn()
+    wall, device, rows = device_busy(
+        lambda: fn(state, points, num, eye, eye), args.iters)
+    # idle share against the event time of the whole path without the
+    # profiler, whose own overhead slows the host
+    full = sorted(v for k, v in stages.items() if k.startswith("t_full"))
+    idle = 1.0 - device / full[len(full) // 2]
+    result = {"card": card, "batch": 1, "iters": args.iters,
+              "stages_ms": stages, "profiled_wall_ms": wall,
+              "device_ms": device, "idle_share": idle,
+              "kernels": [{"name": k, "per_cloud": c, "ms": t}
+                          for k, c, t in rows]}
+    print(card)
+    for k, v in stages.items():
+        print(f"{k:>16}: {v:.4f} ms")
+    print(f"whole path: device {device:.4f} ms/cloud summed over kernels, "
+          f"idle share {idle:.3f} of the median t_full; host wall "
+          f"{wall:.4f} ms/cloud under the profiler")
+    print(f"{sum(c for _, c, _ in rows):g} kernel launches per cloud; "
+          f"the 12 longest, and the port's own:")
+    for i, (k, c, t) in enumerate(rows):
+        if i < 12 or "nms_keep_mask" in k:
+            print(f"  {t * 1e3:9.2f} us  x{c:g}  {k[:90]}")
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
+
+
+if __name__ == "__main__":
+    main()

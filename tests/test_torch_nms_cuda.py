@@ -1,0 +1,50 @@
+"""The CUDA NMS keep-mask kernel against its plain twin, on the card.
+
+Marked ``cuda``: these skip without a GPU. On a machine with a card and no
+JAX run ``python -m pytest --noconftest tests/test_torch_nms_cuda.py``
+(``tests/conftest.py`` imports JAX).
+"""
+
+import pytest
+import torch
+
+from torch_parity import standup_box_sets
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_nms():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from pillars_torch.ops import nms_cuda
+
+    return nms_cuda
+
+
+@pytest.mark.parametrize("b,k", [(1, 100), (4, 100), (1, 1000), (4, 1000),
+                                 (3, 33), (2, 1024)])
+def test_kernel_bit_equal_to_plain(cuda_nms, b, k):
+    boxes, _, valid = standup_box_sets(b * 1000 + k, b, k, n_dup=k // 10)
+    bt = torch.from_numpy(boxes).cuda()
+    vt = torch.from_numpy(valid).cuda()
+    before = cuda_nms.nms_keep_mask.launches
+    got = cuda_nms.nms_keep_mask(bt, vt, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_nms.nms_keep_mask.launches == before + 1
+    want_gpu = cuda_nms.keep_mask_plain(bt, vt, 0.5)
+    want_cpu = cuda_nms.keep_mask_plain(bt.cpu(), vt.cpu(), 0.5)
+    assert torch.equal(got, want_gpu)
+    assert torch.equal(got.cpu(), want_cpu)
+
+
+def test_kernel_rejects_bad_inputs(cuda_nms):
+    with pytest.raises(ValueError):
+        cuda_nms.nms_keep_mask(torch.zeros(1, 1025, 4, device="cuda"),
+                               torch.ones(1, 1025, dtype=torch.bool,
+                                          device="cuda"), 0.5)
+    with pytest.raises(TypeError):
+        cuda_nms.nms_keep_mask(torch.zeros(1, 8, 4, device="cuda",
+                                           dtype=torch.float64),
+                               torch.ones(1, 8, dtype=torch.bool,
+                                          device="cuda"), 0.5)

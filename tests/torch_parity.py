@@ -1,0 +1,78 @@
+"""Shared helpers of the tests that hold pillars_torch against pillars_tpu:
+random flax variable trees made with NumPy, and small model configs."""
+
+import numpy as np
+
+
+def randomize_variables(variables, seed):
+    """A copy of a flax ``{"params", "batch_stats"}`` tree with random
+    values from a NumPy seed: BN scales near 1, variances positive, so the
+    eval-mode BN is far from the identity."""
+    r = np.random.RandomState(seed)
+
+    def walk(tree, coll):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, coll)
+                continue
+            shape = np.shape(v)
+            if coll == "batch_stats" and k == "var":
+                a = r.uniform(0.5, 2.0, shape)
+            elif coll == "batch_stats":
+                a = r.randn(*shape) * 0.1
+            elif k == "scale":
+                a = r.uniform(0.5, 1.5, shape)
+            elif k == "bias":
+                a = r.randn(*shape) * 0.1
+            else:
+                fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+                a = r.randn(*shape) * np.sqrt(2.0 / fan_in)
+            out[k] = a.astype(np.float32)
+        return out
+
+    return {coll: walk(variables[coll], coll)
+            for coll in ("params", "batch_stats")}
+
+
+# a reduced d435i model: narrow RPN, short blocks, a small point pad
+SMALL_OVERRIDES = (
+    ("model.voxel.max_points", 2048),
+    ("model.pfn.num_filters", 16),
+    ("model.rpn.layer_nums", [1, 2, 2]),
+    ("model.rpn.num_filters", [16, 32, 64]),
+    ("model.rpn.num_upsample_filters", [32, 32, 32]),
+)
+
+
+def small_config(config_cls):
+    cfg = config_cls.default()
+    for key, value in SMALL_OVERRIDES:
+        cfg = cfg.override(key, value)
+    return cfg
+
+
+def d435i_clouds(seed, batch, maxpts, n):
+    """Uniform d435i-range clouds of n points, zero-padded to maxpts."""
+    r = np.random.RandomState(seed)
+    pts = np.zeros((batch, maxpts, 3), np.float32)
+    for b in range(batch):
+        pts[b, :n, 0] = r.uniform(0.0, 6.4, n)
+        pts[b, :n, 1] = r.uniform(-2.56, 2.56, n)
+        pts[b, :n, 2] = r.uniform(-3.0, 3.0, n)
+    return pts, np.full((batch,), n, np.int32)
+
+
+def standup_box_sets(seed, b, k, n_dup=10):
+    """[b, k, 4] metric standup boxes (so the +1-pixel IoU matters) with
+    exact duplicates, [b, k] scores with ties (8 levels) and [b, k] valid
+    (~20% invalid)."""
+    r = np.random.RandomState(seed)
+    centers = r.uniform(0, 6, (b, k, 2)).astype(np.float32)
+    sizes = r.uniform(0.3, 1.0, (b, k, 2)).astype(np.float32)
+    boxes = np.concatenate([centers - sizes / 2, centers + sizes / 2], -1)
+    for i in range(b):
+        boxes[i, r.choice(k, n_dup)] = boxes[i, r.choice(k, n_dup)]
+    valid = r.uniform(size=(b, k)) > 0.2
+    scores = (r.randint(0, 8, (b, k)) / 8.0).astype(np.float32)
+    return boxes, scores, valid
