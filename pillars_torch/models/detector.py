@@ -1,10 +1,18 @@
-"""End-to-end d435i inference (pillars_tpu/models/detector.py, dense-cell
-path): voxelize -> DenseCellPFN -> canvas -> RPN -> decode + top-k + NMS +
-direction flip, with fixed-size outputs and a validity mask.
+"""End-to-end d435i inference (pillars_tpu/models/detector.py): voxelize ->
+PFN -> canvas -> RPN -> decode + top-k + NMS + direction flip, with
+fixed-size outputs and a validity mask.
+
+Two front ends, as in the JAX package. Dense cell (``_forward_dense``, the
+default config): the pillar space is the cell grid and the canvas a reshape.
+Point-major (``pfn.dense_cell`` false): ``VoxelizedPoints`` ->
+``PointwisePFN`` -> canvas scatter -> RPN (``apply``); with
+``rpn.use_pallas_blocks`` the three downsample blocks run as the fused
+kernel (``_forward_fast``: ``ops/rpn_blocks.py``, the CUDA kernel on the
+card, its plain twin on the CPU) and ``RPNTail`` follows.
 
 Precision: the JAX reference on the CPU computes in full f32, while cuDNN
-convolutions default to TF32 (about 3 decimal digits). Both stages of this
-path therefore turn TF32 off for convolutions and matmuls
+convolutions default to TF32 (about 3 decimal digits). Every stage of these
+paths therefore turns TF32 off for convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``, process-wide flags).
 """
@@ -20,12 +28,15 @@ from torch import nn
 from pillars_torch import resolve_device
 from pillars_torch.config import Config, ModelConfig
 from pillars_torch.geometry import boxes as gb
-from pillars_torch.models.pfn import DenseCellPFN
-from pillars_torch.models.rpn import RPN
-from pillars_torch.ops.anchors import (StructuredSAT, anchors_mask_from_dense,
-                                       build_anchors)
+from pillars_torch.models.pfn import DenseCellPFN, PointwisePFN
+from pillars_torch.models.rpn import RPN, RPNTail
+from pillars_torch.ops.anchors import (StructuredSAT, anchors_mask_batched,
+                                       anchors_mask_from_dense, build_anchors)
 from pillars_torch.ops.nms import nms_standup
-from pillars_torch.ops.voxelize import make_cell_voxelizer
+from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
+from pillars_torch.ops.scatter import scatter_to_canvas_batched
+from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
+                                        make_point_voxelizer)
 
 
 class Predictions(NamedTuple):
@@ -43,18 +54,57 @@ def _full_f32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def point_canvas(pfn, v: VoxelizedPoints, ny: int, nx: int) -> torch.Tensor:
+    """Point-major front end: ``pfn`` (a :class:`PointwisePFN` or a call
+    of one) over the batch folded into the point and pillar axes, then the
+    canvas scatter -> [B, ny, nx, C]."""
+    b, p = v.pillar_mask.shape
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
+    # per-sample pillar ids offset into the folded [B*P] rows; the sentinel
+    # segment's id may reach the next sample's row 0, but its points are
+    # not kept and cannot win a max
+    offset = torch.arange(b, dtype=torch.int32, device=v.points.device) * p
+    feats = pfn(flat(v.points), flat(v.point_pillar + offset[:, None]),
+                flat(v.point_kept), flat(v.point_mean), flat(v.point_zyx),
+                flat(v.num_points), flat(v.pillar_mask))
+    return scatter_to_canvas_batched(feats.reshape(b, p, -1), v.coords,
+                                     v.pillar_mask, ny, nx)
+
+
 class Network(nn.Module):
-    """Dense-cell front end + RPN: padded clouds -> (NHWC head tensors,
-    [B, ny, nx] occupied-cell count summed over z)."""
+    """PFN + canvas + RPN. Dense cell: ``forward(points, num_valid)`` ->
+    (NHWC head tensors, [B, ny, nx] occupied-cell count summed over z).
+    Point-major: ``forward(voxelized)`` -> NHWC head tensors. The two
+    share parameter names, so one checkpoint loads into either."""
 
     def __init__(self, mcfg: ModelConfig):
         super().__init__()
         self.mcfg = mcfg
-        self.pfn = DenseCellPFN(mcfg)
+        # the JAX package's rule: the dense-cell front end serves every
+        # grid that fits in max_voxels, unless a middle extractor is on
+        gx, gy, gz = mcfg.voxel.grid_size
+        self.dense_cell = (mcfg.pfn.dense_cell and not mcfg.middle.enabled
+                           and gx * gy * gz <= mcfg.voxel.max_voxels)
+        if not self.dense_cell:
+            unported = [name for name, on in (
+                ("model.middle.enabled", mcfg.middle.enabled),
+                ("model.pfn.simple_mean", mcfg.pfn.simple_mean),
+                ("model.pfn.pointwise=false", not mcfg.pfn.pointwise)) if on]
+            if unported:
+                raise NotImplementedError(
+                    f"not ported yet: {', '.join(unported)} (the dense-cell "
+                    f"and the point-major PointwisePFN front ends are)")
+        self.pfn = (DenseCellPFN(mcfg) if self.dense_cell
+                    else PointwisePFN(mcfg))
         self.rpn = RPN(mcfg)
-        self.cell_voxelize = make_cell_voxelizer(mcfg.voxel)
+        if self.dense_cell:
+            self.cell_voxelize = make_cell_voxelizer(mcfg.voxel)
 
-    def forward(self, points, num_valid):
+    def forward(self, *inputs):
+        if not self.dense_cell:
+            _, ny, nx = self.mcfg.feature_map_size
+            return self.rpn(point_canvas(self.pfn, *inputs, ny, nx))
+        points, num_valid = inputs
         b = points.shape[0]
         nx, ny, nz = self.mcfg.voxel.grid_size
         n_cells = nx * ny * nz
@@ -74,6 +124,12 @@ class Network(nn.Module):
         return self.rpn(canvas), dense_grid
 
 
+def _sub_state(state: Dict[str, torch.Tensor], module: nn.Module,
+               prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries of ``state`` under ``prefix`` that ``module`` holds."""
+    return {k: state[prefix + k] for k in module.state_dict()}
+
+
 class PillarsDetector:
     """Binds the config, the anchor tables and the network on one device;
     the state (weights) is passed to each call, as in the JAX package."""
@@ -84,16 +140,18 @@ class PillarsDetector:
         self.device = resolve_device(device)
         if config.runtime.compute_dtype != "float32":
             raise NotImplementedError("only float32 compute is ported")
-        gx, gy, gz = self.mcfg.voxel.grid_size
-        self.dense_cell = (self.mcfg.pfn.dense_cell
-                           and not self.mcfg.middle.enabled
-                           and gx * gy * gz <= self.mcfg.voxel.max_voxels)
-        if not self.dense_cell:
-            raise NotImplementedError(
-                "only the dense-cell front end is ported (pfn.dense_cell with "
-                "a grid of at most max_voxels cells and no middle extractor)")
-        self.anchor_set = build_anchors(self.mcfg)
         self.network = Network(self.mcfg).to(self.device).eval()
+        self.dense_cell = self.network.dense_cell
+        rcfg = self.mcfg.rpn
+        # the fused blocks: the CUDA kernel on the card, its twin on the CPU
+        self.fast = (rcfg.use_pallas_blocks and rcfg.use_separable_conv
+                     and self.mcfg.pfn.pointwise and not self.dense_cell)
+        if not self.dense_cell:
+            self.voxelize = make_point_voxelizer(self.mcfg.voxel)
+        if self.fast:
+            self.rpn_tail = RPNTail(self.mcfg).to(self.device).eval()
+        _, self.ny, self.nx = self.mcfg.feature_map_size
+        self.anchor_set = build_anchors(self.mcfg)
         dev = self.device
         self.anchors = torch.as_tensor(self.anchor_set.anchors, device=dev)
         self.sat_corners = torch.as_tensor(self.anchor_set.sat_corners,
@@ -119,6 +177,41 @@ class PillarsDetector:
         amask = anchors_mask_from_dense(dense_grid, self.sat_corners, thr,
                                         structured=self.sat_structured)
         return preds, amask
+
+    # ------------------------------------------------------------------
+    def voxelize_batch(self, points, num_valid) -> VoxelizedPoints:
+        """[B, MAXPTS, D] + [B] -> the point-major voxelization of the batch
+        (each sample as the JAX package's ``voxelize_points`` gives it)."""
+        return self.voxelize(points, num_valid)
+
+    def anchors_mask_batch(self, coords, pillar_mask, threshold: float):
+        """[B, P, 3] pillar coords + [B, P] mask -> [B, A] anchors mask."""
+        # voxel-grid -> feature-map downscale (1 for PointPillars)
+        stride = max(1, self.mcfg.voxel.grid_size[1] // self.ny)
+        return anchors_mask_batched(
+            coords, pillar_mask, self.sat_corners, self.ny, self.nx,
+            threshold, structured=self.sat_structured, coord_stride=stride)
+
+    def apply(self, state, voxelized: VoxelizedPoints
+              ) -> Dict[str, torch.Tensor]:
+        """Point-major PFN + canvas + RPN -> NHWC head tensors."""
+        _full_f32()
+        return torch.func.functional_call(self.network, state, (voxelized,))
+
+    def _forward_fast(self, state, voxelized: VoxelizedPoints
+                      ) -> Dict[str, torch.Tensor]:
+        """:meth:`apply` with the three downsample blocks as fused kernels
+        (BN folded per call), then :class:`RPNTail`."""
+        _full_f32()
+        pfn = self.network.pfn
+        pfn_state = _sub_state(state, pfn, "pfn.")
+        canvas = point_canvas(
+            lambda *a: torch.func.functional_call(pfn, pfn_state, a),
+            voxelized, self.ny, self.nx)
+        b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn)
+        return torch.func.functional_call(
+            self.rpn_tail, _sub_state(state, self.rpn_tail, "rpn."),
+            (b1, b2, b3))
 
     # ------------------------------------------------------------------
     def postprocess(self, preds: Dict[str, torch.Tensor], anchors_mask,
@@ -205,8 +298,15 @@ class PillarsDetector:
                 rect = torch.as_tensor(rect, dtype=torch.float32, device=dev)
                 trv2c = torch.as_tensor(trv2c, dtype=torch.float32,
                                         device=dev)
-                preds, amask = self._forward_dense(state, points, num_valid,
-                                                   thr)
+                if self.dense_cell:
+                    preds, amask = self._forward_dense(state, points,
+                                                       num_valid, thr)
+                else:
+                    voxelized = self.voxelize_batch(points, num_valid)
+                    amask = self.anchors_mask_batch(
+                        voxelized.coords, voxelized.pillar_mask, thr)
+                    forward = self._forward_fast if self.fast else self.apply
+                    preds = forward(state, voxelized)
                 return self.postprocess(preds, amask, rect, trv2c)
 
         return fn

@@ -1,12 +1,13 @@
-"""Dense-cell PillarFeatureNet in eval mode (pillars_tpu/models/pfn.py::
-DenseCellPFN and _PointwiseMaskedBN; reference model/pointpillars.py:65-225).
+"""PillarFeatureNet in eval mode over point-major layouts
+(pillars_tpu/models/pfn.py::DenseCellPFN, PointwisePFN and
+_PointwiseMaskedBN; reference model/pointpillars.py:65-225).
 
-Per point: 8 features (xyz, offset to the cell's point mean, offset to the
+Per point: 8 features (xyz, offset to the pillar's point mean, offset to the
 pillar centre), Linear 8->128 without bias, BatchNorm with the running
-statistics, ReLU. Per cell: one sorted scatter-max that also carries the
-cell's point count as channel F. Cells with fewer than N points also take
-the max with relu(bn(0)), the processed zero row of the reference's padded
-layout; empty cells are zero.
+statistics, ReLU. Per pillar: one scatter-max. Pillars with fewer than N
+points also take the max with relu(bn(0)), the processed zero row of the
+reference's padded layout; empty pillars are zero. Both modules name their
+parameters ``dense`` and ``bn``, so they load the same checkpoint.
 """
 
 from __future__ import annotations
@@ -38,6 +39,63 @@ class _PointwiseMaskedBN(nn.Module):
         y = (x - mean) * inv * self.weight + self.bias
         zero_vec = (0.0 - mean) * inv * self.weight + self.bias
         return y, zero_vec
+
+
+def _encode(pfn, points, mean, cx, cy, kept):
+    """Per point: the 8 features (xyz, offset to the pillar's point mean
+    ``mean`` [M, 3], offset to the pillar centre ``cx``/``cy``), zero where
+    not ``kept``, through Linear + BN + ReLU -> (x [M, F], relu(bn(0)) [F])."""
+    feats = torch.cat([points, points[:, :3] - mean,
+                       (points[:, 0] - cx)[:, None],
+                       (points[:, 1] - cy)[:, None]], dim=-1)
+    feats = torch.where(kept[:, None], feats, torch.zeros_like(feats))
+    x, zero_vec = pfn.bn(pfn.dense(feats))
+    return torch.relu(x), torch.relu(zero_vec)
+
+
+class PointwisePFN(nn.Module):
+    """PFN over the point-major pillar layout (ops/voxelize.py
+    VoxelizedPoints, batch folded into the point and pillar axes).
+
+    Returns pillar features [P, F]; rows of padding pillars are zero."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        pcfg = cfg.pfn
+        if pcfg.with_distance:
+            raise NotImplementedError("pfn.with_distance is not ported yet")
+        self.dense = nn.Linear(cfg.num_point_features + 5, pcfg.num_filters,
+                               bias=False)
+        self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps)
+
+    def forward(self, points, point_pillar, point_kept, point_mean,
+                point_zyx, num_points, pillar_mask):
+        """points [M, D] (cell-sorted), point_pillar [M] (ids into the P
+        rows, at most P), point_kept [M], point_mean [M, >=3], point_zyx
+        [M, 3], num_points / pillar_mask [P]."""
+        vcfg = self.cfg.voxel
+        vx, vy = vcfg.voxel_size[:2]
+        pcr = vcfg.point_cloud_range
+        n_pillars = num_points.shape[0]
+        kept = point_kept[:, None]
+        cx = point_zyx[:, 2].to(points.dtype) * vx + (vx / 2 + pcr[0])
+        cy = point_zyx[:, 1].to(points.dtype) * vy + (vy / 2 + pcr[1])
+
+        x, zero_contrib = _encode(self, points, point_mean[:, :3], cx, cy,
+                                  point_kept)
+        neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+        x = torch.where(kept, x, neg)  # dropped points cannot win a max
+        # one spare row takes the id P (the JAX package drops it)
+        seg = torch.full((n_pillars + 1, x.shape[1]), float("-inf"),
+                         dtype=x.dtype, device=x.device)
+        seg.scatter_reduce_(0, point_pillar.long()[:, None].expand_as(x), x,
+                            "amax")
+        seg = seg[:n_pillars]
+        pad_rows = (num_points < vcfg.max_points_per_voxel)[:, None]
+        seg = torch.maximum(seg, torch.where(pad_rows, zero_contrib[None], neg))
+        return torch.where(pillar_mask[:, None] & torch.isfinite(seg), seg,
+                           torch.zeros_like(seg))
 
 
 class DenseCellPFN(nn.Module):
@@ -77,14 +135,7 @@ class DenseCellPFN(nn.Module):
         cx = cxi.to(points.dtype) * vx + x_offset
         cy = cyi.to(points.dtype) * vy + y_offset
 
-        feats = torch.cat([points, points[:, :3] - mean,
-                           (points[:, 0] - cx)[:, None],
-                           (points[:, 1] - cy)[:, None]], dim=-1)
-        feats = torch.where(kept[:, None], feats, torch.zeros_like(feats))
-
-        x, zero_vec = self.bn(self.dense(feats))
-        x = torch.relu(x)
-        zero_contrib = torch.relu(zero_vec)
+        x, zero_contrib = _encode(self, points, mean, cx, cy, kept)
 
         neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
         xm = torch.where(kept[:, None], x, neg)

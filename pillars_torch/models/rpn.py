@@ -4,7 +4,9 @@ model/voxelnet.py:517-717).
 Three downsample blocks of separable convs, each conv followed by BN+ReLU;
 three ConvTranspose up-branches; 1x1 heads applied per branch and summed
 (the same math as a head on the concat, without materializing it).
-The module takes and returns NHWC like the JAX package; inside it is NCHW.
+:class:`RPNTail` is the part after the blocks, for the path whose blocks run
+fused (ops/rpn_blocks.py). The modules take and return NHWC like the JAX
+package; inside they are NCHW.
 """
 
 from __future__ import annotations
@@ -76,21 +78,21 @@ class _Deconv(nn.Module):
         return torch.relu(self.bn(self.deconv(x)))
 
 
-class RPN(nn.Module):
+class RPNTail(nn.Module):
+    """Deconv branches + heads only (pillars_tpu/models/rpn.py::RPNTail):
+    the rest of the RPN after the downsample blocks, which the fast
+    inference path runs as fused kernels (ops/rpn_blocks.py). Child names
+    match :class:`RPN`'s, so the ``rpn.*`` entries of a state_dict load
+    into it."""
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         rcfg = cfg.rpn
-        cin = cfg.pfn.num_filters
         for i in range(3):
-            self.add_module(f"block{i + 1}", _Block(
-                cin, rcfg.num_filters[i], rcfg.layer_nums[i],
-                rcfg.layer_strides[i], rcfg.bn_eps,
-                rcfg.use_separable_conv))
             self.add_module(f"deconv{i + 1}", _Deconv(
                 rcfg.num_filters[i], rcfg.num_upsample_filters[i],
                 rcfg.upsample_strides[i], rcfg.bn_eps))
-            cin = rcfg.num_filters[i]
         ups = list(rcfg.num_upsample_filters)
         n_anchor = cfg.num_anchors_per_loc
         num_cls = n_anchor * (cfg.num_class if cfg.encode_background_as_zeros
@@ -101,16 +103,41 @@ class RPN(nn.Module):
         if self.use_dir:
             self.conv_dir_cls = _SplitHead(ups, n_anchor * 2)
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        """x: [B, ny, nx, C] canvas -> head outputs, NHWC."""
-        x = x.permute(0, 3, 1, 2).contiguous()
-        ups = []
-        for i in range(3):
-            x = getattr(self, f"block{i + 1}")(x)
-            ups.append(getattr(self, f"deconv{i + 1}")(x))
+    def forward(self, b1, b2, b3) -> Dict[str, torch.Tensor]:
+        """NHWC block outputs -> head outputs, NHWC."""
+        return self.heads([b.permute(0, 3, 1, 2) for b in (b1, b2, b3)])
+
+    def heads(self, blocks) -> Dict[str, torch.Tensor]:
+        """NCHW block outputs -> head outputs, NHWC."""
+        ups = [getattr(self, f"deconv{i + 1}")(b)
+               for i, b in enumerate(blocks)]
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         out = {"box_preds": nhwc(self.conv_box(ups)),
                "cls_preds": nhwc(self.conv_cls(ups))}
         if self.use_dir:
             out["dir_cls_preds"] = nhwc(self.conv_dir_cls(ups))
         return out
+
+
+class RPN(RPNTail):
+    """The three downsample blocks, then :class:`RPNTail`."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        rcfg = cfg.rpn
+        cin = cfg.pfn.num_filters
+        for i in range(3):
+            self.add_module(f"block{i + 1}", _Block(
+                cin, rcfg.num_filters[i], rcfg.layer_nums[i],
+                rcfg.layer_strides[i], rcfg.bn_eps,
+                rcfg.use_separable_conv))
+            cin = rcfg.num_filters[i]
+
+    def forward(self, x) -> Dict[str, torch.Tensor]:
+        """x: [B, ny, nx, C] canvas -> head outputs, NHWC."""
+        x = x.permute(0, 3, 1, 2).contiguous()
+        blocks = []
+        for i in range(3):
+            x = getattr(self, f"block{i + 1}")(x)
+            blocks.append(x)
+        return self.heads(blocks)

@@ -1,6 +1,7 @@
 """Static anchor tables (NumPy) and the summed-area-table anchors mask
 (torch). A copy of pillars_tpu/ops/anchors.py's table builders, and a torch
-port of its ``anchors_mask_from_dense``.
+port of its ``anchors_mask_from_dense`` and of the coords-based
+``anchors_mask`` / ``anchors_mask_batched`` of the point-major path.
 
 The tables depend only on the config, so they are built once at set-up. The
 mask prunes anchors over empty BEV regions: two cumulative sums (the SAT),
@@ -181,3 +182,33 @@ def anchors_mask_from_dense(dense: torch.Tensor, sat_corners,
     IC = sat[:, y0, x1]
     area = ID - IB - IC + IA
     return area > area_threshold
+
+
+def anchors_mask_batched(coords: torch.Tensor, pillar_mask: torch.Tensor,
+                         sat_corners, ny: int, nx: int, area_threshold: float,
+                         structured: Optional[StructuredSAT] = None,
+                         coord_stride: int = 1) -> torch.Tensor:
+    """[B, P, 3] (z, y, x) pillar coords + [B, P] mask -> [B, A] bool anchor
+    mask (reference load_data.py:3050-3072): the per-(y, x) pillar count,
+    summed over z-layers, through :func:`anchors_mask_from_dense`.
+    ``coord_stride`` downscales voxel-grid coords onto the anchor feature
+    map where the two differ."""
+    b = coords.shape[0]
+    y = torch.div(coords[..., 1], coord_stride, rounding_mode="floor").long()
+    x = torch.div(coords[..., 2], coord_stride, rounding_mode="floor").long()
+    flat = torch.where(pillar_mask, y * nx + x, torch.full_like(y, ny * nx))
+    dense = torch.zeros((b, ny * nx + 1), dtype=torch.float32,
+                        device=coords.device)
+    dense.scatter_add_(1, flat, pillar_mask.to(torch.float32))
+    return anchors_mask_from_dense(dense[:, :ny * nx].reshape(b, ny, nx),
+                                   sat_corners, area_threshold, structured)
+
+
+def anchors_mask(coords: torch.Tensor, pillar_mask: torch.Tensor, sat_corners,
+                 ny: int, nx: int, area_threshold: float,
+                 structured: Optional[StructuredSAT] = None,
+                 coord_stride: int = 1) -> torch.Tensor:
+    """[P, 3] pillar coords + [P] mask -> [A] bool anchor mask."""
+    return anchors_mask_batched(coords[None], pillar_mask[None], sat_corners,
+                                ny, nx, area_threshold, structured,
+                                coord_stride)[0]

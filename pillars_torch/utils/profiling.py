@@ -1,14 +1,18 @@
 """Timing on the card: CUDA-event timers, a per-stage breakdown of the d435i
-inference path and a torch.profiler pass for the device's busy share.
+inference paths and a torch.profiler pass for the device's busy share.
 
-    python -m pillars_torch.utils.profiling [--iters 50] [--out FILE]
+    python -m pillars_torch.utils.profiling [--path dense|fast] [--iters 50]
+                                            [--out FILE]
 
-runs ``PillarsDetector(Config.default())`` with the trained checkpoint on
-d435i-sized clouds (19200 points, NumPy seed 0) at B=1 and prints, in ms per
-cloud: each stage alone (CUDA events, warm), the whole path (three times, for
-the spread), the device time per cloud summed over its kernels, the idle
-share, the kernel launches per cloud and the longest kernels. Needs
-a card; the numbers name it.
+runs ``PillarsDetector`` with the trained checkpoint on d435i-sized clouds
+(19200 points, NumPy seed 0) at B=1: ``--path dense`` (the default) the
+dense-cell path of ``Config.default()``, ``--path fast`` the point-major path
+whose RPN blocks run fused (``model.pfn.dense_cell`` false,
+``model.rpn.use_pallas_blocks`` true). It prints, in ms per cloud: each stage
+alone (CUDA events, warm), the whole path (three times, for the spread), the
+device time per cloud summed over its kernels, the idle share, the kernel
+launches per cloud and the longest kernels. Needs a card; the numbers name
+it.
 """
 
 from __future__ import annotations
@@ -81,6 +85,56 @@ def profile_stages(det, state, points, num_valid, rect, trv2c,
         }
 
 
+def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
+                        iters: int) -> Dict[str, float]:
+    """ms per call of each stage of the point-major fast path (voxelize,
+    PFN + canvas, the three fused blocks, the RPN tail, postprocess), each
+    timed alone on inputs made by the stage before it, and of the whole
+    path."""
+    from pillars_torch.models.detector import _sub_state, point_canvas
+    from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
+
+    thr = det.config.eval_input.anchor_area_threshold
+    pfn = det.network.pfn
+    pfn_state = _sub_state(state, pfn, "pfn.")
+    tail_state = _sub_state(state, det.rpn_tail, "rpn.")
+
+    def front(v):
+        return point_canvas(
+            lambda *a: torch.func.functional_call(pfn, pfn_state, a), v,
+            det.ny, det.nx)
+
+    def tail(blocks):
+        return torch.func.functional_call(det.rpn_tail, tail_state,
+                                          tuple(blocks))
+
+    fn = det.make_inference_fn()
+    with torch.inference_mode():
+        v = det.voxelize_batch(points, num_valid)
+        canvas = front(v)
+        blocks = fused_rpn_blocks(canvas, state, det.mcfg.rpn)
+        preds = tail(blocks)
+        amask = det.anchors_mask_batch(v.coords, v.pillar_mask, thr)
+        return {
+            "t_voxelize": cuda_ms(
+                lambda: det.voxelize_batch(points, num_valid), iters),
+            "t_anchors_mask": cuda_ms(
+                lambda: det.anchors_mask_batch(v.coords, v.pillar_mask, thr),
+                iters),
+            "t_pfn_canvas": cuda_ms(lambda: front(v), iters),
+            "t_rpn_blocks": cuda_ms(
+                lambda: fused_rpn_blocks(canvas, state, det.mcfg.rpn), iters),
+            "t_rpn_tail": cuda_ms(lambda: tail(blocks), iters),
+            "t_forward_fast": cuda_ms(
+                lambda: det._forward_fast(state, v), iters),
+            "t_postprocess": cuda_ms(
+                lambda: det.postprocess(preds, amask, rect, trv2c), iters),
+            **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
+                                                 rect, trv2c), iters)
+               for i in range(3)},
+        }
+
+
 def device_busy(fn: Callable[[], object], iters: int):
     """(host wall ms per call, device ms per call summed over kernels,
     kernels by device time [(name, calls per call, device ms per call)])
@@ -114,11 +168,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--weights", default=str(
         root / "benchmarks" / "hard_synth" / "weights_59.pkl"))
+    ap.add_argument("--path", choices=("dense", "fast"), default="dense",
+                    help="dense-cell path, or point-major with fused blocks")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--out", default=None, help="write the result as JSON")
     args = ap.parse_args()
 
     cfg = Config.default()
+    if args.path == "fast":
+        cfg = (cfg.override("model.pfn.dense_cell", False)
+               .override("model.rpn.use_pallas_blocks", True))
     det = PillarsDetector(cfg)
     state = det.state_to_device(
         from_jax_variables(*load_params(args.weights), cfg))
@@ -135,7 +194,8 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    stages = profile_stages(det, state, points, num, eye, eye, args.iters)
+    stages = (profile_fast_stages if args.path == "fast" else profile_stages)(
+        det, state, points, num, eye, eye, args.iters)
     fn = det.make_inference_fn()
     wall, device, rows = device_busy(
         lambda: fn(state, points, num, eye, eye), args.iters)
@@ -143,7 +203,8 @@ def main():
     # profiler, whose own overhead slows the host
     full = sorted(v for k, v in stages.items() if k.startswith("t_full"))
     idle = 1.0 - device / full[len(full) // 2]
-    result = {"card": card, "batch": 1, "iters": args.iters,
+    result = {"card": card, "path": args.path, "batch": 1,
+              "iters": args.iters,
               "stages_ms": stages, "profiled_wall_ms": wall,
               "device_ms": device, "idle_share": idle,
               "kernels": [{"name": k, "per_cloud": c, "ms": t}
@@ -157,7 +218,7 @@ def main():
     print(f"{sum(c for _, c, _ in rows):g} kernel launches per cloud; "
           f"the 12 longest, and the port's own:")
     for i, (k, c, t) in enumerate(rows):
-        if i < 12 or "nms_keep_mask" in k:
+        if i < 12 or "nms_keep_mask" in k or "rpn_sep_block" in k:
             print(f"  {t * 1e3:9.2f} us  x{c:g}  {k[:90]}")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -120,8 +120,9 @@ def from_jax_variables(params: Dict, batch_stats: Optional[Dict],
                        cfg) -> Dict[str, torch.Tensor]:
     """Flax ``params``/``batch_stats`` trees -> the ``state_dict`` of
     :class:`pillars_torch.models.detector.Network` for the model config
-    ``cfg`` (a :class:`~pillars_torch.config.Config` or its ``model``).
-    Checked strictly against that network's names and shapes."""
+    ``cfg`` (a :class:`~pillars_torch.config.Config` or its ``model``),
+    dense-cell or point-major: the two share their names. Checked strictly
+    against that network's names and shapes."""
     from pillars_torch.models.detector import Network
 
     out = convert_tree(params, batch_stats)

@@ -2,10 +2,8 @@
 weights, on the CPU: a reduced random-init model and the trained d435i
 checkpoint at Config.default() widths (reduced point pad), B=1 and B=2.
 
-valid and labels must be equal. Scores and boxes on valid slots agree to
-float32 rounding accumulated through the network (the same convs summed in
-another order): SCORE_ATOL, and BOX_ATOL plus BOX_RTOL (random-init
-encodings reach exp() of large values, so boxes of 1e5 m occur there).
+valid and labels must be equal; scores and boxes on valid slots within the
+tolerances of ``torch_parity.compare_predictions``.
 """
 
 import pathlib
@@ -22,32 +20,13 @@ from pillars_torch.weights import from_jax_variables, load_params
 from pillars_tpu.config import Config as JaxConfig
 from pillars_tpu.models.detector import PillarsDetector as JaxDetector
 from pillars_tpu.train.checkpoint import load_params as jax_load_params
-from torch_parity import d435i_clouds, randomize_variables, small_config
+from torch_parity import (compare_predictions, d435i_clouds,
+                          randomize_variables, small_config)
 
 torch.set_num_threads(2)
 
 WEIGHTS = str(pathlib.Path(__file__).resolve().parent.parent / "benchmarks"
               / "hard_synth" / "weights_59.pkl")
-SCORE_ATOL = 1e-5
-BOX_ATOL = 1e-4
-BOX_RTOL = 2e-5
-
-
-def _compare(want, got):
-    v = np.asarray(want.valid)
-    assert v.any()
-    np.testing.assert_array_equal(got.valid.numpy(), v)
-    np.testing.assert_array_equal(got.labels.numpy()[v],
-                                  np.asarray(want.labels)[v])
-    np.testing.assert_allclose(got.scores.numpy()[v],
-                               np.asarray(want.scores)[v], atol=SCORE_ATOL)
-    for name in ("boxes_lidar", "boxes_camera"):
-        np.testing.assert_allclose(getattr(got, name).numpy()[v],
-                                   np.asarray(getattr(want, name))[v],
-                                   rtol=BOX_RTOL, atol=BOX_ATOL,
-                                   err_msg=name)
-
-
 def _run_both(jcfg, tcfg, variables, state, batch, n, seed):
     maxpts = jcfg.model.voxel.max_points
     pts, num = d435i_clouds(seed, batch, maxpts, n)
@@ -74,7 +53,7 @@ def test_inference_reduced_random_init(batch):
                                variables["batch_stats"], tcfg)
     want, got = _run_both(jcfg, tcfg, variables, state, batch, 1800,
                           seed=batch)
-    _compare(want, got)
+    compare_predictions(want, got)
 
 
 @pytest.mark.parametrize("batch", [1, 2])
@@ -86,13 +65,15 @@ def test_inference_default_widths_trained_weights(batch):
     state = from_jax_variables(*load_params(WEIGHTS), tcfg)
     want, got = _run_both(jcfg, tcfg, variables, state, batch, 4000,
                           seed=10 + batch)
-    _compare(want, got)
+    compare_predictions(want, got)
 
 
 def test_unported_configs_raise():
-    cfg = TorchConfig.default().override("model.pfn.dense_cell", False)
-    with pytest.raises(NotImplementedError):
-        TorchDetector(cfg, device="cpu")
+    point_major = TorchConfig.default().override("model.pfn.dense_cell", False)
+    for key, value in (("model.pfn.pointwise", False),
+                       ("model.pfn.simple_mean", True)):
+        with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
+            TorchDetector(point_major.override(key, value), device="cpu")
     cfg = TorchConfig.default().override("runtime.compute_dtype", "bfloat16")
     with pytest.raises(NotImplementedError):
         TorchDetector(cfg, device="cpu")

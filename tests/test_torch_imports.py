@@ -1,7 +1,8 @@
 """The port stands alone: no file of pillars_torch/ or chip_smoke.py imports
 JAX, flax, optax or the JAX package, the package imports and reads the
-trained checkpoint in a process where those cannot be imported, and its
-config copy equals the JAX package's."""
+trained checkpoint into the dense-cell and the point-major network in a
+process where those cannot be imported, and its config copy equals the JAX
+package's."""
 
 import ast
 import dataclasses
@@ -49,10 +50,14 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 sys.meta_path.insert(0, Block())
 import pillars_torch.models.detector, pillars_torch.ops.nms_cuda
+import pillars_torch.ops.rpn_cuda
 from pillars_torch.config import Config
 from pillars_torch.weights import from_jax_variables, load_params
 params, stats = load_params(sys.argv[1])
 state = from_jax_variables(params, stats, Config.default())
+point_major = (Config.default().override("model.pfn.dense_cell", False)
+               .override("model.rpn.use_pallas_blocks", True))
+assert from_jax_variables(params, stats, point_major).keys() == state.keys()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print(len(state))

@@ -17,34 +17,18 @@ from pillars_torch.config import Config as TorchConfig
 from pillars_torch.ops.voxelize import make_cell_voxelizer as torch_vox
 from pillars_tpu.config import Config as JaxConfig
 from pillars_tpu.ops.voxelize import make_cell_voxelizer as jax_vox
+from torch_parity import crowded_clouds
 
 torch.set_num_threads(2)
 
 MEAN_ATOL = 1e-5
 
 
-def make_clouds(seed, b, maxpts, n_valid):
-    """Clouds over the d435i range and a little beyond (out-of-range points),
-    with one dense clump per sample (> 50 points in a cell: the cap) and
-    exact duplicates; zero padding after n_valid."""
-    r = np.random.RandomState(seed)
-    pts = np.zeros((b, maxpts, 3), np.float32)
-    for i in range(b):
-        n = n_valid[i]
-        p = np.stack([r.uniform(-0.5, 7.0, n), r.uniform(-3.0, 3.0, n),
-                      r.uniform(-3.5, 3.5, n)], 1)
-        clump = min(120, n // 4)
-        p[:clump] = [3.045, 0.005, 0.5] + r.uniform(0, 0.07, (clump, 3))
-        p[clump:clump + 10] = p[clump + 10:clump + 20]
-        pts[i, :n] = r.permutation(p)
-    return pts
-
-
 @pytest.mark.parametrize("b", [1, 2])
 def test_voxelize_cells_matches_jax(b):
     maxpts = 2048
     n_valid = np.array([2000, 1500][:b], np.int32)
-    pts = make_clouds(b, b, maxpts, n_valid)
+    pts = crowded_clouds(b, b, maxpts, n_valid)
     want = jax_vox(JaxConfig.default().model.voxel)(jnp.asarray(pts),
                                                    jnp.asarray(n_valid))
     got = torch_vox(TorchConfig.default().model.voxel)(

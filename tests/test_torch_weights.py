@@ -11,6 +11,7 @@ import jax
 from flax import linen as nn
 
 from pillars_torch.config import Config
+from pillars_torch.models.detector import Network
 from pillars_torch.weights import (_convert_param, from_jax_variables,
                                     load_params)
 from pillars_tpu.train.checkpoint import load_params as jax_load_params
@@ -83,6 +84,21 @@ def test_bridge_rejects_mismatched_config():
     narrow = Config.default().override("model.rpn.num_filters", [32, 64, 128])
     with pytest.raises(RuntimeError):
         from_jax_variables(params, stats, narrow)
+
+
+def test_point_major_network_loads_the_same_state():
+    """PointwisePFN and DenseCellPFN share parameter names, and the fused
+    blocks read the RPN's: one state serves both front ends."""
+    params, stats = load_params(str(WEIGHTS))
+    dense = from_jax_variables(params, stats, Config.default())
+    point_major = (Config.default().override("model.pfn.dense_cell", False)
+                   .override("model.rpn.use_pallas_blocks", True))
+    net = Network(point_major.model)
+    assert not net.dense_cell
+    state = from_jax_variables(params, stats, point_major)
+    assert state.keys() == dense.keys() == net.state_dict().keys()
+    for k in state:
+        assert torch.equal(state[k], dense[k]), k
 
 
 @pytest.mark.parametrize("stride", [1, 2, 4])

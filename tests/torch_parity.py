@@ -1,7 +1,32 @@
 """Shared helpers of the tests that hold pillars_torch against pillars_tpu:
-random flax variable trees made with NumPy, and small model configs."""
+random flax variable trees made with NumPy, small model configs and clouds."""
 
 import numpy as np
+
+# end-to-end predictions, port vs JAX package on the CPU: valid and labels
+# equal; scores and boxes on valid slots agree to f32 rounding accumulated
+# through the network (the same convs summed in another order). Random-init
+# encodings reach exp() of large values, so boxes of 1e5 m occur: BOX_RTOL.
+SCORE_ATOL = 1e-5
+BOX_ATOL = 1e-4
+BOX_RTOL = 2e-5
+
+
+def compare_predictions(want, got):
+    """``want``: the JAX package's Predictions (NumPy leaves); ``got``: the
+    port's (CPU tensors)."""
+    v = np.asarray(want.valid)
+    assert v.any()
+    np.testing.assert_array_equal(got.valid.numpy(), v)
+    np.testing.assert_array_equal(got.labels.numpy()[v],
+                                  np.asarray(want.labels)[v])
+    np.testing.assert_allclose(got.scores.numpy()[v],
+                               np.asarray(want.scores)[v], atol=SCORE_ATOL)
+    for name in ("boxes_lidar", "boxes_camera"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[v],
+                                   np.asarray(getattr(want, name))[v],
+                                   rtol=BOX_RTOL, atol=BOX_ATOL,
+                                   err_msg=name)
 
 
 def randomize_variables(variables, seed):
@@ -50,6 +75,36 @@ def small_config(config_cls):
     for key, value in SMALL_OVERRIDES:
         cfg = cfg.override(key, value)
     return cfg
+
+
+# the point-major d435i path whose RPN blocks run fused
+FAST_OVERRIDES = (
+    ("model.pfn.dense_cell", False),
+    ("model.rpn.use_pallas_blocks", True),
+)
+
+
+def fast_config(cfg):
+    for key, value in FAST_OVERRIDES:
+        cfg = cfg.override(key, value)
+    return cfg
+
+
+def crowded_clouds(seed, b, maxpts, n_valid):
+    """Clouds over the d435i range and a little beyond (out-of-range points),
+    with one dense clump per sample (> 50 points in a cell: the cap) and
+    exact duplicates; zero padding after n_valid."""
+    r = np.random.RandomState(seed)
+    pts = np.zeros((b, maxpts, 3), np.float32)
+    for i in range(b):
+        n = n_valid[i]
+        p = np.stack([r.uniform(-0.5, 7.0, n), r.uniform(-3.0, 3.0, n),
+                      r.uniform(-3.5, 3.5, n)], 1)
+        clump = min(120, n // 4)
+        p[:clump] = [3.045, 0.005, 0.5] + r.uniform(0, 0.07, (clump, 3))
+        p[clump:clump + 10] = p[clump + 10:clump + 20]
+        pts[i, :n] = r.permutation(p)
+    return pts
 
 
 def d435i_clouds(seed, batch, maxpts, n):
