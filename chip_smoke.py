@@ -9,11 +9,14 @@ Phases, none of whose failures is caught:
 3. each kernel against its plain PyTorch twin on the card, on random inputs
    at the main paths' shapes and beyond, with warm CUDA-event times of
    kernel and twin at the d435i shapes:
-   - NMS keep-mask: B in {1, 4}, K in {100, 1000}, duplicate boxes and
-     invalid rows; bit-equal;
+   - NMS keep-mask: B in {1, 4}, K in {100, 1000}, and B = 2 at K in {1,
+     33, 1024}, duplicate boxes and invalid rows; bit-equal; its device
+     time beside an empty kernel's (the launch floor);
    - fused RPN block: the three d435i block shapes at B in {1, 2} with
-     random folded weights; max |kernel - twin| <= 1e-5 * max |twin|; also
-     timed beside the unfused port block (cuDNN convs + BN + ReLU);
+     random folded weights, one block per launch and the three chained in
+     one launch; max |kernel - twin| <= 1e-5 * max |twin|; also timed
+     beside the unfused port blocks (cuDNN convs + BN + ReLU), under CUDA
+     events and, as device time summed over kernels, under torch.profiler;
 4. the dense-cell main path: ``PillarsDetector(Config.default())`` with the
    trained checkpoint ``benchmarks/hard_synth/weights_59.pkl`` through
    ``make_inference_fn`` on d435i-sized clouds (19200 points, NumPy seed 0)
@@ -23,11 +26,11 @@ Phases, none of whose failures is caught:
    against the CPU's predictions; then the warm ms/cloud at B=1;
 5. the point-major fast path: the same config with ``model.pfn.dense_cell``
    false and ``model.rpn.use_pallas_blocks`` true, the same checkpoint and
-   clouds, launch counts set to 0 before and read after (the fused block 3
-   times and NMS once per batch); its head tensors against the port on the
+   clouds, launch counts set to 0 before and read after (the fused blocks
+   and NMS once each per batch); its head tensors against the port on the
    CPU; its valid and labels equal to the dense-cell path's on the card,
    scores within 1e-5 and boxes within 1e-4 + 2e-5 relative; then the warm
-   ms/cloud at B=1.
+   ms/cloud at B=1, and its kernel launches and device time per cloud.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -81,12 +84,12 @@ def _sorted_box_sets(rng, b, k):
 def check_nms_kernel(iou_threshold):
     from pillars_torch.ops import nms_cuda
     from pillars_torch.ops.nms import keep_mask_plain
-    from pillars_torch.utils.profiling import cuda_ms
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
 
     rng = np.random.RandomState(0)
     max_err = 0.0
-    for b in (1, 4):
-        for k in (100, 1000):
+    for b, ks in ((1, (100, 1000)), (4, (100, 1000)), (2, (1, 33, 1024))):
+        for k in ks:
             boxes, valid = _sorted_box_sets(rng, b, k)
             bt = torch.from_numpy(boxes).cuda()
             vt = torch.from_numpy(valid).cuda()
@@ -106,6 +109,10 @@ def check_nms_kernel(iou_threshold):
     vt = torch.from_numpy(valid).cuda()
     ms = cuda_ms(lambda: nms_cuda.nms_keep_mask(bt, vt, iou_threshold), 500)
     plain_ms = cuda_ms(lambda: keep_mask_plain(bt, vt, iou_threshold), 20)
+    device_ms = device_busy(
+        lambda: nms_cuda.nms_keep_mask(bt, vt, iou_threshold), 200)[1]
+    floor_ms = device_busy(nms_cuda.launch_floor, 200)[1]
+    floor_call_ms = cuda_ms(nms_cuda.launch_floor, 500)
     n_valid = int(valid.sum())
     n_bytes = bt.numel() * 4 + vt.numel() + vt.numel()
     # per valid pair j < i: 2 max, 2 min, 4 add/sub, 2 clamps, mul, add,
@@ -113,7 +120,10 @@ def check_nms_kernel(iou_threshold):
     flops = 15 * n_valid * (n_valid - 1) // 2 + 5 * n_valid
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
-    print(f"nms_keep_mask B=1 K=100: kernel {ms * 1e3:.2f} us, plain twin "
+    print(f"nms_keep_mask B=1 K=100: kernel {ms * 1e3:.2f} us per call, "
+          f"{device_ms * 1e3:.2f} us device time (torch.profiler); an empty "
+          f"kernel of one block {floor_call_ms * 1e3:.2f} us per call, "
+          f"{floor_ms * 1e3:.2f} us device time; plain twin "
           f"{plain_ms * 1e3:.2f} us")
     return {"name": "nms_keep_mask", "route": "cuda",
             "source": "pillars_torch/csrc/nms_keep_mask.cu",
@@ -121,7 +131,8 @@ def check_nms_kernel(iou_threshold):
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "library_ms": None, "device_ms": device_ms,
+            "launch_floor_device_ms": floor_ms}
 
 
 def _block_shapes(mcfg):
@@ -154,8 +165,10 @@ def _block_work(b, h, w, cin, cout, n, stride):
 def check_rpn_kernel(mcfg):
     from pillars_torch.models.rpn import _Block
     from pillars_torch.ops import rpn_cuda
-    from pillars_torch.ops.rpn_blocks import FoldedLayer, fused_sep_block_plain
-    from pillars_torch.utils.profiling import cuda_ms
+    from pillars_torch.ops.rpn_blocks import (FoldedLayer,
+                                              fused_sep_block_plain,
+                                              pack_block)
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,26 +184,40 @@ def check_rpn_kernel(mcfg):
                 rng.randn(3, 3, ci), rng.randn(ci, cout) / np.sqrt(9 * ci),
                 rng.randn(cout) * 0.1))))
         layers.append(blk)
+    packed = [pack_block(layers[i], sh[4], sh[5])
+              for i, sh in enumerate(shapes)]
+
+    def check(label, got, want):
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (got.shape == want.shape and scale > 0
+                and err <= BLOCK_RTOL * scale):
+            raise AssertionError(f"{label}: kernel vs twin {err} > "
+                                 f"{BLOCK_RTOL} * {scale}")
+        print(f"rpn_sep_block {label}: max |diff| {err:.3e} (max |twin| "
+              f"{scale:.3e})")
+        return err
 
     max_err = 0.0
     for b in (1, 2):
+        # the three blocks in one launch, as the fast path runs them
+        x = torch.from_numpy(np.maximum(
+            rng.randn(b, *shapes[0][:3]), 0).astype(np.float32)).cuda()
+        got = rpn_cuda.fused_sep_chain(x, packed)
+        torch.cuda.synchronize()
+        for i, (h, w, cin, cout, n, s) in enumerate(shapes):
+            x = fused_sep_block_plain(x, layers[i], n, s)
+            max_err = max(max_err, check(
+                f"chain block{i + 1} B={b} {h}x{w}x{cin}->{cout}", got[i], x))
         for i, (h, w, cin, cout, n, s) in enumerate(shapes):
             x = torch.from_numpy(np.maximum(rng.randn(b, h, w, cin), 0)
                                  .astype(np.float32)).cuda()
             got = rpn_cuda.fused_sep_block(x, layers[i], n, s)
             want = fused_sep_block_plain(x, layers[i], n, s)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            max_err = max(max_err, err)
-            if not (got.shape == want.shape and scale > 0
-                    and err <= BLOCK_RTOL * scale):
-                raise AssertionError(
-                    f"fused block {i + 1} B={b}: kernel vs twin {err} > "
-                    f"{BLOCK_RTOL} * {scale}")
-            print(f"rpn_sep_block block{i + 1} B={b} {h}x{w}x{cin}->"
-                  f"{cout} n={n} s={s}: max |diff| {err:.3e} "
-                  f"(max |twin| {scale:.3e})")
+            max_err = max(max_err, check(
+                f"block{i + 1} B={b} {h}x{w}x{cin}->{cout} n={n} s={s}",
+                got, want))
 
     # warm times at B=1, per block and the three chained as on the path
     xs = []
@@ -200,9 +227,8 @@ def check_rpn_kernel(mcfg):
     unfused = [_Block(cin, cout, n, s, mcfg.rpn.bn_eps, True).cuda().eval()
                for _, _, cin, cout, n, s in shapes]
 
-    def kernel(i, x):
-        return rpn_cuda.fused_sep_block(x, layers[i], shapes[i][4],
-                                        shapes[i][5])
+    def kernel(i, x):  # one block per launch, weights packed beforehand
+        return rpn_cuda.fused_sep_chain(x, packed[i:i + 1])[0]
 
     def twin(i, x):
         return fused_sep_block_plain(x, layers[i], shapes[i][4], shapes[i][5])
@@ -222,9 +248,19 @@ def check_rpn_kernel(mcfg):
                  for name, f, xin, iters in (("kernel", kernel, xs, 200),
                                              ("twin", twin, xs, 20),
                                              ("cudnn", cudnn, nchw, 200))}
-        ms = cuda_ms(lambda: chain(kernel, xs[0]), 200)
+        ms = cuda_ms(lambda: rpn_cuda.fused_sep_chain(xs[0], packed), 200)
         plain_ms = cuda_ms(lambda: chain(twin, xs[0]), 20)
         cudnn_ms = cuda_ms(lambda: chain(cudnn, nchw[0]), 200)
+        # device time: kernel time summed per call under torch.profiler,
+        # the same way for the fused kernel and for the unfused blocks
+        dev = {name: [device_busy(lambda i=i: f(i, xin[i]), 50)[1]
+                      for i in range(3)]
+               for name, f, xin in (("kernel", kernel, xs),
+                                    ("cudnn", cudnn, nchw))}
+        _, dev_ms, rows = device_busy(
+            lambda: rpn_cuda.fused_sep_chain(xs[0], packed), 50)
+        _, cudnn_dev_ms, cudnn_rows = device_busy(
+            lambda: chain(cudnn, nchw[0]), 50)
     work = [_block_work(1, *sh) for sh in shapes]
     flops = sum(f for f, _ in work)
     n_bytes = sum(nb for _, nb in work)
@@ -238,17 +274,28 @@ def check_rpn_kernel(mcfg):
               f"{max(work[i][0] / F32_FLOPS, work[i][1] / HBM_BYTES_PER_S) * 1e6:.2f}"
               f" us ({work[i][0] / 1e6:.1f} M f32 ops, "
               f"{work[i][1] / 1e6:.2f} MB)")
-    print(f"rpn_sep_block three blocks B=1: kernel {ms * 1e3:.2f} us, plain "
-          f"twin {plain_ms * 1e3:.2f} us, unfused cuDNN blocks "
-          f"{cudnn_ms * 1e3:.2f} us; bound {max(bytes_ms, ops_ms) * 1e3:.2f} "
-          f"us ({flops / 1e6:.1f} M f32 ops, {n_bytes / 1e6:.2f} MB)")
+    print(f"rpn_sep_block three blocks B=1 (one launch): kernel "
+          f"{ms * 1e3:.2f} us, plain twin {plain_ms * 1e3:.2f} us, unfused "
+          f"cuDNN blocks {cudnn_ms * 1e3:.2f} us; bound "
+          f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops / 1e6:.1f} M f32 "
+          f"ops, {n_bytes / 1e6:.2f} MB)")
+    print("rpn blocks device time B=1 (torch.profiler, kernels summed per "
+          "call): fused kernel per block "
+          + " / ".join(f"{t * 1e3:.2f}" for t in dev["kernel"])
+          + f" us, three blocks in one launch {dev_ms * 1e3:.2f} us "
+          f"({sum(c for _, c, _ in rows):g} launch); unfused cuDNN blocks "
+          + " / ".join(f"{t * 1e3:.2f}" for t in dev["cudnn"])
+          + f" us, three blocks {cudnn_dev_ms * 1e3:.2f} us "
+          f"({sum(c for _, c, _ in cudnn_rows):g} launches)")
     return {"name": "rpn_sep_block", "route": "cuda",
             "source": "pillars_torch/csrc/rpn_sep_block.cu",
             "replaces": "pillars_tpu/ops/rpn_pallas.py:77",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "library_ms": None, "device_ms": dev_ms,
+            "unfused_cudnn_ms": cudnn_ms,
+            "unfused_cudnn_device_ms": cudnn_dev_ms}
 
 
 def _clouds(max_points, batch, n_clouds, n=19200):
@@ -291,7 +338,7 @@ def _check_outputs(cfg, on_card, outs):
 
 
 def _warm_ms(fn, state, p, n, eye, label):
-    from pillars_torch.utils.profiling import cuda_ms
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
 
     ms = cuda_ms(lambda: fn(state, p, n, eye, eye), 50)
     t0 = time.perf_counter()
@@ -301,6 +348,9 @@ def _warm_ms(fn, state, p, n, eye, label):
     wall_ms = (time.perf_counter() - t0) * 1e3 / 50
     print(f"{label} B=1: {ms:.3f} ms/cloud (CUDA events, warm), "
           f"{wall_ms:.3f} ms/cloud host wall")
+    _, device, rows = device_busy(lambda: fn(state, p, n, eye, eye), 20)
+    print(f"{label} B=1: {sum(c for _, c, _ in rows):g} kernel launches and "
+          f"{device:.4f} ms of device time per cloud (torch.profiler)")
 
 
 def run_main_path(state_cpu):
@@ -399,9 +449,9 @@ def run_fast_path(state_cpu, batches, on_card, dense_outs):
     launches = _read_counts()
     print(f"point-major fast path: {len(on_card)} batches, launches "
           f"{launches}")
-    if launches["rpn_sep_block"] != 3 * len(on_card):
+    if launches["rpn_sep_block"] != len(on_card):
         raise AssertionError("the fast path did not run the fused block "
-                             "kernel 3 times per batch")
+                             "kernel once per batch")
     if launches["nms_keep_mask"] != len(on_card):
         raise AssertionError("the fast path did not run the NMS kernel once "
                              "per batch")

@@ -6,18 +6,25 @@
 // KEPT box overlaps it with IoU > threshold, the IoU using the reference's
 // +1-pixel convention on both boxes valid.
 //
-// Design. One thread block per sample (the batch dimension replaces the JAX
-// vmap). Phase 1: the block's threads build the strictly-lower-triangular
-// overlap matrix as a bitmask in shared memory, mask[i][w] bit b set iff
-// j = 32*w + b < i, both valid and iou(i, j) > thr. Phase 2: one warp sweeps
-// i = 0..K-1; lane l holds word l of the kept bitset, so "does an earlier
-// kept box overlap i" is one AND per lane plus __any_sync. K <= 1024 keeps
-// the kept bitset inside one warp's 32 words.
+// What bounds it on this card. At the d435i shape (K = 100, B = 1) the work
+// is about 5000 IoUs and 1.8 KB: nothing against the card's rates. What it
+// costs is latency: the launch itself, the boxes' trip from device memory,
+// an IEEE division per pair, and the greedy sweep, whose row i cannot be
+// decided before the rows below it.
 //
-// Bound on this card: at the d435i shapes (K = 100, B = 1) the work is
-// ~5k IoUs and a 100-step sweep, a few microseconds of launch latency and
-// dependent shared-memory loads; bytes and FLOPs are negligible. Making it
-// faster (for example fusing it into the postprocess) is later work.
+// Design. One block of 1024 threads per sample (the batch dimension
+// replaces the JAX vmap).
+// - Phase 1, the strictly-lower-triangular overlap matrix as a bitmask in
+//   shared memory: a work item is one 32-bit word (row i, columns 32w ..
+//   32w + 31), a warp takes an item, each lane one pair, and a ballot makes
+//   the word. Warp r takes rows r, r + 32, ..., so every warp has the same
+//   number of items and no lane runs more than one IoU per item.
+// - Phase 2, the sweep, 32 rows at a time in one warp: lane l owns row 32c
+//   + l; suppression by the chunks below is an AND per earlier word for all
+//   32 rows at once, and only the 32 x 32 triangle inside the chunk is
+//   serial: 32 steps of register arithmetic on words passed by shuffle,
+//   with no shared-memory load and no vote on the dependent chain.
+//   K <= 1024 keeps a row's words within one warp's 32 lanes.
 //
 // The IoU arithmetic uses explicit round-to-nearest intrinsics so no FMA
 // contraction can move a box across the threshold: the result is
@@ -28,7 +35,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float pixel_area(float x0, float y0, float x1,
                                             float y1) {
@@ -36,23 +45,29 @@ __device__ __forceinline__ float pixel_area(float x0, float y0, float x1,
                    __fadd_rn(__fsub_rn(y1, y0), 1.0f));
 }
 
+// row stride of the mask in words: odd, so that the 32 rows of a chunk fall
+// into different banks
+__host__ __device__ inline int mask_stride(int k) { return ((k + 31) / 32) | 1; }
+
 __global__ void __launch_bounds__(kThreads)
 nms_keep_mask_kernel(const float* __restrict__ boxes,
                      const uint8_t* __restrict__ valid,
                      bool* __restrict__ keep, int k, float thr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int words = (k + 31) / 32;
+  const int stride = mask_stride(k);
   float4* sbox = reinterpret_cast<float4*>(smem);               // [k]
-  uint32_t* mask = reinterpret_cast<uint32_t*>(sbox + k);       // [k][words]
-  float* sarea = reinterpret_cast<float*>(mask + k * words);    // [k]
+  uint32_t* mask = reinterpret_cast<uint32_t*>(sbox + k);       // [k][stride]
+  float* sarea = reinterpret_cast<float*>(mask + k * stride);   // [k]
   uint8_t* svalid = reinterpret_cast<uint8_t*>(sarea + k);      // [k]
 
   const float4* gbox =
       reinterpret_cast<const float4*>(boxes) + (size_t)blockIdx.x * k;
   const uint8_t* gvalid = valid + (size_t)blockIdx.x * k;
   bool* gkeep = keep + (size_t)blockIdx.x * k;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+  for (int i = threadIdx.x; i < k; i += kThreads) {
     const float4 b = gbox[i];
     sbox[i] = b;
     sarea[i] = pixel_area(b.x, b.y, b.z, b.w);
@@ -60,17 +75,15 @@ nms_keep_mask_kernel(const float* __restrict__ boxes,
   }
   __syncthreads();
 
-  // phase 1: one 32-bit word of the overlap mask per work item
-  for (int item = threadIdx.x; item < k * words; item += blockDim.x) {
-    const int i = item / words;
-    const int w = item - i * words;
-    uint32_t bits = 0;
-    if (svalid[i]) {
-      const float4 bi = sbox[i];
-      const float ai = sarea[i];
-      const int j_end = min(32 * w + 32, i);
-      for (int j = 32 * w; j < j_end; ++j) {
-        if (!svalid[j]) continue;
+  // phase 1: word w of row i, one pair per lane
+  for (int i = warp; i < k; i += kWarps) {
+    const bool vi = svalid[i];
+    const float4 bi = sbox[i];
+    const float ai = sarea[i];
+    for (int w = 0; 32 * w < i; ++w) {
+      const int j = 32 * w + lane;
+      bool over = false;
+      if (vi && j < i && svalid[j]) {
         const float4 bj = sbox[j];
         const float width = fmaxf(
             __fadd_rn(__fsub_rn(fminf(bi.z, bj.z), fmaxf(bi.x, bj.x)), 1.0f),
@@ -81,33 +94,47 @@ nms_keep_mask_kernel(const float* __restrict__ boxes,
         const float inter = __fmul_rn(width, height);
         const float iou =
             __fdiv_rn(inter, __fsub_rn(__fadd_rn(ai, sarea[j]), inter));
-        if (iou > thr) bits |= 1u << (j - 32 * w);
+        over = iou > thr;
       }
+      const uint32_t bits = __ballot_sync(kFull, over);
+      if (lane == 0) mask[i * stride + w] = bits;
     }
-    mask[item] = bits;
   }
   __syncthreads();
 
-  // phase 2: the greedy sweep, one warp
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    uint32_t kept = 0;
-    for (int i = 0; i < k; ++i) {
-      const uint32_t row = lane < words ? mask[i * words + lane] : 0u;
-      const bool suppressed = __any_sync(0xffffffffu, (row & kept) != 0u);
-      if (lane == (i >> 5) && svalid[i] && !suppressed)
-        kept |= 1u << (i & 31);
-    }
-    for (int b = 0; b < 32; ++b) {
-      const int i = 32 * lane + b;
-      if (i < k) gkeep[i] = (kept >> b) & 1u;
+  // phase 2: the greedy sweep, one warp, a chunk of 32 rows per step; lane
+  // w keeps word w of the kept set
+  if (warp == 0) {
+    uint32_t my_kept = 0;
+    for (int c = 0; c < words; ++c) {
+      const int i = 32 * c + lane;
+      const bool in_range = i < k;
+      uint32_t hit = 0;  // overlaps with boxes kept in the chunks below
+      for (int w = 0; w < c; ++w) {
+        const uint32_t kept_w = __shfl_sync(kFull, my_kept, w);
+        if (in_range) hit |= mask[i * stride + w] & kept_w;
+      }
+      const bool alive = in_range && svalid[i] && hit == 0;
+      // word c of row i: the rows of this chunk below i (none for lane 0,
+      // whose word phase 1 never wrote)
+      const uint32_t row = in_range && lane > 0 ? mask[i * stride + c] : 0u;
+      const uint32_t candidates = __ballot_sync(kFull, alive);
+      uint32_t kept = 0;  // the same in every lane
+#pragma unroll
+      for (int l = 0; l < 32; ++l) {
+        const uint32_t row_l = __shfl_sync(kFull, row, l);
+        if (((candidates >> l) & 1u) && (row_l & kept) == 0u) kept |= 1u << l;
+      }
+      if (lane == c) my_kept = kept;
+      if (in_range) gkeep[i] = (kept >> lane) & 1u;
     }
   }
 }
 
+__global__ void empty_kernel() {}
+
 size_t smem_bytes(int k) {
-  const size_t words = (k + 31) / 32;
-  return sizeof(uint32_t) * k * words + sizeof(float4) * k +
+  return sizeof(uint32_t) * k * mask_stride(k) + sizeof(float4) * k +
          sizeof(float) * k + k;
 }
 
@@ -118,7 +145,7 @@ size_t smem_bytes(int k) {
 extern "C" int nms_keep_mask(const void* boxes, const void* valid, void* keep,
                              int b, int k, float thr, void* stream) {
   if (b <= 0 || k <= 0 || k > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(k);  // 149 KB at K = 1024
+  const size_t smem = smem_bytes(k);  // 157 KB at K = 1024
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         nms_keep_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -128,5 +155,12 @@ extern "C" int nms_keep_mask(const void* boxes, const void* valid, void* keep,
   nms_keep_mask_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
       static_cast<bool*>(keep), k, thr);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel of one block of the same size: what a launch costs on this
+// card before any work, the floor under the keep-mask's time.
+extern "C" int nms_launch_floor(void* stream) {
+  empty_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

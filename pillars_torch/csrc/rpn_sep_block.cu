@@ -1,29 +1,83 @@
-// One RPN downsample block fused for inference, for Hopper (sm_90a).
+// A chain of fused RPN downsample blocks for inference, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel pillars_tpu/ops/rpn_pallas.py::_make_block_kernel
-// (pallas_call in fused_sep_block) and computes the same function: 1 +
-// num_layers separable layers, each a SAME 3x3 depthwise conv (stride 2:
-// only the even centres), a 1x1 pointwise product with eval-mode BN folded
-// into its weights and bias, then ReLU. NHWC float32 throughout; full f32
-// FMAs on the CUDA cores (no TF32, no tensor cores).
+// (pallas_call in fused_sep_block) and computes the same function per block:
+// 1 + num_layers separable layers, each a SAME 3x3 depthwise conv (stride 2
+// on the first layer only: the even centres), a 1x1 pointwise product with
+// eval-mode BN folded into its weights and bias, then ReLU. NHWC float32
+// throughout; full f32 FMAs on the CUDA cores. Not TF32: one TF32 pass
+// misses the 1e-5 tolerance against the plain twin. A three-pass split
+// product through mma.sync was weighed and not built: on tiles this small
+// (20 pixels padded to 32 rows, three passes) it would by estimate save a
+// third of the product's time, a twentieth of the kernel's, and the tensor
+// cores' accumulator rounding would have to be kept off the tolerance.
 //
-// Design. One cooperative launch per block, as the TPU kernel is one call
-// per block: a grid-wide barrier (cooperative_groups grid sync) separates
-// the layers, and the activations ping-pong between the output and one
-// scratch buffer of the same size (at most 1.3 MB per sample at the d435i
-// shapes, so they stay in the 50 MB L2). The grid is the co-resident
-// capacity (SMs x blocks per SM), cut to the number of tiles. In each layer
-// a block walks tiles of 16 output pixels x 64 output channels: the 3x3
-// depthwise of the tile's pixels over all input channels goes to shared
-// memory, then each thread sums one pixel x 4 channels of the pointwise
-// product, adds the bias, applies ReLU and stores a float4.
+// What bounds it on this card. At the d435i shapes and B = 1 the three
+// blocks are 16 dependent layers of about 21 M multiply-adds each over
+// [5120, 64], [1280, 128] and [320, 256] (pixels, channels): 730 M f32
+// operations against 8.9 MB of compulsory traffic, so by the roofline
+// operations bound it (10.9 us at 67 TFLOP/s). A layer is far too small for
+// that rate. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (pillars_torch/utils/kernel_phases.py), the three blocks take about 90 us
+// in one launch, a layer 5 to 6 us, in five parts of similar size:
+// - the grid barrier to the layer before, about 2300 SM cycles;
+// - the tile's input halo from L2, 1800-2200 cycles: every CTA re-reads
+//   its neighbours' pixels and, where a layer has several channel tiles,
+//   the same pixels as the other channel tiles' CTAs, and all SMs pulling
+//   at once get about 20 bytes per cycle each;
+// - the depthwise from shared memory, 1300-3100 cycles, with the issue of
+//   the next layer's weight copies;
+// - the product, 2700 cycles: a tile has only 640-2560 outputs, so the
+//   reduction is split over the warps and each thread's 5 x 4 register tile
+//   loads 9 16-byte vectors per 80 FMAs; a 16-byte shared load occupies the
+//   load unit for 4 cycles a warp, which makes the loads, not the FMAs, the
+//   limit (36 against 20 cycles per step and warp);
+// - the reduction over the warps' slices, bias, ReLU and stores, 800-1300.
 //
-// Bound on this card, per d435i cloud (three blocks, B = 1): 730 M f32
-// operations (pointwise 670 M, depthwise 62 M, bias and ReLU) against 8.9
-// MB of compulsory traffic, so operations bound it: 10.9 us at 67 TFLOP/s.
-// This first version aims at parity, not that bound: at B = 1 block 3 has
-// only 80 tiles for 132 SMs, and every pointwise step issues a shared load
-// and a 16-byte weight load per four FMAs.
+// Design.
+// - One cooperative launch runs a whole chain of blocks (the RPN's three):
+//   a cooperative-groups grid barrier separates consecutive layers, also
+//   across blocks, and the activations ping-pong between each block's
+//   output and one scratch buffer (they stay in the 50 MB L2). Every layer
+//   needs the whole card for its FMAs and every pixel its 3x3 neighbours
+//   from the layer before, hence grid-wide barriers: a cluster's shared
+//   memory would hold block 3's activations, but 8 SMs would take 16 times
+//   as long over the product as 128.
+// - A layer is cut into tiles of TP output pixels (TH rows x TW columns) x
+//   TC output channels, one 256-thread CTA per tile and SM. The tile is
+//   picked per block so that B = 1 gives the card one wave: 40 x 64 for
+//   block 1 (8 x 5 pixels, 128 tiles), 20 x 64 for block 2 (4 x 5, 128), 20
+//   x 32 for block 3 (4 x 5, 128); among tilings with equally many tiles
+//   the one with the fewest halo pixels wins (near-square tiles).
+// - Per tile: cp.async (L2 only, so coherent with what other SMs wrote
+//   before the barrier) brings the input halo into shared memory once,
+//   zero-filled outside the image. The depthwise runs from shared memory,
+//   one thread per row segment of 5 outputs x 4 channels with its 9 weight
+//   vectors in registers, and writes the tile's [TP, C_in] product operand
+//   to shared memory. Block 1 (one channel tile) computes it once per pixel
+//   tile; blocks 2 and 3 recompute it in each of their 2 and 8 channel
+//   tiles. Sharing it between two CTAs of a cluster through distributed
+//   shared memory was built and measured: the halo copy got shorter, the
+//   remote stores and the cluster barrier cost more than that (93 against
+//   91 us), so it is not here.
+// - The pointwise product reads the layer's weight slice [C_in, TC] (with
+//   its depthwise weights and bias) from shared memory, staged by cp.async;
+//   the slice of the CTA's next layer is prefetched into a second buffer
+//   while this layer's product, stores and barrier run. The 8 warps split
+//   the tile's pixels and then the reduction (2, 4 or 8 ways, 32 channels
+//   each at the d435i shapes), so all four schedulers work on a tile of
+//   only 640 outputs; the partial sums meet in shared memory, in a fixed
+//   order, where bias and ReLU are applied and float4 stores leave.
+// - The tile configuration is a run-time value and the three blocks share
+//   one copy of the code: between two clouds hundreds of other kernels run,
+//   the instruction cache forgets this one, and a copy per configuration
+//   was fetched anew at every block's first layer (104 us after an L2 flush
+//   against 86 us back to back; one copy takes about 91 either way).
+// - Integer divisions by run-time sizes are made once per block, not per
+//   layer or tile: after a barrier they were a tenth of the time.
+// - Ragged shapes: channels are any multiples of 4 (weight columns past
+//   C_out and pixels past the tile or image are computed on whatever the
+//   buffers hold and never stored); C_in needs no padding.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -33,137 +87,502 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileP = 16;                   // output pixels per tile
-constexpr int kTileC = 64;                   // output channels per tile
-constexpr int kVec = 4;                      // output channels per thread
-constexpr int kColThreads = kTileC / kVec;   // 16; kTileP * 16 = kThreads
+constexpr int kWarps = kThreads / 32;
+static_assert(kWarps == 8, "the reduction's slices are 8 >> pw_shift");
+constexpr int kRP = 5;         // pixels per thread in the product
+constexpr int kSeg = 5;        // outputs per depthwise item (a row segment)
+constexpr int kMaxBlocks = 4;  // blocks per launch
+constexpr int kNumCfg = 3;
+constexpr size_t kMaxSmem = 227 * 1024;
 
-struct Params {
+// Tile configurations, largest tile first: TC output channels; the 8 warps
+// are PW pixel sub-tiles x (8 / PW) slices of the reduction. Both are
+// powers of two, kept as shifts: CL = TC / 4 lanes across a tile's channels.
+__host__ __device__ constexpr int cfg_cl_shift(int cfg) {
+  return cfg == 2 ? 3 : 4;
+}
+__host__ __device__ constexpr int cfg_pw_shift(int cfg) { return 2 - cfg; }
+__host__ __device__ constexpr int cfg_tc(int cfg) {
+  return 4 << cfg_cl_shift(cfg);
+}
+__host__ __device__ constexpr int cfg_pw(int cfg) {
+  return 1 << cfg_pw_shift(cfg);
+}
+// pixels per tile: PW sub-tiles x (32 / (TC / 4)) pixel lanes x kRP
+__host__ __device__ constexpr int cfg_tp(int cfg) {
+  return cfg_pw(cfg) * (32 / (cfg_tc(cfg) / 4)) * kRP;
+}
+
+struct BlockDesc {
   const float* x;  // [b, h, w, cin]
   float* out;      // [b, oh, ow, cout]
-  float* scratch;  // [b, oh, ow, cout]
   const float* w;  // packed per layer: wd [3, 3, ci], wp [ci, cout], bias
-  int b, h, w_in, cin, cout, num_layers, stride;
+  int h, w_in, cin, cout, num_layers, stride, oh, ow;
+  int cfg, th, tw, tiles_y, tiles_x, ctiles;
+  int w_floats, halo_floats;  // shared-memory regions, in floats
 };
 
-// One separable layer over every tile of [b, oh, ow, cout]. ``src`` may
-// have been written earlier in this launch, so it is read with plain
-// (coherent) loads; the weights are read-only for the whole launch.
-__device__ void run_layer(const float* src, float* dst,
-                          const float* __restrict__ wd,
-                          const float* __restrict__ wp,
-                          const float* __restrict__ bias, int b, int ih,
-                          int iw, int cin, int oh, int ow, int cout,
-                          int stride, float* dw_s) {
-  const int npix = oh * ow;
-  const int ptiles = (npix + kTileP - 1) / kTileP;
-  const int ctiles = (cout + kTileC - 1) / kTileC;
-  const int ntiles = b * ptiles * ctiles;
-  const int ld = cin + 1;  // padded row: the two pixels a warp reads
-                           // sit in different banks
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int ct = t % ctiles;
-    const int pt = (t / ctiles) % ptiles;
-    const int bi = t / (ctiles * ptiles);
-    const int p0 = pt * kTileP;
-    const float* src_b = src + (size_t)bi * ih * iw * cin;
+struct Params {
+  BlockDesc blk[kMaxBlocks];
+  float* scratch;  // as large as the largest output
+  int nblocks, b;
+};
 
-    // depthwise: (pixel, channel) items, channel fastest (coalesced)
-    for (int i = threadIdx.x; i < kTileP * cin; i += kThreads) {
-      const int p = i / cin;
-      const int c = i - p * cin;
-      const int pix = p0 + p;
-      float acc = 0.0f;
-      if (pix < npix) {
-        const int oy = pix / ow;
-        const int ox = pix - oy * ow;
-        for (int dy = 0; dy < 3; ++dy) {
-          const int iy = oy * stride + dy - 1;
-          if (iy < 0 || iy >= ih) continue;
-          for (int dx = 0; dx < 3; ++dx) {
-            const int ix = ox * stride + dx - 1;
-            if (ix < 0 || ix >= iw) continue;
-            acc = fmaf(src_b[((size_t)iy * iw + ix) * cin + c],
-                       __ldg(wd + (dy * 3 + dx) * cin + c), acc);
-          }
-        }
-      }
-      dw_s[p * ld + c] = acc;
-    }
-    __syncthreads();
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-    // pointwise + bias + ReLU: one pixel x kVec channels per thread
-    const int p = threadIdx.x / kColThreads;
-    const int co = ct * kTileC + (threadIdx.x % kColThreads) * kVec;
-    const int pix = p0 + p;
-    if (co < cout && pix < npix) {
-      const float* a = dw_s + p * ld;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int c = 0; c < cin; ++c) {
-        const float v = a[c];
-        const float4 wv =
-            __ldg(reinterpret_cast<const float4*>(wp + (size_t)c * cout + co));
-        acc.x = fmaf(v, wv.x, acc.x);
-        acc.y = fmaf(v, wv.y, acc.y);
-        acc.z = fmaf(v, wv.z, acc.z);
-        acc.w = fmaf(v, wv.w, acc.w);
+// With -DRPN_PHASE_CLOCKS one thread of CTA 0 stamps clock64() at the phase
+// boundaries of every layer (pillars_torch/utils/kernel_phases.py reads the
+// stamps); without it PHASE() is nothing.
+#ifdef RPN_PHASE_CLOCKS
+constexpr int kPhases = 7, kMaxStampedLayers = 64;
+__device__ long long g_clocks[kMaxStampedLayers * kPhases];
+__device__ int g_layer;
+#define PHASE(i)                                                    \
+  do {                                                              \
+    if (blockIdx.x == 0 && threadIdx.x == 0 &&                      \
+        g_layer < kMaxStampedLayers)                                \
+      g_clocks[g_layer * kPhases + (i)] = clock64();                \
+  } while (0)
+#define PHASE_NEXT_LAYER()                                  \
+  do {                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) ++g_layer;     \
+  } while (0)
+#define PHASE_RESET()                                       \
+  do {                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) g_layer = 0;   \
+  } while (0)
+#else
+#define PHASE(i)
+#define PHASE_NEXT_LAYER()
+#define PHASE_RESET()
+#endif
+
+// halo pixels of a th x tw tile at stride s: rows, and columns padded to
+// whole depthwise segments
+__host__ __device__ inline int halo_rows(int th, int s) {
+  return (th - 1) * s + 3;
+}
+__host__ __device__ inline int halo_cols(int tw, int s) {
+  return (cdiv(tw, kSeg) * kSeg - 1) * s + 3;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 fma4(const float4 a, const float4 b,
+                                       float4 c) {
+  c.x = fmaf(a.x, b.x, c.x);
+  c.y = fmaf(a.y, b.y, c.y);
+  c.z = fmaf(a.z, b.z, c.z);
+  c.w = fmaf(a.w, b.w, c.w);
+  return c;
+}
+
+// One layer's weights for output channels [c0, c0 + tc) -> shared memory:
+// wd [9, k] | bias [tc] | wp [k, tc]. Columns past cout are left as they are.
+__device__ void stage_weights(float* buf, const float* __restrict__ wl, int k,
+                              int cout, int c0, int cl_shift) {
+  const int cl4 = 1 << cl_shift, tc = 4 << cl_shift;
+  const int tid = threadIdx.x;
+  const float* wp = wl + 9 * k;
+  const float* bias = wp + (size_t)k * cout;
+  for (int i = tid; i < 9 * k / 4; i += kThreads)
+    cp_async16(buf + 4 * i, wl + 4 * i);
+  float* sbias = buf + 9 * k;
+  if (tid < cl4 && c0 + 4 * tid < cout)
+    cp_async16(sbias + 4 * tid, bias + c0 + 4 * tid);
+  float* swp = sbias + tc;
+  const int cl = tid & (cl4 - 1);
+  if (c0 + 4 * cl < cout)
+    for (int r = tid >> cl_shift; r < k; r += kThreads >> cl_shift)
+      cp_async16(swp + r * tc + 4 * cl, wp + (size_t)r * cout + c0 + 4 * cl);
+}
+
+// How the threads share a halo copy, fixed per layer shape: the lanes of a
+// warp cover the k channels of one pixel, or of 32 / (k / 4) pixels when k / 4
+// divides 32, so no lane idles. A thread walks the halo's pixels from (r0,
+// cx0) in steps of (dr, dc) rows and columns, without a division.
+struct HaloLanes {
+  int step;  // channels (floats) covered by one pass of a pixel's lanes
+  int c0;    // this thread's first channel
+  int r0, cx0, dr, dc;
+};
+__device__ inline HaloLanes halo_lanes(int k, int hc) {
+  const int k4 = k / 4;
+  const int lpp = (k4 < 32 && 32 % k4 == 0) ? k4 : 32;  // lanes per pixel
+  const int lane = threadIdx.x % 32;
+  const int cols = kWarps * (32 / lpp);  // pixels per step of the CTA
+  const int col0 = (threadIdx.x / 32) * (32 / lpp) + lane / lpp;
+  HaloLanes hl;
+  hl.step = 4 * lpp;
+  hl.c0 = 4 * (lane % lpp);
+  hl.r0 = col0 / hc;
+  hl.cx0 = col0 % hc;
+  hl.dr = cols / hc;
+  hl.dc = cols % hc;
+  return hl;
+}
+
+// The input pixels [iy0, iy0 + hr) x [ix0, ix0 + hc) of one sample, all k
+// channels -> shared memory [hr * hc, k], zeros outside the image. Four
+// pixels per thread are addressed before their copies are issued, so the
+// copies leave back to back.
+__device__ void stage_halo(float* halo, const float* src, int ih, int iw,
+                           int k, int iy0, int ix0, int hr, int hc,
+                           const HaloLanes hl) {
+  int r = hl.r0, cx = hl.cx0;
+  while (r < hr) {
+    float* dst[4];
+    const float* from[4];
+    bool ok[4], in[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int iy = iy0 + r, ix = ix0 + cx;
+      ok[j] = r < hr;
+      in[j] = iy >= 0 && iy < ih && ix >= 0 && ix < iw;
+      dst[j] = halo + ((size_t)r * hc + cx) * k + hl.c0;
+      from[j] = src + ((long long)iy * iw + ix) * k + hl.c0;
+      r += hl.dr;
+      cx += hl.dc;
+      if (cx >= hc) {
+        cx -= hc;
+        ++r;
       }
-      const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + co));
-      float4 r;
-      r.x = fmaxf(acc.x + bv.x, 0.0f);
-      r.y = fmaxf(acc.y + bv.y, 0.0f);
-      r.z = fmaxf(acc.z + bv.z, 0.0f);
-      r.w = fmaxf(acc.w + bv.w, 0.0f);
-      *reinterpret_cast<float4*>(dst + ((size_t)bi * npix + pix) * cout + co) =
-          r;
     }
-    __syncthreads();  // dw_s is refilled by the next tile
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!ok[j]) continue;
+      if (in[j]) {
+        for (int c = 0; hl.c0 + c < k; c += hl.step)
+          cp_async16(dst[j] + c, from[j] + c);
+      } else {
+        for (int c = 0; hl.c0 + c < k; c += hl.step)
+          *reinterpret_cast<float4*>(dst[j] + c) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-rpn_sep_block_kernel(const Params prm) {
-  extern __shared__ __align__(16) float dw_s[];
-  cg::grid_group grid = cg::this_grid();
-  const int oh = prm.stride == 2 ? prm.h / 2 : prm.h;
-  const int ow = prm.stride == 2 ? prm.w_in / 2 : prm.w_in;
-  const size_t size0 = 9 * (size_t)prm.cin + (size_t)prm.cin * prm.cout +
-                       prm.cout;
-  const size_t size_n = 9 * (size_t)prm.cout + (size_t)prm.cout * prm.cout +
-                        prm.cout;
-  for (int l = 0; l <= prm.num_layers; ++l) {
-    const bool first = l == 0;
-    const int cin = first ? prm.cin : prm.cout;
-    const float* wd = prm.w + (first ? 0 : size0 + (l - 1) * size_n);
-    const float* wp = wd + 9 * cin;
-    const float* bias = wp + (size_t)cin * prm.cout;
-    // the last layer writes ``out``; the ones before alternate with scratch
-    float* dst = (prm.num_layers - l) % 2 == 0 ? prm.out : prm.scratch;
-    const float* src =
-        first ? prm.x
-              : ((prm.num_layers - l + 1) % 2 == 0 ? prm.out : prm.scratch);
-    run_layer(src, dst, wd, wp, bias, prm.b, first ? prm.h : oh,
-              first ? prm.w_in : ow, cin, oh, ow, prm.cout,
-              first ? prm.stride : 1, dw_s);
-    if (l < prm.num_layers) grid.sync();
+// 3x3 depthwise of the tile from the halo: an item is kSeg outputs of one
+// row x 4 channels, taps in (dy, dx) order. dw [TP, kpad]. ``first`` is
+// this thread's first item (channel, segment, row), split once per layer.
+template <int S>
+__device__ void depthwise_tile(const float* halo, const float* wd, float* dw,
+                               int k, int kpad, int th, int tw, int hc,
+                               const int3 first) {
+  const int k4 = k / 4;
+  const int nseg = cdiv(tw, kSeg);
+  for (int item = threadIdx.x; item < th * nseg * k4; item += kThreads) {
+    int c = first.x, seg = first.y, r = first.z;
+    if (item != (int)threadIdx.x) {
+      c = 4 * (item % k4);
+      seg = (item / k4) % nseg;
+      r = item / (k4 * nseg);
+    }
+    float4 acc[kSeg];
+#pragma unroll
+    for (int o = 0; o < kSeg; ++o) acc[o] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* hb = halo + ((size_t)(r * S) * hc + seg * kSeg * S) * k + c;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      float4 w[3];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        w[dx] = *reinterpret_cast<const float4*>(wd + (dy * 3 + dx) * k + c);
+#pragma unroll
+      for (int j = 0; j < (kSeg - 1) * S + 3; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(hb + (size_t)(dy * hc + j) * k);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          if (j >= dx && (j - dx) % S == 0 && (j - dx) / S < kSeg)
+            acc[(j - dx) / S] = fma4(v, w[dx], acc[(j - dx) / S]);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kSeg; ++o)
+      if (seg * kSeg + o < tw)
+        *reinterpret_cast<float4*>(
+            dw + (size_t)(r * tw + seg * kSeg + o) * kpad + c) = acc[o];
   }
+}
+
+// What a thread needs to know of a layer's shape, (k, stride): integer
+// divisions, made once per block (the first layer, and the others) instead
+// of after every barrier.
+struct LayerLanes {
+  HaloLanes hl;
+  int3 item0;  // the thread's first depthwise item: channel, segment, row
+};
+__device__ inline LayerLanes layer_lanes(int k, int tw, int s) {
+  const int k4 = k / 4, nseg = cdiv(tw, kSeg);
+  LayerLanes ll;
+  ll.hl = halo_lanes(k, halo_cols(tw, s));
+  ll.item0 = make_int3(4 * (threadIdx.x % k4), (threadIdx.x / k4) % nseg,
+                       threadIdx.x / (k4 * nseg));
+  return ll;
+}
+
+struct TileIdx {
+  int ct, tx, ty, bi;
+};
+__device__ inline TileIdx split_tile(const BlockDesc& d, int t) {
+  TileIdx ti;
+  ti.ct = t % d.ctiles;
+  int u = t / d.ctiles;
+  ti.tx = u % d.tiles_x;
+  u /= d.tiles_x;
+  ti.ty = u % d.tiles_y;
+  ti.bi = u / d.tiles_y;
+  return ti;
+}
+
+// All layers of one block. Shared memory: two weight buffers | halo (later
+// the partial sums) | depthwise output.
+__device__ void run_block(const BlockDesc& d, int b, float* scratch,
+                          bool last_block, float* smem,
+                          cg::grid_group& grid) {
+  const int cl_shift = cfg_cl_shift(d.cfg), pw_shift = cfg_pw_shift(d.cfg);
+  const int TC = 4 << cl_shift, CL = 1 << cl_shift, PL = 32 >> cl_shift;
+  const int PW = 1 << pw_shift, KS = kWarps >> pw_shift;
+  const int WP = PL * kRP, TP = PW * WP;
+  float* halo = smem + 2 * d.w_floats;
+  float* red = halo;  // [KS, TP, TC], after the depthwise has read the halo
+  float* dw = halo + d.halo_floats;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pw = warp & (PW - 1), ks = warp >> pw_shift;
+  const int cl = lane & (CL - 1), pl = lane >> cl_shift;
+  const int ntiles = b * d.tiles_y * d.tiles_x * d.ctiles;
+  const int npix = d.oh * d.ow;
+  // the epilogue's items (a pixel of the tile x 4 channels) of this thread
+  constexpr int NI = (cfg_tp(0) * (cfg_tc(0) / 4) + kThreads - 1) / kThreads;
+  int epix[NI], erow[NI], ecol[NI];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) {
+    epix[j] = (threadIdx.x + j * kThreads) >> cl_shift;
+    erow[j] = epix[j] / d.tw;
+    ecol[j] = epix[j] % d.tw;
+  }
+  const int echan = 4 * (threadIdx.x & (CL - 1));  // kThreads % CL == 0
+  const size_t size0 =
+      9 * (size_t)d.cin + (size_t)d.cin * d.cout + d.cout;
+  const size_t size_n =
+      9 * (size_t)d.cout + (size_t)d.cout * d.cout + d.cout;
+  const LayerLanes lanes_first = layer_lanes(d.cin, d.tw, d.stride);
+  const LayerLanes lanes_rest = layer_lanes(d.cout, d.tw, 1);
+  // this CTA's first tile is the same in every layer
+  const TileIdx tile0 = split_tile(d, blockIdx.x);
+
+  for (int l = 0; l <= d.num_layers; ++l) {
+    const bool first = l == 0;
+    const int k = first ? d.cin : d.cout;
+    const int kpad = k + 4;
+    const int s = first ? d.stride : 1;
+    const int ih = first ? d.h : d.oh, iw = first ? d.w_in : d.ow;
+    const float* wl = d.w + (first ? 0 : size0 + (l - 1) * size_n);
+    // the last layer writes ``out``; the ones before alternate with scratch
+    float* dst = (d.num_layers - l) % 2 == 0 ? d.out : scratch;
+    const float* src =
+        first ? d.x : ((d.num_layers - l + 1) % 2 == 0 ? d.out : scratch);
+    const int hr = halo_rows(d.th, s), hc = halo_cols(d.tw, s);
+    float* wb = smem + (l & 1) * d.w_floats;
+    const float* swd = wb;
+    const float* sbias = wb + 9 * k;
+    const float* swp = sbias + TC;
+    // slice of the reduction for this warp, in steps of 4
+    const int kc = ((k / 4 + KS - 1) >> (3 - pw_shift)) * 4;
+    const int k0 = min(k, ks * kc), k1 = min(k, k0 + kc);
+    // the slice staged in ``wb``: the prefetch made during the layer before
+    int staged_ct = first ? -1 : tile0.ct;
+    const HaloLanes hl = first ? lanes_first.hl : lanes_rest.hl;
+    const int3 item0 = first ? lanes_first.item0 : lanes_rest.item0;
+
+    PHASE(0);  // copies issued | arrived | depthwise | product | stored
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const TileIdx ti = t == (int)blockIdx.x ? tile0 : split_tile(d, t);
+      const int ct = ti.ct, bi = ti.bi;
+      const int oy0 = ti.ty * d.th, ox0 = ti.tx * d.tw, c0 = ct * TC;
+
+      if (ct != staged_ct) {
+        stage_weights(wb, wl, k, d.cout, c0, cl_shift);
+        staged_ct = ct;
+      }
+      stage_halo(halo, src + (size_t)bi * ih * iw * k, ih, iw, k, oy0 * s - 1,
+                 ox0 * s - 1, hr, hc, hl);
+      PHASE(1);
+      cp_async_commit_wait();
+      __syncthreads();
+      PHASE(2);
+
+      if (s == 1)
+        depthwise_tile<1>(halo, swd, dw, k, kpad, d.th, d.tw, hc, item0);
+      else
+        depthwise_tile<2>(halo, swd, dw, k, kpad, d.th, d.tw, hc, item0);
+      // the next layer's slice for this CTA's first tile, in flight during
+      // the product, the stores and the barrier
+      if (l < d.num_layers && t + gridDim.x >= ntiles) {
+        stage_weights(smem + ((l + 1) & 1) * d.w_floats,
+                      d.w + size0 + l * size_n, d.cout, d.cout, tile0.ct * TC,
+                      cl_shift);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+      __syncthreads();
+
+      PHASE(3);
+      // product: 5 pixels x 4 channels per thread over this warp's slice
+      float4 acc[kRP];
+#pragma unroll
+      for (int r = 0; r < kRP; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* a = dw + (size_t)(pw * WP + pl * kRP) * kpad + k0;
+      const float* bp = swp + k0 * TC + 4 * cl;
+#pragma unroll 4
+      for (int kk = k0; kk < k1; kk += 4, a += 4, bp += 4 * TC) {
+        float4 av[kRP];
+#pragma unroll
+        for (int r = 0; r < kRP; ++r)
+          av[r] = *reinterpret_cast<const float4*>(a + r * kpad);
+        const float4 b0 = *reinterpret_cast<const float4*>(bp);
+        const float4 b1 = *reinterpret_cast<const float4*>(bp + TC);
+        const float4 b2 = *reinterpret_cast<const float4*>(bp + 2 * TC);
+        const float4 b3 = *reinterpret_cast<const float4*>(bp + 3 * TC);
+#pragma unroll
+        for (int r = 0; r < kRP; ++r) {
+          acc[r] = fma4(make_float4(av[r].x, av[r].x, av[r].x, av[r].x), b0,
+                        acc[r]);
+          acc[r] = fma4(make_float4(av[r].y, av[r].y, av[r].y, av[r].y), b1,
+                        acc[r]);
+          acc[r] = fma4(make_float4(av[r].z, av[r].z, av[r].z, av[r].z), b2,
+                        acc[r]);
+          acc[r] = fma4(make_float4(av[r].w, av[r].w, av[r].w, av[r].w), b3,
+                        acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRP; ++r)
+        *reinterpret_cast<float4*>(
+            red + ((size_t)(ks * TP + pw * WP + pl * kRP + r)) * TC + 4 * cl) =
+            acc[r];
+      __syncthreads();
+
+      PHASE(4);
+      // slices summed in order, bias, ReLU, store
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int p = epix[j], c = echan;
+        const int oy = oy0 + erow[j], ox = ox0 + ecol[j];
+        if (p < TP && erow[j] < d.th && oy < d.oh && ox < d.ow &&
+            c0 + c < d.cout) {
+          const float* part = red + p * TC + c;
+          float4 sum = *reinterpret_cast<const float4*>(part);
+#pragma unroll 4
+          for (int q = 1; q < KS; ++q) {
+            part += TP * TC;
+            const float4 v = *reinterpret_cast<const float4*>(part);
+            sum.x += v.x;
+            sum.y += v.y;
+            sum.z += v.z;
+            sum.w += v.w;
+          }
+          const float4 bv = *reinterpret_cast<const float4*>(sbias + c);
+          sum.x = fmaxf(sum.x + bv.x, 0.f);
+          sum.y = fmaxf(sum.y + bv.y, 0.f);
+          sum.z = fmaxf(sum.z + bv.z, 0.f);
+          sum.w = fmaxf(sum.w + bv.w, 0.f);
+          *reinterpret_cast<float4*>(
+              dst + ((size_t)bi * npix + (size_t)oy * d.ow + ox) * d.cout +
+              c0 + c) = sum;
+        }
+      }
+      __syncthreads();  // the buffers are refilled by the next tile
+    }
+    PHASE(5);
+    if (!(last_block && l == d.num_layers)) grid.sync();
+    PHASE(6);  // through the barrier
+    PHASE_NEXT_LAYER();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+rpn_sep_chain_kernel(const __grid_constant__ Params prm) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  PHASE_RESET();
+  for (int i = 0; i < prm.nblocks; ++i) {
+    const BlockDesc& d = prm.blk[i];
+    const bool last = i == prm.nblocks - 1;
+    run_block(d, prm.b, prm.scratch, last, smem, grid);
+  }
+}
+
+// Tile geometry and shared-memory need of ``d`` under configuration cfg.
+size_t plan_block(BlockDesc& d, int cfg) {
+  const int tc = cfg_tc(cfg), tp = cfg_tp(cfg);
+  d.cfg = cfg;
+  // th x tw <= tp pixels: the fewest tiles, then the fewest halo pixels
+  // over all tiles (a squarer tile re-reads less of its neighbours)
+  long long best_tiles = 0, best_halo = 0;
+  for (int nx = cdiv(d.ow, tp); nx <= d.ow; ++nx) {
+    const int tw = cdiv(d.ow, nx);
+    const int ny = cdiv(d.oh, tp / tw < d.oh ? tp / tw : d.oh);
+    const int th = cdiv(d.oh, ny);
+    const long long tiles = (long long)nx * ny;
+    long long halo = tiles * halo_rows(th, 1) * halo_cols(tw, 1);
+    if (d.num_layers == 0)
+      halo = tiles * halo_rows(th, d.stride) * halo_cols(tw, d.stride);
+    if (best_tiles == 0 || tiles < best_tiles ||
+        (tiles == best_tiles && halo < best_halo)) {
+      best_tiles = tiles;
+      best_halo = halo;
+      d.tiles_x = nx;
+      d.tiles_y = ny;
+      d.tw = tw;
+      d.th = th;
+    }
+  }
+  d.ctiles = cdiv(d.cout, tc);
+  const int kmax = d.cin > d.cout ? d.cin : d.cout;
+  d.w_floats = 9 * kmax + tc + kmax * tc;
+  int halo = halo_rows(d.th, d.stride) * halo_cols(d.tw, d.stride) * d.cin;
+  if (d.num_layers > 0) {
+    const int later = halo_rows(d.th, 1) * halo_cols(d.tw, 1) * d.cout;
+    halo = halo > later ? halo : later;
+  }
+  const int red = kWarps / cfg_pw(cfg) * tp * tc;
+  d.halo_floats = halo > red ? halo : red;
+  return sizeof(float) *
+         (2 * (size_t)d.w_floats + d.halo_floats + (size_t)tp * (kmax + 4));
+}
+
+long long block_tiles(const BlockDesc& d, int b) {
+  return (long long)b * d.tiles_y * d.tiles_x * d.ctiles;
 }
 
 }  // namespace
 
-// x [b, h, w, cin], out and scratch [b, oh, ow, cout], w the packed layers
-// (layer 0: wd [3, 3, cin], wp [cin, cout], bias [cout]; layers 1..n the
-// same with cin = cout); all f32, contiguous, on the device. cin and cout
-// are multiples of 4 (16-byte weight loads); at stride 2, h and w are even.
-// Launches on ``stream`` and returns the launch's CUDA error code.
-extern "C" int rpn_sep_block(const void* x, void* out, void* scratch,
-                             const void* w, int b, int h, int w_in, int cin,
-                             int cout, int num_layers, int stride,
-                             void* stream) {
-  if (b <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || cout <= 0 ||
-      num_layers < 0 || cin % 4 != 0 || cout % 4 != 0 ||
-      (stride != 1 && stride != 2) ||
-      (stride == 2 && (h % 2 != 0 || w_in % 2 != 0)))
+// A chain of ``nblocks`` (1..4) blocks in one launch: x [b, h, w, cin]; block
+// i maps [.., c_{i-1}] to outs[i] [b, oh_i, ow_i, couts[i]] with 1 +
+// num_layers[i] layers from weights[i] (per layer wd [3, 3, ci], wp [ci,
+// cout], bias [cout]; layer 0 has ci = the block's input channels, the
+// others ci = cout) at strides[i] (1 or 2; 2 needs even input sizes).
+// scratch holds as many floats as the largest output. All f32, contiguous,
+// 16-byte aligned, on the device; channels are multiples of 4. Launches on
+// ``stream`` and returns the launch's CUDA error code.
+extern "C" int rpn_sep_chain(const void* x, int b, int h, int w, int cin,
+                             int nblocks, const int* couts,
+                             const int* num_layers, const int* strides,
+                             void* const* outs, const void* const* weights,
+                             void* scratch, void* stream) {
+  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin % 4 != 0 ||
+      nblocks <= 0 || nblocks > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -173,31 +592,77 @@ extern "C" int rpn_sep_block(const void* x, void* out, void* scratch,
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem =
-      sizeof(float) * kTileP * ((cin > cout ? cin : cout) + 1);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(rpn_sep_block_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+
+  Params prm{};
+  prm.scratch = static_cast<float*>(scratch);
+  prm.nblocks = nblocks;
+  prm.b = b;
+  size_t smem = 0;
+  long long max_tiles = 0;
+  const void* in = x;
+  for (int i = 0; i < nblocks; ++i) {
+    BlockDesc& d = prm.blk[i];
+    if (couts[i] <= 0 || couts[i] % 4 != 0 || num_layers[i] < 0 ||
+        (strides[i] != 1 && strides[i] != 2) ||
+        (strides[i] == 2 && (h % 2 != 0 || w % 2 != 0)))
+      return (int)cudaErrorInvalidValue;
+    d.x = static_cast<const float*>(in);
+    d.out = static_cast<float*>(outs[i]);
+    d.w = static_cast<const float*>(weights[i]);
+    d.h = h;
+    d.w_in = w;
+    d.cin = cin;
+    d.cout = couts[i];
+    d.num_layers = num_layers[i];
+    d.stride = strides[i];
+    d.oh = h / strides[i];
+    d.ow = w / strides[i];
+    // the largest tile that still gives the card a wave of tiles; failing
+    // that, the smallest tile whose buffers fit
+    size_t need = 0;
+    int chosen = -1;
+    for (int cfg = 0; cfg < kNumCfg; ++cfg) {
+      BlockDesc trial = d;
+      const size_t bytes = plan_block(trial, cfg);
+      if (bytes > kMaxSmem) continue;
+      chosen = cfg;
+      need = bytes;
+      if (4 * block_tiles(trial, b) >= 3LL * sms) break;
+    }
+    if (chosen < 0) return (int)cudaErrorInvalidValue;
+    plan_block(d, chosen);
+    smem = need > smem ? need : smem;
+    const long long tiles = block_tiles(d, b);
+    max_tiles = tiles > max_tiles ? tiles : max_tiles;
+    in = outs[i];
+    h = d.oh;
+    w = d.ow;
+    cin = d.cout;
   }
+
+  err = cudaFuncSetAttribute(rpn_sep_chain_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, rpn_sep_block_kernel, kThreads, smem);
+      &per_sm, rpn_sep_chain_kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-  const int oh = stride == 2 ? h / 2 : h;
-  const int ow = stride == 2 ? w_in / 2 : w_in;
-  const long long tiles = (long long)b * ((oh * ow + kTileP - 1) / kTileP) *
-                          ((cout + kTileC - 1) / kTileC);
-  const int grid = (int)(tiles < (long long)sms * per_sm ? tiles
-                                                         : sms * per_sm);
-  Params prm{static_cast<const float*>(x), static_cast<float*>(out),
-             static_cast<float*>(scratch), static_cast<const float*>(w),
-             b, h, w_in, cin, cout, num_layers, stride};
+  const long long capacity = (long long)sms * per_sm;
+  const int grid = (int)(max_tiles < capacity ? max_tiles : capacity);
   void* args[] = {&prm};
-  err = cudaLaunchCooperativeKernel((const void*)rpn_sep_block_kernel,
+  err = cudaLaunchCooperativeKernel((const void*)rpn_sep_chain_kernel,
                                     dim3(grid), dim3(kThreads), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+#ifdef RPN_PHASE_CLOCKS
+// The stamps of the last launch: [layer][7] clock64() values of CTA 0.
+extern "C" int rpn_phase_clocks(long long* host, int layers) {
+  if (layers > kMaxStampedLayers) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(host, g_clocks,
+                                   sizeof(long long) * layers * kPhases);
+}
+#endif

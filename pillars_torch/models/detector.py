@@ -33,7 +33,7 @@ from pillars_torch.models.rpn import RPN, RPNTail
 from pillars_torch.ops.anchors import (StructuredSAT, anchors_mask_batched,
                                        anchors_mask_from_dense, build_anchors)
 from pillars_torch.ops.nms import nms_standup
-from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
+from pillars_torch.ops.rpn_blocks import FoldedBlocksCache, fused_rpn_blocks
 from pillars_torch.ops.scatter import scatter_to_canvas_batched
 from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
                                         make_point_voxelizer)
@@ -150,6 +150,9 @@ class PillarsDetector:
             self.voxelize = make_point_voxelizer(self.mcfg.voxel)
         if self.fast:
             self.rpn_tail = RPNTail(self.mcfg).to(self.device).eval()
+            # the blocks' folded, packed weights, kept while the state
+            # passed to the calls stays the same
+            self.folded_blocks = FoldedBlocksCache()
         _, self.ny, self.nx = self.mcfg.feature_map_size
         self.anchor_set = build_anchors(self.mcfg)
         dev = self.device
@@ -200,15 +203,16 @@ class PillarsDetector:
 
     def _forward_fast(self, state, voxelized: VoxelizedPoints
                       ) -> Dict[str, torch.Tensor]:
-        """:meth:`apply` with the three downsample blocks as fused kernels
-        (BN folded per call), then :class:`RPNTail`."""
+        """:meth:`apply` with the three downsample blocks as one fused
+        kernel launch (BN folded once per state), then :class:`RPNTail`."""
         _full_f32()
         pfn = self.network.pfn
         pfn_state = _sub_state(state, pfn, "pfn.")
         canvas = point_canvas(
             lambda *a: torch.func.functional_call(pfn, pfn_state, a),
             voxelized, self.ny, self.nx)
-        b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn)
+        b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn,
+                                      self.folded_blocks)
         return torch.func.functional_call(
             self.rpn_tail, _sub_state(state, self.rpn_tail, "rpn."),
             (b1, b2, b3))

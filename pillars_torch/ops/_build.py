@@ -5,7 +5,9 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). Libraries land in ``pillars_torch/_build/``, named by a hash
 of the source and the flags, so an edited source rebuilds and an unchanged
 one loads from disk. :func:`build_all` starts one ``nvcc`` per source at
-once. A missing ``nvcc`` or a failed build raises; nothing falls back.
+once. :func:`load` also builds a variant of one source with extra ``-D``
+defines (instrumentation). A missing ``nvcc`` or a failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -25,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -40,9 +42,10 @@ def _nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> pathlib.Path:
+def _lib_path(name: str, defines: Sequence[str] = ()) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join([*NVCC_FLAGS, *(f"-D{d}" for d in defines)])
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -51,19 +54,22 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every source that has no up-to-date library, all ``nvcc``
-    processes at once; returns {name: compiler output}. Raises on the first
-    failed build after every process has ended."""
+def build_all(names: Sequence[str] = (),
+              defines: Sequence[str] = ()) -> Dict[str, str]:
+    """Compile every source (or ``names``) that has no up-to-date library,
+    all ``nvcc`` processes at once; returns {name: compiler output}. Raises
+    on the first failed build after every process has ended."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [(n, _lib_path(n)) for n in sources() if not _lib_path(n).exists()]
+    todo = [(n, _lib_path(n, defines)) for n in names or sources()
+            if not _lib_path(n, defines).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     procs = []
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = {}, []
@@ -78,14 +84,16 @@ def build_all() -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of ``csrc/<name>.cu``, built on first use."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The ctypes library of ``csrc/<name>.cu``, built on first use; with
+    ``defines`` a variant of that one source compiled with ``-D`` each."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            path = _lib_path(name)
+            path = _lib_path(name, defines)
             if not path.exists():
-                build_all()
+                build_all((name,) if defines else (), defines)
             lib = ctypes.CDLL(str(path))
-            _loaded[name] = lib
+            _loaded[key] = lib
         return lib

@@ -9,15 +9,17 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from pillars_torch.ops import _build
 from pillars_torch.ops.nms import keep_mask_plain
 
-MAX_K = 1024  # the sweep keeps the kept bitset in one warp's 32 words
+MAX_K = 1024  # the sweep keeps a row's 32 words in one warp's lanes
 
 
+@functools.cache
 def _fn():
     fn = _build.load("nms_keep_mask").nms_keep_mask
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -25,6 +27,18 @@ def _fn():
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch_floor() -> None:
+    """Launches an empty kernel of one block of the keep-mask kernel's size
+    on the current stream: timed beside the kernel, it is what a launch
+    costs on this card before any work."""
+    fn = _build.load("nms_keep_mask").nms_launch_floor
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def nms_keep_mask(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,

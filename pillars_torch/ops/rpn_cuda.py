@@ -1,51 +1,126 @@
-"""Wrapper of the fused RPN block kernel (``csrc/rpn_sep_block.cu``).
+"""Wrappers of the fused RPN block kernel (``csrc/rpn_sep_block.cu``).
 
-The port of pillars_tpu/ops/rpn_pallas.py::fused_sep_block. A CUDA tensor
-launches the kernel (or raises); a CPU tensor takes the plain twin
-:func:`pillars_torch.ops.rpn_blocks.fused_sep_block_plain`.
-``fused_sep_block.launches`` counts kernel launches.
+The port of pillars_tpu/ops/rpn_pallas.py::fused_sep_block. The kernel runs
+a chain of blocks in one launch: :func:`fused_sep_chain` gives it packed
+blocks (the RPN's three), :func:`fused_sep_block` one block as folded
+layers. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+the plain twin :func:`pillars_torch.ops.rpn_blocks.fused_sep_block_plain`.
+``fused_sep_block.launches`` counts kernel launches of either wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
 from pillars_torch.ops import _build
-from pillars_torch.ops.rpn_blocks import FoldedLayer, fused_sep_block_plain
+from pillars_torch.ops.rpn_blocks import (FoldedLayer, PackedBlock,
+                                          fused_sep_block_plain, pack_block)
+
+MAX_BLOCKS = 4  # blocks per launch (kMaxBlocks in the source)
 
 
-def _fn():
-    fn = _build.load("rpn_sep_block").rpn_sep_block
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+@functools.cache
+def _fn(defines: Tuple[str, ...] = ()):
+    fn = _build.load("rpn_sep_block", defines).rpn_sep_chain
+    int_p, ptr_p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        int_p, int_p, int_p, ptr_p, ptr_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_layers(layers: Sequence[FoldedLayer], num_layers: int, cin: int,
-                  device: torch.device) -> int:
-    """Validates the folded layers against the input; returns C_out."""
-    if len(layers) != num_layers + 1:
-        raise ValueError(f"{len(layers)} layers for num_layers={num_layers}")
-    cout = layers[0].wp.shape[1]
-    for i, layer in enumerate(layers):
-        ci = cin if i == 0 else cout
-        shapes = (tuple(layer.wd.shape), tuple(layer.wp.shape),
-                  tuple(layer.bias.shape))
-        if shapes != ((3, 3, ci), (ci, cout), (cout,)):
-            raise ValueError(f"layer {i}: shapes {shapes}, expected wd "
-                             f"(3, 3, {ci}), wp ({ci}, {cout}), bias ({cout},)")
-        for t in layer:
-            if t.dtype != torch.float32:
-                raise TypeError(f"layer {i}: weights must be float32, got "
-                                f"{t.dtype}")
-            if t.device != device:
-                raise ValueError(f"layer {i}: weights on {t.device}, input "
-                                 f"on {device}")
-    return cout
+def _check_block(block: PackedBlock, h: int, w: int, cin: int,
+                 device: torch.device) -> None:
+    """Validates one packed block against its input [.., h, w, cin]."""
+    if block.stride == 2 and (h % 2 or w % 2):
+        raise ValueError(f"stride 2 needs even H and W, got {h}x{w}")
+    if block.cin != cin:
+        raise ValueError(f"block takes {block.cin} channels, input has {cin}")
+    if cin % 4 or block.cout % 4:
+        raise ValueError(f"channels must be multiples of 4, got {cin}->"
+                         f"{block.cout}")
+    p = block.packed
+    if p.device != device:
+        raise ValueError(f"weights on {p.device}, input on {device}")
+    if p.dtype != torch.float32 or not p.is_contiguous() or p.data_ptr() % 16:
+        raise ValueError("packed weights must be a contiguous, 16-byte "
+                         "aligned float32 tensor")
+
+
+def _launch(x: torch.Tensor, blocks: Sequence[PackedBlock],
+            couts: Sequence[int],
+            defines: Tuple[str, ...]) -> List[torch.Tensor]:
+    """One kernel launch for up to MAX_BLOCKS validated blocks."""
+    b, h, w, cin = x.shape
+    outs = []
+    for block, cout in zip(blocks, couts):
+        h, w = h // block.stride, w // block.stride
+        outs.append(torch.empty((b, h, w, cout), dtype=x.dtype,
+                                device=x.device))
+    scratch = torch.empty(max(o.numel() for o in outs), dtype=x.dtype,
+                          device=x.device)
+    n = len(blocks)
+    ints = lambda vals: (ctypes.c_int * n)(*vals)  # noqa: E731
+    ptrs = lambda ts: (ctypes.c_void_p * n)(  # noqa: E731
+        *(t.data_ptr() for t in ts))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _fn(defines)(x.data_ptr(), *x.shape, n, ints(couts),
+                    ints([blk.num_layers for blk in blocks]),
+                    ints([blk.stride for blk in blocks]), ptrs(outs),
+                    ptrs([blk.packed for blk in blocks]), scratch.data_ptr(),
+                    stream)
+    if err != 0:
+        raise RuntimeError(f"rpn_sep_block kernel launch failed: CUDA error "
+                           f"{err} (1 also when a tile's buffers exceed the "
+                           f"SM's shared memory: fewer channels fit)")
+    fused_sep_block.launches += 1
+    return outs
+
+
+def fused_sep_chain(x: torch.Tensor, blocks: Sequence[PackedBlock],
+                    defines: Tuple[str, ...] = ()) -> List[torch.Tensor]:
+    """x [B, H, W, C_in] f32 NHWC through ``blocks`` one after the other ->
+    every block's output [B, H_i, W_i, C_i], in one launch per MAX_BLOCKS
+    blocks. ``defines`` builds and launches the kernel with these ``-D``
+    flags (its instrumentation, see utils/kernel_phases.py)."""
+    if x.device.type == "cpu":
+        outs = []
+        for blk in blocks:
+            x = fused_sep_block_plain(x, blk.layers, blk.num_layers,
+                                      blk.stride)
+            outs.append(x)
+        return outs
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous (NHWC) and 16-byte aligned")
+    _, h, w, cin = x.shape
+    for blk in blocks:
+        _check_block(blk, h, w, cin, x.device)
+        h, w, cin = h // blk.stride, w // blk.stride, blk.cout
+    couts = [blk.cout for blk in blocks]
+    if x.numel() == 0:
+        outs = []
+        for blk, cout in zip(blocks, couts):
+            x = x.new_empty((x.shape[0], x.shape[1] // blk.stride,
+                             x.shape[2] // blk.stride, cout))
+            outs.append(x)
+        return outs
+    outs = []
+    for i in range(0, len(blocks), MAX_BLOCKS):
+        outs += _launch(x, blocks[i:i + MAX_BLOCKS], couts[i:i + MAX_BLOCKS],
+                        tuple(defines))
+        x = outs[-1]
+    return outs
 
 
 def fused_sep_block(x: torch.Tensor, layers: Sequence[FoldedLayer],
@@ -54,38 +129,7 @@ def fused_sep_block(x: torch.Tensor, layers: Sequence[FoldedLayer],
     [B, H/stride, W/stride, C_out]."""
     if x.device.type == "cpu":
         return fused_sep_block_plain(x, layers, num_layers, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dim() != 4:
-        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous (NHWC)")
-    if stride not in (1, 2):
-        raise ValueError(f"stride must be 1 or 2, got {stride}")
-    b, h, w, cin = x.shape
-    if stride == 2 and (h % 2 or w % 2):
-        raise ValueError(f"stride 2 needs even H and W, got {h}x{w}")
-    cout = _check_layers(layers, num_layers, cin, x.device)
-    if cin % 4 or cout % 4:
-        raise ValueError(f"channels must be multiples of 4, got {cin}->{cout}")
-    out = torch.empty((b, h // stride, w // stride, cout), dtype=x.dtype,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    scratch = torch.empty_like(out)
-    packed = torch.cat([t.reshape(-1) for layer in layers for t in layer])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                    packed.data_ptr(), b, h, w, cin, cout, num_layers,
-                    stride, stream)
-    if err != 0:
-        raise RuntimeError(f"rpn_sep_block kernel launch failed: CUDA error "
-                           f"{err}")
-    fused_sep_block.launches += 1
-    return out
+    return fused_sep_chain(x, [pack_block(layers, num_layers, stride)])[0]
 
 
 fused_sep_block.launches = 0

@@ -112,7 +112,8 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
     with torch.inference_mode():
         v = det.voxelize_batch(points, num_valid)
         canvas = front(v)
-        blocks = fused_rpn_blocks(canvas, state, det.mcfg.rpn)
+        blocks = fused_rpn_blocks(canvas, state, det.mcfg.rpn,
+                                  det.folded_blocks)
         preds = tail(blocks)
         amask = det.anchors_mask_batch(v.coords, v.pillar_mask, thr)
         return {
@@ -123,7 +124,8 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
                 iters),
             "t_pfn_canvas": cuda_ms(lambda: front(v), iters),
             "t_rpn_blocks": cuda_ms(
-                lambda: fused_rpn_blocks(canvas, state, det.mcfg.rpn), iters),
+                lambda: fused_rpn_blocks(canvas, state, det.mcfg.rpn,
+                                         det.folded_blocks), iters),
             "t_rpn_tail": cuda_ms(lambda: tail(blocks), iters),
             "t_forward_fast": cuda_ms(
                 lambda: det._forward_fast(state, v), iters),

@@ -113,3 +113,30 @@ def test_point_major_apply_path(batch):
     want = jax.device_get(JaxDetector(jcfg).make_inference_fn()(
         variables, *args))
     compare_predictions(want, _torch_run(tcfg, state, *args))
+
+
+def test_fast_path_folds_the_blocks_once_per_state():
+    """The detector keeps the folded blocks while it is given the same
+    state: a second cloud folds nothing, a changed state folds again, and
+    the predictions are those of a detector that never saw the old state."""
+    tcfg = fast_config(small_config(TorchConfig))
+    jcfg = fast_config(small_config(JaxConfig))
+    variables = _small_variables(jcfg)
+    state = from_jax_variables(variables["params"],
+                               variables["batch_stats"], tcfg)
+    det = TorchDetector(tcfg, device="cpu")
+    fn = det.make_inference_fn()
+    clouds = [tuple(map(torch.from_numpy, _inputs(
+        1, tcfg.model.voxel.max_points, 1800, seed=s))) for s in (3, 4)]
+    first = [fn(state, *c) for c in clouds]
+    assert det.folded_blocks.folds == 1
+    state["rpn.block2.bn0.weight"].mul_(0.5)
+    second = [fn(state, *c) for c in clouds]
+    assert det.folded_blocks.folds == 2
+    fresh = TorchDetector(tcfg, device="cpu").make_inference_fn()
+    for got, c in zip(second, clouds):
+        want = fresh(state, *c)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert any(not torch.equal(a.scores, b.scores)
+               for a, b in zip(first, second))

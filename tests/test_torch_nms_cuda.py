@@ -22,10 +22,7 @@ def cuda_nms():
     return nms_cuda
 
 
-@pytest.mark.parametrize("b,k", [(1, 100), (4, 100), (1, 1000), (4, 1000),
-                                 (3, 33), (2, 1024)])
-def test_kernel_bit_equal_to_plain(cuda_nms, b, k):
-    boxes, _, valid = standup_box_sets(b * 1000 + k, b, k, n_dup=k // 10)
+def _assert_bit_equal(cuda_nms, boxes, valid):
     bt = torch.from_numpy(boxes).cuda()
     vt = torch.from_numpy(valid).cuda()
     before = cuda_nms.nms_keep_mask.launches
@@ -36,6 +33,32 @@ def test_kernel_bit_equal_to_plain(cuda_nms, b, k):
     want_cpu = cuda_nms.keep_mask_plain(bt.cpu(), vt.cpu(), 0.5)
     assert torch.equal(got, want_gpu)
     assert torch.equal(got.cpu(), want_cpu)
+    return got
+
+
+@pytest.mark.parametrize("b,k", [(1, 100), (4, 100), (1, 1000), (4, 1000),
+                                 (3, 33), (2, 1024), (2, 1), (2, 31), (2, 32),
+                                 (1, 33), (5, 64), (1, 1024)])
+def test_kernel_bit_equal_to_plain(cuda_nms, b, k):
+    boxes, _, valid = standup_box_sets(b * 1000 + k, b, k, n_dup=k // 10)
+    _assert_bit_equal(cuda_nms, boxes, valid)
+
+
+@pytest.mark.parametrize("k", [1, 33, 100, 1024])
+def test_all_invalid_and_all_duplicates(cuda_nms, k):
+    """Sample 0 has no valid box: nothing is kept. Sample 1 is one box k
+    times over: only the first is kept. Sample 2 is the same with the first
+    box invalid: the second is kept."""
+    boxes, _, valid = standup_box_sets(k, 3, k, n_dup=0)
+    valid[0] = False
+    boxes[1:] = boxes[1, 0]
+    valid[1:] = True
+    valid[2, 0] = False
+    got = _assert_bit_equal(cuda_nms, boxes, valid).cpu()
+    assert not got[0].any()
+    assert got[1].sum() == 1 and got[1, 0]
+    if k > 1:
+        assert got[2].sum() == 1 and got[2, 1]
 
 
 def test_kernel_rejects_bad_inputs(cuda_nms):

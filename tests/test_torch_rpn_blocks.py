@@ -6,8 +6,12 @@ The plain fused block against the Pallas kernel in interpret mode, and the
 three blocks against the flax _Block chain: 1e-5 of the output's largest
 magnitude (the same f32 products summed in another order; the JAX package
 measured 1.5e-6 between its fused kernel and flax at |out| ~ 1). RPNTail:
-1e-4 relative to the head's largest magnitude, as the RPN heads.
+1e-4 relative to the head's largest magnitude, as the RPN heads. The fold
+cache and the chain wrapper against the uncached, block-by-block calls: bit
+for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,9 +23,10 @@ import jax.numpy as jnp
 from pillars_torch.config import Config as TorchConfig
 from pillars_torch.models.rpn import RPNTail as TorchTail
 from pillars_torch.ops import rpn_cuda
-from pillars_torch.ops.rpn_blocks import (FoldedLayer, fold_block_params,
+from pillars_torch.ops.rpn_blocks import (FoldedBlocksCache, FoldedLayer,
+                                          fold_block_params,
                                           fused_rpn_blocks,
-                                          fused_sep_block_plain)
+                                          fused_sep_block_plain, pack_block)
 from pillars_torch.weights import convert_tree
 from pillars_tpu.config import Config as JaxConfig
 from pillars_tpu.models.rpn import RPN as JaxRPN
@@ -192,3 +197,120 @@ def test_plain_rejects_bad_arguments():
         fused_sep_block_plain(x, layers, 0, 3)
     with pytest.raises(ValueError):
         fused_sep_block_plain(x, layers, 1, 1)
+
+
+def _small_state(seed):
+    jcfg, variables = _rpn_variables(seed=seed)
+    _, ny, nx = jcfg.model.feature_map_size
+    state = convert_tree({"rpn": variables["params"]},
+                         {"rpn": variables["batch_stats"]})
+    canvas = torch.from_numpy(np.maximum(np.random.RandomState(seed).randn(
+        2, ny, nx, jcfg.model.pfn.num_filters), 0).astype(np.float32))
+    return state, canvas, small_config(TorchConfig).model.rpn
+
+
+def _all_equal(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_fold_cache_folds_once_per_state():
+    state, canvas, rcfg = _small_state(7)
+    cache = FoldedBlocksCache()
+    want = fused_rpn_blocks(canvas, state, rcfg)
+    for _ in range(3):
+        assert _all_equal(fused_rpn_blocks(canvas, state, rcfg, cache), want)
+    assert cache.folds == 1
+    # the same tensors under another dict are the same state
+    assert _all_equal(fused_rpn_blocks(canvas, dict(state), rcfg, cache), want)
+    assert cache.folds == 1
+
+
+@pytest.mark.parametrize("key", [
+    "rpn.block1.conv0.depthwise.weight", "rpn.block2.conv2.pointwise.weight",
+    "rpn.block3.bn2.weight", "rpn.block3.bn0.bias",
+    "rpn.block2.bn1.running_mean", "rpn.block1.bn1.running_var"])
+@pytest.mark.parametrize("how", ["replaced", "in_place"])
+def test_fold_cache_refolds_a_changed_state(key, how):
+    state, canvas, rcfg = _small_state(8)
+    cache = FoldedBlocksCache()
+    before = fused_rpn_blocks(canvas, state, rcfg, cache)
+    if how == "replaced":
+        state = dict(state)
+        state[key] = state[key] * 1.5
+    else:
+        state[key].mul_(1.5)
+    after = fused_rpn_blocks(canvas, state, rcfg, cache)
+    assert cache.folds == 2
+    assert _all_equal(after, fused_rpn_blocks(canvas, state, rcfg))
+    assert not torch.equal(after[-1], before[-1])
+    assert _all_equal(fused_rpn_blocks(canvas, state, rcfg, cache), after)
+    assert cache.folds == 2
+
+
+def test_fold_cache_ignores_other_entries_and_follows_the_config():
+    state, canvas, rcfg = _small_state(9)
+    cache = FoldedBlocksCache()
+    want = fused_rpn_blocks(canvas, state, rcfg, cache)
+    other = next(k for k in state if k.startswith("rpn.deconv"))
+    state[other].add_(1.0)  # not part of the blocks
+    assert _all_equal(fused_rpn_blocks(canvas, state, rcfg, cache), want)
+    assert cache.folds == 1
+    eps2 = dataclasses.replace(rcfg, bn_eps=rcfg.bn_eps * 100)
+    got = fused_rpn_blocks(canvas, state, eps2, cache)
+    assert cache.folds == 2
+    assert _all_equal(got, fused_rpn_blocks(canvas, state, eps2))
+    assert not torch.equal(got[-1], want[-1])
+
+
+def test_fold_cache_folds_inference_tensors_every_call():
+    """Inference tensors carry no version counter, so a write in place
+    could not be seen: such a state is never kept."""
+    state, canvas, rcfg = _small_state(10)
+    with torch.inference_mode():
+        state = {k: v.clone() for k, v in state.items()}
+        cache = FoldedBlocksCache()
+        want = fused_rpn_blocks(canvas, state, rcfg)
+        for n in (1, 2):
+            assert _all_equal(fused_rpn_blocks(canvas, state, rcfg, cache),
+                              want)
+            assert cache.folds == n
+
+
+def test_chain_on_the_cpu_is_the_twin_block_by_block():
+    shapes = [(8, 12, 2, 1), (12, 8, 1, 2), (8, 16, 0, 2)]
+    blocks = [pack_block([FoldedLayer(*map(torch.from_numpy, t))
+                          for t in _random_layers(i, cin, cout, n)], n, s)
+              for i, (cin, cout, n, s) in enumerate(shapes)]
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, 8, 12, 8)
+                         .astype(np.float32))
+    before = rpn_cuda.fused_sep_block.launches
+    got = rpn_cuda.fused_sep_chain(x, blocks)
+    assert rpn_cuda.fused_sep_block.launches == before
+    assert [tuple(g.shape) for g in got] == [(2, 8, 12, 12), (2, 4, 6, 8),
+                                             (2, 2, 3, 16)]
+    for g, blk in zip(got, blocks):
+        x = fused_sep_block_plain(x, blk.layers, blk.num_layers, blk.stride)
+        assert torch.equal(g, x)
+        assert (blk.cin, blk.cout) == (blk.layers[0].wp.shape)
+        assert torch.equal(blk.packed, torch.cat(
+            [t.reshape(-1) for layer in blk.layers for t in layer]))
+
+
+@pytest.mark.parametrize("fault", ["too_few", "stride", "shape", "dtype"])
+def test_pack_block_rejects_bad_layers(fault):
+    layers = [FoldedLayer(*map(torch.from_numpy, t))
+              for t in _random_layers(12, 8, 12, 1)]
+    if fault == "too_few":
+        with pytest.raises(ValueError):
+            pack_block(layers[:1], 1, 1)
+    elif fault == "stride":
+        with pytest.raises(ValueError):
+            pack_block(layers, 1, 3)
+    elif fault == "shape":
+        layers[1] = layers[1]._replace(wd=layers[1].wd[:, :, :8])
+        with pytest.raises(ValueError):
+            pack_block(layers, 1, 1)
+    else:
+        layers[0] = layers[0]._replace(bias=layers[0].bias.double())
+        with pytest.raises(TypeError):
+            pack_block(layers, 1, 1)

@@ -44,12 +44,16 @@ def _layers(seed, cin, cout, n):
 
 
 # the three d435i blocks, then small and ragged shapes (tiles cut at the
-# edge, fewer channels than a tile, a single layer)
+# edge, fewer channels than a tile, a single layer), block 3 at B=4 (two
+# rows per tile), and output widths (48, 33) that no pixel tile (20 or 40)
+# divides
 SHAPES = [
     (1, 64, 80, 128, 64, 3, 1), (2, 64, 80, 128, 64, 3, 1),
     (1, 64, 80, 64, 128, 5, 2), (2, 64, 80, 64, 128, 5, 2),
     (1, 32, 40, 128, 256, 5, 2), (2, 32, 40, 128, 256, 5, 2),
     (3, 10, 14, 8, 12, 2, 2), (1, 7, 9, 4, 20, 0, 1),
+    (4, 32, 40, 128, 256, 5, 2), (1, 37, 48, 64, 64, 2, 1),
+    (1, 22, 66, 32, 128, 3, 2),
 ]
 
 
@@ -71,13 +75,36 @@ def test_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride):
     assert (got - want).abs().max().item() <= REL_TOL * scale
 
 
+def test_chain_matches_single_blocks(cuda_rpn):
+    """Three blocks in one launch give, bit for bit, what three launches of
+    one block give (the same tiles and sums either way)."""
+    from pillars_torch.ops.rpn_blocks import pack_block
+
+    shapes = [(16, 8, 3, 1), (8, 16, 2, 2), (16, 32, 2, 2)]
+    blocks = [pack_block(_layers(i, cin, cout, n), n, s)
+              for i, (cin, cout, n, s) in enumerate(shapes)]
+    x = torch.from_numpy(np.maximum(np.random.RandomState(7).randn(
+        2, 12, 20, 16), 0).astype(np.float32)).cuda()
+    before = cuda_rpn.fused_sep_block.launches
+    got = cuda_rpn.fused_sep_chain(x, blocks)
+    assert cuda_rpn.fused_sep_block.launches == before + 1
+    y = x
+    for g, blk in zip(got, blocks):
+        y = cuda_rpn.fused_sep_block(y, blk.layers, blk.num_layers,
+                                     blk.stride)
+        assert torch.equal(g, y)
+    assert cuda_rpn.fused_sep_block.launches == before + 4
+    assert got[-1].shape == (2, 3, 5, 32)
+
+
 def test_fused_rpn_blocks_on_a_sliced_canvas(cuda_rpn):
     """The three blocks as the fast path runs them: a B=2 canvas that is a
     slice of a padded scatter buffer (not contiguous), kernel against the
-    twin on the CPU, three launches."""
+    twin on the CPU, one launch, with and without the fold cache."""
     from pillars_torch.config import Config
     from pillars_torch.models.rpn import RPN
-    from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
+    from pillars_torch.ops.rpn_blocks import (FoldedBlocksCache,
+                                              fused_rpn_blocks)
 
     mcfg = Config.default().model
     _, ny, nx = mcfg.feature_map_size
@@ -93,14 +120,19 @@ def test_fused_rpn_blocks_on_a_sliced_canvas(cuda_rpn):
     assert not canvas.is_contiguous()
     want = fused_rpn_blocks(canvas, state, mcfg.rpn)
     before = cuda_rpn.fused_sep_block.launches
-    got = fused_rpn_blocks(canvas.cuda(), {k: v.cuda() for k, v in
-                                           state.items()}, mcfg.rpn)
+    state_gpu = {k: v.cuda() for k, v in state.items()}
+    got = fused_rpn_blocks(canvas.cuda(), state_gpu, mcfg.rpn)
     torch.cuda.synchronize()
-    assert cuda_rpn.fused_sep_block.launches == before + 3
+    assert cuda_rpn.fused_sep_block.launches == before + 1
     for g, w in zip(got, want):
         scale = w.abs().max().item()
         assert scale > 0
         assert (g.cpu() - w).abs().max().item() <= REL_TOL * scale
+    cache = FoldedBlocksCache()
+    for _ in range(2):
+        cached = fused_rpn_blocks(canvas.cuda(), state_gpu, mcfg.rpn, cache)
+        assert all(torch.equal(c, g) for c, g in zip(cached, got))
+    assert cache.folds == 1
 
 
 def test_kernel_rejects_bad_inputs(cuda_rpn):
