@@ -49,6 +49,33 @@ class Predictions(NamedTuple):
     valid: torch.Tensor         # [B, K] bool
 
 
+class HostFetch:
+    """The copy of a :class:`Predictions` to the host, enqueued behind the
+    work that computes it, and the event that says it has arrived.
+
+    The thread that dispatched the batch makes the object; any thread may
+    call :meth:`result`, which waits for THIS batch only (the event, not the
+    device: a device-wide synchronize would wait for every later batch too)
+    and releases the GIL while it waits. Each fetch owns its pinned
+    buffers. On the CPU the predictions are already there."""
+
+    def __init__(self, preds: Predictions):
+        self.event = None
+        if preds.valid.is_cuda:
+            preds = Predictions(*(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in preds))
+            self.event = torch.cuda.Event()
+            self.event.record()
+        self._host = preds
+
+    def result(self) -> Predictions:
+        """The predictions as NumPy arrays."""
+        if self.event is not None:
+            self.event.synchronize()
+        return Predictions(*(t.numpy() for t in self._host))
+
+
 def _full_f32():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,6 +189,39 @@ class PillarsDetector:
         s = self.anchor_set.sat_structured
         self.sat_structured = None if s is None else StructuredSAT(
             *(torch.as_tensor(a, dtype=torch.long, device=dev) for a in s))
+
+    # ------------------------------------------------------------------
+    def init(self, generator: torch.Generator, batch_size: int = 1
+             ) -> Dict[str, torch.Tensor]:
+        """A fresh ``state_dict`` on this detector's device, drawn from
+        ``generator`` with the JAX package's initialisers: every kernel
+        uniform in +-sqrt(6 / fan_in) (flax's fan_in: the input features of
+        a Dense, kh*kw*in/groups of a conv, kh*kw*in of a ConvTranspose),
+        BN scale 1, bias 0, running mean 0 and variance 1, head biases 0
+        but the class head's, which takes the focal prior -log((1 - p) / p)
+        when ``model.rpn.cls_bias_prior`` is set. Same keys and shapes as
+        :func:`pillars_torch.weights.from_jax_variables`; the values are
+        not flax's for any seed. ``batch_size`` is accepted for the JAX
+        package's signature (flax traces a dummy batch) and unused."""
+        del batch_size
+        prior = self.mcfg.rpn.cls_bias_prior
+        state = {}
+        for name, ref in self.network.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            t = torch.zeros(ref.shape, dtype=ref.dtype)
+            if leaf == "running_var" or (leaf == "weight" and t.ndim == 1):
+                t.fill_(1)
+            elif leaf == "weight":
+                k = t[0, 0].numel() if t.ndim == 4 else 1
+                # torch keeps a ConvTranspose kernel as [in, out, k, k]
+                fan_in = (t.shape[0] if ".deconv." in name
+                          else t.shape[1]) * k
+                bound = math.sqrt(6.0 / fan_in)
+                t.uniform_(-bound, bound, generator=generator)
+            elif name == "rpn.conv_cls.bias" and prior is not None:
+                t.fill_(-math.log((1.0 - float(prior)) / float(prior)))
+            state[name] = t
+        return self.state_to_device(state)
 
     # ------------------------------------------------------------------
     def state_to_device(self, state: Dict[str, torch.Tensor]
@@ -289,19 +349,27 @@ class PillarsDetector:
     # ------------------------------------------------------------------
     def make_inference_fn(self, anchor_area_threshold: Optional[float] = None):
         """fn(state, points [B, MAXPTS, D], num_valid [B], rect [B, 4, 4],
-        trv2c [B, 4, 4]) -> Predictions, on this detector's device."""
+        trv2c [B, 4, 4]) -> Predictions, on this detector's device.
+
+        Inputs may be arrays or tensors anywhere. A tensor is copied to the
+        card without blocking the host, which is asynchronous when it lies
+        in pinned memory (the caller then leaves the buffer alone until the
+        batch is done); an array goes through a pageable, blocking copy."""
         thr = (self.config.eval_input.anchor_area_threshold
                if anchor_area_threshold is None else anchor_area_threshold)
         dev = self.device
 
+        def put(a, dtype=None):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=dev, dtype=dtype, non_blocking=True)
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
         def fn(state, points, num_valid, rect, trv2c):
             with torch.inference_mode():
-                points = torch.as_tensor(points, dtype=torch.float32,
-                                         device=dev)
-                num_valid = torch.as_tensor(num_valid, device=dev)
-                rect = torch.as_tensor(rect, dtype=torch.float32, device=dev)
-                trv2c = torch.as_tensor(trv2c, dtype=torch.float32,
-                                        device=dev)
+                points = put(points, torch.float32)
+                num_valid = put(num_valid)
+                rect = put(rect, torch.float32)
+                trv2c = put(trv2c, torch.float32)
                 if self.dense_cell:
                     preds, amask = self._forward_dense(state, points,
                                                        num_valid, thr)

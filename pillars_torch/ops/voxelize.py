@@ -5,7 +5,9 @@ Dense cell: the pillar index space is the cell grid itself, usable whenever
 the grid has no more cells than ``max_voxels`` (the d435i config: 80*64*2 =
 10240 cells < 12000), so the reference's pillar compaction is the identity.
 Point-major: pillars are numbered in ascending cell order, and per-pillar
-tables ([P] counts, coords, means) are scattered from the sorted points.
+tables ([P] counts, coords, means) are scattered from the sorted points. A
+grid with more cells than ``max_voxels`` keeps the first ``max_voxels``
+pillars in ARRIVAL order and drops every point from the overflow on.
 
 Both stably sort points by cell; each cell keeps its first
 ``max_points_per_voxel`` points in input order (reference
@@ -110,6 +112,12 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
                          num_pillars)
 
 
+# one unit of the fixed-point segment sums of ``voxelize_points``, and what
+# |value| * max_points_per_voxel must stay under for an int64 sum of them
+_FIXED_ONE = float(2 ** 40)
+_FIXED_RANGE = float(2 ** 23)
+
+
 class VoxelizedPoints(NamedTuple):
     """Point-major voxelization of a BATCH (every array has a leading B).
 
@@ -145,13 +153,33 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     """points [B, MAXPTS, D], num_valid [B] -> :class:`VoxelizedPoints`,
     each sample as pillars_tpu's ``voxelize_points`` gives it.
 
-    Only the regime n_cells <= max_voxels is ported (no pillar can be
-    dropped); larger grids, whose arrival-order pillar cap needs the
-    reference's point-stream cutoff, raise ``NotImplementedError``.
+    A grid with more cells than ``max_voxels`` can fill more pillars than
+    fit. The reference breaks out of its point loop when a point would open
+    pillar P+1 (load_data.py:630-637): the first P pillars in arrival order
+    survive, and every point at or after the overflow position is dropped,
+    also points of pillars that survive. Two order statistics of the
+    segment heads' input positions give that: ``thr``, the P-th smallest (a
+    pillar survives iff its head is at or before it), and ``cutoff``, the
+    (P+1)-th (the overflow point). The surviving pillars are renumbered in
+    cell order, so the ids stay non-decreasing over the sorted points.
+
+    The sort key is int64, so one sort serves every grid size (the JAX
+    package needs a second int32 key from 2^31 on). The per-pillar tables
+    come from the scatter tail in both regimes: it is the JAX package's
+    second tail, whose outputs equal its compaction sort's, and one
+    ``scatter_reduce_`` per table is cheaper here than another sort.
 
     Per-pillar means sum each point relative to its cell centre (the same
     for every point of a pillar) and add the centre back, as the JAX
-    package does, so the rounding stays at the scale of a cell."""
+    package does, so the rounding stays at the scale of a cell. The sums
+    are taken in 2^-40 fixed point: integer addition does not depend on the
+    order in which the card's atomics land, so the same cloud gives the
+    same bits in every run and at every padded width. The int64 sums hold
+    |value| * ``max_points_per_voxel`` < 2^23, where a value is an xyz
+    offset from the cell centre or an extra feature (167772 at 50 points per
+    pillar): on the CPU a cloud beyond that raises ``ValueError``; on the
+    card it is not looked at, because the look would make the host wait for
+    the card, and the sums of such a cloud wrap."""
     b, maxpts, dim = points.shape
     dev = points.device
     vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
@@ -160,10 +188,6 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     n_cells = nx * ny * nz
     P = int(max_voxels)
     N = int(max_points_per_voxel)
-    if n_cells > P:
-        raise NotImplementedError(
-            f"voxelize_points with more cells than max_voxels ({n_cells} > "
-            f"{P}): the arrival-order pillar cap is not ported yet")
 
     idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
     in_count = idx < num_valid.to(dev)[:, None]
@@ -173,19 +197,37 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]
     cell = torch.where(valid, cell, torch.full_like(cell, n_cells))
 
-    # unique key: the sort keeps input order within a cell
-    key_s, perm = torch.sort(cell.to(torch.int64) * maxpts + idx, dim=1)
-    points_s = torch.gather(points, 1, perm[..., None].expand(-1, -1, dim))
+    # unique key: the sort keeps input order within a cell; the sorted
+    # permutation is each point's input position
+    key_s, order = torch.sort(cell.to(torch.int64) * maxpts + idx, dim=1)
+    points_s = torch.gather(points, 1, order[..., None].expand(-1, -1, dim))
     cell_s = key_s // maxpts
     valid_s = cell_s < n_cells
 
     prev = torch.cat([torch.full((b, 1), -1, dtype=cell_s.dtype, device=dev),
                       cell_s[:, :-1]], dim=1)
     is_start = cell_s != prev
-    pillar_id = torch.cumsum(is_start.to(torch.int64), dim=1) - 1
+    seg_id = torch.cumsum(is_start.to(torch.int64), dim=1) - 1
     seg_start = torch.cummax(
         torch.where(is_start, idx, torch.zeros_like(idx)), dim=1).values
-    keep = valid_s & (idx - seg_start < N) & (pillar_id < P)
+    if n_cells > P:
+        first_pos = torch.gather(order, 1, seg_start)  # the head's position
+        heads_sorted = torch.sort(torch.where(
+            is_start & valid_s, first_pos, torch.full_like(first_pos, maxpts)),
+            dim=1).values
+        # with fewer than P occupied cells both read the filler maxpts
+        full = torch.full((b, 1), maxpts, dtype=torch.int64, device=dev)
+        thr = heads_sorted[:, P - 1:P] if P <= maxpts else full
+        cutoff = heads_sorted[:, P:P + 1] if P < maxpts else full
+        survives = first_pos <= thr
+        seg_keep = survives & (order < cutoff)
+        pillar_id = torch.clamp(
+            torch.cumsum((is_start & survives).to(torch.int64), dim=1) - 1,
+            0, P)
+    else:
+        seg_keep = torch.ones_like(valid_s)
+        pillar_id = seg_id
+    keep = valid_s & (idx - seg_start < N) & seg_keep & (pillar_id < P)
     point_pillar = torch.clamp_max(pillar_id, P)
 
     z = torch.div(cell_s, ny * nx, rounding_mode="floor")
@@ -194,19 +236,30 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     x = rem - y * nx
     zyx = torch.stack([z, y, x], dim=-1).to(torch.int32)
 
-    # per-pillar sums of kept points relative to the cell centre, plus a
-    # kept-count column; one sum per segment (the sentinel segment of
-    # invalid points is a segment of its own), gathered back per point
+    # per-segment sums of kept points relative to the cell centre, plus a
+    # kept-count column (the mean's denominator leaves out capped and
+    # cut-off points); one sum per segment (the sentinel segment of invalid
+    # points and every dropped pillar is a segment of its own), gathered
+    # back per point
     cell_center = (torch.stack([x, y, z], dim=-1).to(points.dtype) + 0.5
                    ) * vs[:3] + pcr[:3]
     centered = torch.cat([points_s[..., :3] - cell_center, points_s[..., 3:],
                           torch.ones_like(points_s[..., :1])], dim=-1)
     vals = torch.where(keep[..., None], centered, torch.zeros_like(centered))
-    seg = (pillar_id + torch.arange(b, device=dev)[:, None] * maxpts
+    if dev.type == "cpu" and float(vals.abs().max()) * N >= _FIXED_RANGE:
+        raise ValueError(
+            f"voxelize_points: |value| * max_points_per_voxel must stay "
+            f"under 2^23 for the fixed-point means, got "
+            f"{float(vals.abs().max())} * {N}")
+    seg = (seg_id + torch.arange(b, device=dev)[:, None] * maxpts
            ).reshape(-1)
-    sums = torch.zeros((b * maxpts, dim + 1), dtype=points.dtype, device=dev)
-    sums.index_add_(0, seg, vals.reshape(-1, dim + 1))
-    total = sums[seg].reshape(b, maxpts, dim + 1)
+    sums = torch.zeros((b * maxpts, dim + 1), dtype=torch.int64, device=dev)
+    # scaling by a power of two is exact in f32; the conversion truncates
+    # what lies below one unit, the same way for a value wherever it stands
+    sums.index_add_(0, seg, (vals.reshape(-1, dim + 1) * _FIXED_ONE).to(
+        torch.int64))
+    total = (sums[seg].to(points.dtype) * (1.0 / _FIXED_ONE)).reshape(
+        b, maxpts, dim + 1)
     denom = torch.clamp_min(total[..., dim:], 1.0)
     point_mean = total[..., :dim] / denom
     point_mean = torch.cat([point_mean[..., :3] + cell_center,
@@ -222,11 +275,13 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
                             reduce)
         return out[:, :P]
 
-    head = is_start & valid_s
+    head = is_start & valid_s & seg_keep
     num_points = per_pillar(1, torch.int32, keep[..., None].to(torch.int32),
                             "sum")[..., 0]
+    # points of a dropped pillar carry the id of the pillar before it and
+    # must not reach its coords
     coords = per_pillar(3, torch.int32, torch.where(
-        valid_s[..., None], zyx, torch.zeros_like(zyx)), "amax")
+        (valid_s & seg_keep)[..., None], zyx, torch.zeros_like(zyx)), "amax")
     voxel_mean = per_pillar(dim, points.dtype, torch.where(
         head[..., None], point_mean, torch.zeros_like(point_mean)), "sum")
     return VoxelizedPoints(points_s, pp.to(torch.int32), keep, point_mean, zyx,
@@ -235,13 +290,9 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
 
 def make_point_voxelizer(cfg: VoxelConfig):
     """Bound point-major voxelizer, ``fn(points [B, M, D], num_valid [B])``.
-    Raises ``NotImplementedError`` for a grid of more than max_voxels
-    cells."""
-    nx, ny, nz = cfg.grid_size
-    if nx * ny * nz > cfg.max_voxels:
-        raise NotImplementedError(
-            f"the point-major voxelizer is ported for n_cells <= max_voxels "
-            f"only ({nx * ny * nz} > {cfg.max_voxels})")
+    Every kept value (xyz relative to its cell centre, extra features as they
+    are) times ``cfg.max_points_per_voxel`` must stay under 2^23
+    (:func:`voxelize_points`)."""
     return functools.partial(
         voxelize_points,
         voxel_size=np.asarray(cfg.voxel_size, np.float32),

@@ -88,10 +88,18 @@ def test_voxelize_points_empty_cloud():
 
 
 def test_voxelize_points_big_grid_raises():
+    """A grid of more cells than max_voxels used to raise; now nothing
+    does, and the pillar cap holds (test_torch_voxelize_big_grid.py has the
+    comparison with the JAX package)."""
     vcfg = TorchConfig.default().override("model.voxel.max_voxels",
                                           1000).model.voxel
-    with pytest.raises(NotImplementedError):
-        make_point_voxelizer(vcfg)
+    pts = crowded_clouds(3, 1, 2048, np.array([2000], np.int32))
+    got = make_point_voxelizer(vcfg)(torch.from_numpy(pts),
+                                     torch.tensor([2000], dtype=torch.int32))
+    assert got.pillar_mask.shape == (1, 1000)
+    assert got.pillar_mask.all()  # 2000 points fill more than 1000 cells
+    assert int(got.point_pillar.max()) == 1000  # the spare id, never kept
+    assert not got.point_kept[got.point_pillar == 1000].any()
 
 
 @pytest.mark.parametrize("b", [1, 2])
