@@ -1,13 +1,15 @@
 """Command-line interface of the port (pillars_tpu/cli.py).
 
+    pillars-torch train --config cfg.yaml [--set key=value ...] [--resume ck]
     pillars-torch evaluate --config cfg.yaml --checkpoint weights.pkl
     pillars-torch stream --config cfg.yaml --checkpoint weights.pkl --hz 120
     pillars-torch create-data --root DATASET --num-train N [--num-test M]
     pillars-torch synth-data --root DIR ...
+    pillars-torch sample-val-data --val-info INFOS.pkl ...
 
 Every command that runs the detector runs it on the card; ``--device cpu``
-asks for the CPU. ``train``, ``capture``, ``sample-val-data``, ``visualize``
-and ``bench`` are not ported yet and say so.
+asks for the CPU. ``capture``, ``visualize`` and ``bench`` are not ported
+yet and say so.
 """
 
 from __future__ import annotations
@@ -20,9 +22,7 @@ from typing import List, Optional
 
 # subcommands of the JAX package's CLI that a later slice of the port brings
 _NOT_PORTED = {
-    "train": "the training slice (Trainer, losses, optimizer)",
     "capture": "the capture slice (data/capture.py)",
-    "sample-val-data": "the training slice (data/val_sampling.py)",
     "visualize": "the visualization slice (viz/plot.py)",
     "bench": "the benchmark slice (bench_torch.py)",
 }
@@ -56,6 +56,29 @@ def _detector_and_state(args, cfg, who):
         print(f"[{who}] no checkpoint given - random init", file=sys.stderr)
         state = det.init(torch.Generator().manual_seed(0), batch_size=1)
     return det, state
+
+
+def cmd_train(args):
+    from pillars_torch.train.trainer import Trainer
+
+    cfg = _load_config(args)
+    trainer = Trainer(cfg, use_wandb=args.wandb, device=args.device)
+    if args.resume:
+        step = trainer.resume(args.resume)
+        print(f"resumed from {args.resume} at step {step}")
+    best = trainer.train(epochs=args.epochs,
+                         eval_max_samples=args.eval_max_samples,
+                         overfit_first_batch=args.overfit_first_batch,
+                         replay_batch_file=args.replay_batch_file)
+    print(f"best eval score: {best:.2f}")
+
+
+def cmd_sample_val_data(args):
+    from pillars_torch.data.val_sampling import create_sampled_val_dataset
+
+    cfg = _load_config(args)
+    out = create_sampled_val_dataset(cfg, args.val_info, seed=args.seed)
+    print(f"sampled val info file: {out}")
 
 
 def cmd_evaluate(args):
@@ -191,6 +214,18 @@ def main(argv: Optional[List[str]] = None):
                         help="torch device; default the card (cuda), which "
                              "must be there. 'cpu' must be asked for")
 
+    sp = sub.add_parser("train", help="train the detector")
+    common(sp)
+    sp.add_argument("--epochs", type=int, default=None)
+    sp.add_argument("--eval-max-samples", type=int, default=None)
+    sp.add_argument("--wandb", action="store_true")
+    sp.add_argument("--resume", default=None,
+                    help="checkpoint to restore the full train state from "
+                         "(the port's or the JAX package's)")
+    sp.add_argument("--overfit-first-batch", action="store_true")
+    sp.add_argument("--replay-batch-file", default=None)
+    sp.set_defaults(fn=cmd_train)
+
     sp = sub.add_parser("evaluate", help="offline KITTI AP evaluation")
     common(sp)
     sp.add_argument("--checkpoint", default=None)
@@ -225,6 +260,14 @@ def main(argv: Optional[List[str]] = None):
                          "kitti3 = full-LiDAR-scale 3-class scenes for "
                          "configs/kitti_3class.yaml")
     sp.set_defaults(fn=cmd_synth_data)
+
+    sp = sub.add_parser("sample-val-data",
+                        help="build an augmented eval set from the val split "
+                             "(the reference's sample_val_dataset_mode)")
+    common(sp)
+    sp.add_argument("--val-info", required=True)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_sample_val_data)
 
     sp = sub.add_parser("stream", help="streaming inference (replay/live)")
     common(sp)

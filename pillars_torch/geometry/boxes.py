@@ -61,6 +61,65 @@ def corner_to_standup(boxes_corner: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
+def center_to_minmax_2d(centers, dims):
+    """Axis-aligned [xmin, ymin, xmax, ymax] from center/dims."""
+    return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1)
+
+
+def rbbox2d_to_near_bbox(rbboxes: torch.Tensor) -> torch.Tensor:
+    """Rotated [N,5] (x, y, w, l, r) -> nearest axis-aligned [N,4] standup
+    box: w and l swap where |r| (wrapped into [-pi/2, pi/2)) > pi/4."""
+    rots = rbboxes[..., -1]
+    rots_0_pi_div_2 = torch.abs(limit_period(rots, 0.5, math.pi))
+    cond = (rots_0_pi_div_2 > math.pi / 4)[..., None]
+    bboxes_center = torch.where(cond, rbboxes[..., [0, 1, 3, 2]],
+                                rbboxes[..., :4])
+    return center_to_minmax_2d(bboxes_center[..., :2], bboxes_center[..., 2:4])
+
+
+def iou_matrix(boxes: torch.Tensor, query_boxes: torch.Tensor,
+               eps: float = 0.0) -> torch.Tensor:
+    """Pairwise axis-aligned IoU of [N,4] x [K,4] minmax boxes -> [N,K], in
+    the JAX package's operation order (ties between overlaps must repeat)."""
+    n_area = (boxes[:, 2] - boxes[:, 0] + eps) * (boxes[:, 3] - boxes[:, 1]
+                                                  + eps)
+    k_area = (query_boxes[:, 2] - query_boxes[:, 0] + eps) * (
+        query_boxes[:, 3] - query_boxes[:, 1] + eps)
+    iw = (torch.minimum(boxes[:, None, 2], query_boxes[None, :, 2])
+          - torch.maximum(boxes[:, None, 0], query_boxes[None, :, 0]) + eps)
+    ih = (torch.minimum(boxes[:, None, 3], query_boxes[None, :, 3])
+          - torch.maximum(boxes[:, None, 1], query_boxes[None, :, 1]) + eps)
+    iw = torch.clamp(iw, min=0.0)
+    ih = torch.clamp(ih, min=0.0)
+    inter = iw * ih
+    union = n_area[:, None] + k_area[None, :] - inter
+    return torch.where(inter > 0, inter / union, torch.zeros_like(inter))
+
+
+def second_box_encode(boxes: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """SECOND residual encoding of [..., 7] boxes against [..., 7] anchors
+    (z at the box bottom); the inverse of :func:`second_box_decode`."""
+    xa, ya, za, wa, la, ha, ra = anchors.split(1, dim=-1)
+    xg, yg, zg, wg, lg, hg, rg = boxes.split(1, dim=-1)
+    za = za + ha / 2
+    zg = zg + hg / 2
+    diagonal = torch.sqrt(la ** 2 + wa ** 2)
+    return torch.cat([(xg - xa) / diagonal, (yg - ya) / diagonal,
+                      (zg - za) / ha, torch.log(wg / wa), torch.log(lg / la),
+                      torch.log(hg / ha), rg - ra], dim=-1)
+
+
+def add_sin_difference(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """sin(a - b) angle-difference trick of the localization loss: the last
+    field becomes sin(a)cos(b) in ``boxes1`` and cos(a)sin(b) in
+    ``boxes2``."""
+    rad_pred = torch.sin(boxes1[..., -1:]) * torch.cos(boxes2[..., -1:])
+    rad_tg = torch.cos(boxes1[..., -1:]) * torch.sin(boxes2[..., -1:])
+    return (torch.cat([boxes1[..., :-1], rad_pred], dim=-1),
+            torch.cat([boxes2[..., :-1], rad_tg], dim=-1))
+
+
 def second_box_decode(box_encodings: torch.Tensor,
                       anchors: torch.Tensor) -> torch.Tensor:
     """SECOND residual decode of [..., 7] encodings against [..., 7] anchors

@@ -1,14 +1,15 @@
-"""End-to-end d435i inference (pillars_tpu/models/detector.py): voxelize ->
-PFN -> canvas -> RPN -> decode + top-k + NMS + direction flip, with
-fixed-size outputs and a validity mask.
+"""The d435i detector (pillars_tpu/models/detector.py): voxelize -> PFN ->
+canvas -> RPN -> [train] targets + loss | [eval] decode + top-k + NMS +
+direction flip, with fixed-size outputs and a validity mask.
 
-Two front ends, as in the JAX package. Dense cell (``_forward_dense``, the
-default config): the pillar space is the cell grid and the canvas a reshape.
-Point-major (``pfn.dense_cell`` false): ``VoxelizedPoints`` ->
-``PointwisePFN`` -> canvas scatter -> RPN (``apply``); with
-``rpn.use_pallas_blocks`` the three downsample blocks run as the fused
-kernel (``_forward_fast``: ``ops/rpn_blocks.py``, the CUDA kernel on the
-card, its plain twin on the CPU) and ``RPNTail`` follows.
+Two front ends, as in the JAX package. Point-major (``apply``, the network
+every config trains through): ``VoxelizedPoints`` -> ``PointwisePFN`` ->
+canvas scatter -> RPN; with ``rpn.use_pallas_blocks`` the inference path
+runs the three downsample blocks as the fused kernel (``_forward_fast``:
+``ops/rpn_blocks.py``, the CUDA kernel on the card, its plain twin on the
+CPU) and ``RPNTail`` follows. Dense cell (``_forward_dense``, inference on
+the default config): the pillar space is the cell grid and the canvas a
+reshape. Both networks read the same state dict.
 
 Precision: the JAX reference on the CPU computes in full f32, while cuDNN
 convolutions default to TF32 (about 3 decimal digits). Every stage of these
@@ -28,6 +29,8 @@ from torch import nn
 from pillars_torch import resolve_device
 from pillars_torch.config import Config, ModelConfig
 from pillars_torch.geometry import boxes as gb
+from pillars_torch.models.layers import collect_batch_stats
+from pillars_torch.models.losses import LossOutput, detection_loss
 from pillars_torch.models.pfn import DenseCellPFN, PointwisePFN
 from pillars_torch.models.rpn import RPN, RPNTail
 from pillars_torch.ops.anchors import (StructuredSAT, anchors_mask_batched,
@@ -35,6 +38,7 @@ from pillars_torch.ops.anchors import (StructuredSAT, anchors_mask_batched,
 from pillars_torch.ops.nms import nms_standup
 from pillars_torch.ops.rpn_blocks import FoldedBlocksCache, fused_rpn_blocks
 from pillars_torch.ops.scatter import scatter_to_canvas_batched
+from pillars_torch.ops.targets import TargetAssignment, assign_targets_batched
 from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
                                         make_point_voxelizer)
 
@@ -98,25 +102,35 @@ def point_canvas(pfn, v: VoxelizedPoints, ny: int, nx: int) -> torch.Tensor:
                                      v.pillar_mask, ny, nx)
 
 
+def uses_dense_cell(mcfg: ModelConfig) -> bool:
+    """The JAX package's rule: the dense-cell front end serves inference on
+    every grid that fits in max_voxels, unless a middle extractor is on."""
+    gx, gy, gz = mcfg.voxel.grid_size
+    return (mcfg.pfn.dense_cell and not mcfg.middle.enabled
+            and gx * gy * gz <= mcfg.voxel.max_voxels)
+
+
+def _unported_point_major(mcfg: ModelConfig):
+    return [name for name, on in (
+        ("model.middle.enabled", mcfg.middle.enabled),
+        ("model.pfn.simple_mean", mcfg.pfn.simple_mean),
+        ("model.pfn.pointwise=false", not mcfg.pfn.pointwise)) if on]
+
+
 class Network(nn.Module):
     """PFN + canvas + RPN. Dense cell: ``forward(points, num_valid)`` ->
     (NHWC head tensors, [B, ny, nx] occupied-cell count summed over z).
     Point-major: ``forward(voxelized)`` -> NHWC head tensors. The two
-    share parameter names, so one checkpoint loads into either."""
+    share parameter names, so one checkpoint loads into either.
+    ``dense_cell`` defaults to :func:`uses_dense_cell`."""
 
-    def __init__(self, mcfg: ModelConfig):
+    def __init__(self, mcfg: ModelConfig, dense_cell: Optional[bool] = None):
         super().__init__()
         self.mcfg = mcfg
-        # the JAX package's rule: the dense-cell front end serves every
-        # grid that fits in max_voxels, unless a middle extractor is on
-        gx, gy, gz = mcfg.voxel.grid_size
-        self.dense_cell = (mcfg.pfn.dense_cell and not mcfg.middle.enabled
-                           and gx * gy * gz <= mcfg.voxel.max_voxels)
+        self.dense_cell = (uses_dense_cell(mcfg) if dense_cell is None
+                           else dense_cell)
         if not self.dense_cell:
-            unported = [name for name, on in (
-                ("model.middle.enabled", mcfg.middle.enabled),
-                ("model.pfn.simple_mean", mcfg.pfn.simple_mean),
-                ("model.pfn.pointwise=false", not mcfg.pfn.pointwise)) if on]
+            unported = _unported_point_major(mcfg)
             if unported:
                 raise NotImplementedError(
                     f"not ported yet: {', '.join(unported)} (the dense-cell "
@@ -167,14 +181,21 @@ class PillarsDetector:
         self.device = resolve_device(device)
         if config.runtime.compute_dtype != "float32":
             raise NotImplementedError("only float32 compute is ported")
-        self.network = Network(self.mcfg).to(self.device).eval()
-        self.dense_cell = self.network.dense_cell
+        self.dense_cell = uses_dense_cell(self.mcfg)
+        # the point-major network: apply, training, and inference off the
+        # dense cell; built for every config it is ported for (a dense-cell
+        # config of another front end keeps its inference path)
+        self.network = None
+        if not (self.dense_cell and _unported_point_major(self.mcfg)):
+            self.network = Network(self.mcfg, dense_cell=False).to(
+                self.device).eval()
+            self.voxelize = make_point_voxelizer(self.mcfg.voxel)
+        self.dense_network = (Network(self.mcfg, dense_cell=True).to(
+            self.device).eval() if self.dense_cell else None)
         rcfg = self.mcfg.rpn
         # the fused blocks: the CUDA kernel on the card, its twin on the CPU
         self.fast = (rcfg.use_pallas_blocks and rcfg.use_separable_conv
                      and self.mcfg.pfn.pointwise and not self.dense_cell)
-        if not self.dense_cell:
-            self.voxelize = make_point_voxelizer(self.mcfg.voxel)
         if self.fast:
             self.rpn_tail = RPNTail(self.mcfg).to(self.device).eval()
             # the blocks' folded, packed weights, kept while the state
@@ -189,6 +210,12 @@ class PillarsDetector:
         s = self.anchor_set.sat_structured
         self.sat_structured = None if s is None else StructuredSAT(
             *(torch.as_tensor(a, dtype=torch.long, device=dev) for a in s))
+        self.anchors_standup = torch.as_tensor(self.anchor_set.standup_bv,
+                                               device=dev)
+        self.matched_thresholds = torch.as_tensor(
+            self.anchor_set.matched_thresholds, device=dev)
+        self.unmatched_thresholds = torch.as_tensor(
+            self.anchor_set.unmatched_thresholds, device=dev)
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator, batch_size: int = 1
@@ -206,7 +233,8 @@ class PillarsDetector:
         del batch_size
         prior = self.mcfg.rpn.cls_bias_prior
         state = {}
-        for name, ref in self.network.state_dict().items():
+        net = self.network if self.network is not None else self.dense_network
+        for name, ref in net.state_dict().items():
             leaf = name.rsplit(".", 1)[-1]
             t = torch.zeros(ref.shape, dtype=ref.dtype)
             if leaf == "running_var" or (leaf == "weight" and t.ndim == 1):
@@ -236,15 +264,23 @@ class PillarsDetector:
         """Head tensors (NHWC) and the [B, A] anchors mask."""
         _full_f32()
         preds, dense_grid = torch.func.functional_call(
-            self.network, state, (points, num_valid))
+            self.dense_network, state, (points, num_valid))
         amask = anchors_mask_from_dense(dense_grid, self.sat_corners, thr,
                                         structured=self.sat_structured)
         return preds, amask
 
     # ------------------------------------------------------------------
+    def _point_major(self):
+        if self.network is None:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(_unported_point_major(self.mcfg))}"
+                f" (the point-major PointwisePFN front end is)")
+        return self.network
+
     def voxelize_batch(self, points, num_valid) -> VoxelizedPoints:
         """[B, MAXPTS, D] + [B] -> the point-major voxelization of the batch
         (each sample as the JAX package's ``voxelize_points`` gives it)."""
+        self._point_major()
         return self.voxelize(points, num_valid)
 
     def anchors_mask_batch(self, coords, pillar_mask, threshold: float):
@@ -255,11 +291,41 @@ class PillarsDetector:
             coords, pillar_mask, self.sat_corners, self.ny, self.nx,
             threshold, structured=self.sat_structured, coord_stride=stride)
 
-    def apply(self, state, voxelized: VoxelizedPoints
-              ) -> Dict[str, torch.Tensor]:
-        """Point-major PFN + canvas + RPN -> NHWC head tensors."""
+    def apply(self, state, voxelized: VoxelizedPoints, train: bool = False):
+        """Point-major PFN + canvas + RPN -> NHWC head tensors; with
+        ``train``, (head tensors, the new BN statistics as ``state`` entries)
+        from the batch statistics, the counterpart of flax's
+        ``mutable=["batch_stats"]``. The tensors of ``state`` are left as
+        they were."""
         _full_f32()
-        return torch.func.functional_call(self.network, state, (voxelized,))
+        net = self._point_major()
+        if not train:
+            return torch.func.functional_call(net, state, (voxelized,))
+        collect_batch_stats(net)  # drop what a remat recomputation left
+        net.train()
+        try:
+            preds = torch.func.functional_call(net, state, (voxelized,))
+            return preds, collect_batch_stats(net)
+        finally:
+            net.eval()
+
+    def assign_targets(self, gt_boxes, gt_classes, gt_valid, amask
+                       ) -> TargetAssignment:
+        """[B, G, 7] gt boxes, [B, G] classes and valid, [B, A] anchors mask
+        -> labels [B, A], bbox_targets [B, 7, A], reg_weights [B, A]."""
+        return assign_targets_batched(
+            self.anchors_standup, self.anchors, gt_boxes, gt_classes,
+            gt_valid, amask, self.matched_thresholds,
+            self.unmatched_thresholds)
+
+    def loss(self, preds: Dict[str, torch.Tensor], labels, reg_targets
+             ) -> LossOutput:
+        return detection_loss(
+            self.mcfg.loss, self.mcfg.num_class, preds["box_preds"],
+            preds["cls_preds"], preds.get("dir_cls_preds"), self.anchors,
+            labels, reg_targets,
+            use_direction_classifier=self.mcfg.postprocess
+            .use_direction_classifier)
 
     def _forward_fast(self, state, voxelized: VoxelizedPoints
                       ) -> Dict[str, torch.Tensor]:

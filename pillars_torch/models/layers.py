@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
+import torch
 from torch import nn
 
 
@@ -22,3 +25,73 @@ class SeparableConv(nn.Module):
 
     def forward(self, x):
         return self.pointwise(self.depthwise(x))
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channels of NCHW activations, with flax's
+    conventions.
+
+    Eval: the running statistics. Train: the batch's, mean E[x] and the
+    biased variance max(E[x^2] - E[x]^2, 0) (flax's fast variance), and the
+    running update ``new = momentum * old + (1 - momentum) * batch``
+    (flax's ``momentum``, the complement of torch's). The state keys are
+    torch's (``weight``, ``bias``, ``running_mean``, ``running_var`` and,
+    with ``count_batches``, ``num_batches_tracked``), so checkpoints and the
+    fold of the fused blocks read it as they read ``nn.BatchNorm2d``.
+
+    Train mode does not touch the buffers: the updated statistics are left
+    in :attr:`new_stats` (detached) for the caller to collect, the
+    counterpart of flax's ``mutable=["batch_stats"]``."""
+
+    def __init__(self, features: int, eps: float, momentum: float,
+                 count_batches: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.count_batches = count_batches
+        if count_batches:
+            self.register_buffer("num_batches_tracked",
+                                 torch.tensor(0, dtype=torch.long))
+        self.new_stats: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def _record(self, mean, var):
+        m = self.momentum
+        with torch.no_grad():
+            self.new_stats = (m * self.running_mean + (1 - m) * mean.detach(),
+                              m * self.running_var + (1 - m) * var.detach())
+            if self.count_batches:
+                self.new_stats += (self.num_batches_tracked + 1,)
+
+    def forward(self, x):
+        if not self.training:
+            # one fused library kernel, as nn.BatchNorm2d in eval
+            return nn.functional.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, False, 0.0, self.eps)
+        axes = [0] + list(range(2, x.ndim))
+        mean = x.mean(dim=axes)
+        var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+        self._record(mean, var)
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        inv = torch.rsqrt(var + self.eps)
+        return ((x - mean.reshape(shape)) * (inv * self.weight).reshape(shape)
+                + self.bias.reshape(shape))
+
+
+def collect_batch_stats(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The running statistics that a train-mode forward of ``module`` left
+    in its :class:`BatchNorm` layers, as ``state_dict`` entries
+    (``num_batches_tracked``, where kept, advanced by one); clears them."""
+    out = {}
+    for name, sub in module.named_modules():
+        if isinstance(sub, BatchNorm) and sub.new_stats is not None:
+            prefix = f"{name}." if name else ""
+            for key, t in zip(("running_mean", "running_var",
+                               "num_batches_tracked"), sub.new_stats):
+                out[prefix + key] = t
+            sub.new_stats = None
+    return out

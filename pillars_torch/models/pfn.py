@@ -1,13 +1,15 @@
-"""PillarFeatureNet in eval mode over point-major layouts
-(pillars_tpu/models/pfn.py::DenseCellPFN, PointwisePFN and
-_PointwiseMaskedBN; reference model/pointpillars.py:65-225).
+"""PillarFeatureNet over point-major layouts (pillars_tpu/models/pfn.py::
+DenseCellPFN, PointwisePFN and _PointwiseMaskedBN; reference
+model/pointpillars.py:65-225).
 
 Per point: 8 features (xyz, offset to the pillar's point mean, offset to the
-pillar centre), Linear 8->128 without bias, BatchNorm with the running
-statistics, ReLU. Per pillar: one scatter-max. Pillars with fewer than N
-points also take the max with relu(bn(0)), the processed zero row of the
-reference's padded layout; empty pillars are zero. Both modules name their
-parameters ``dense`` and ``bn``, so they load the same checkpoint.
+pillar centre), Linear 8->128 without bias, BatchNorm, ReLU. Per pillar: one
+scatter-max. Pillars with fewer than N points also take the max with
+relu(bn(0)), the processed zero row of the reference's padded layout; empty
+pillars are zero. Both modules name their parameters ``dense`` and ``bn``, so
+they load the same checkpoint. ``PointwisePFN`` trains (the batch statistics
+of the reference's dense layout); ``DenseCellPFN`` is the inference front end
+and eval-only.
 """
 
 from __future__ import annotations
@@ -16,40 +18,47 @@ import torch
 from torch import nn
 
 from pillars_torch.config import ModelConfig
+from pillars_torch.models.layers import BatchNorm
 
 
-class _PointwiseMaskedBN(nn.Module):
-    """Eval-mode BatchNorm over point-major activations. Returns
-    (bn(x), bn(0)). Training statistics (dense-layout row counts) are a
-    later slice."""
+class _PointwiseMaskedBN(BatchNorm):
+    """BatchNorm over point-major activations [M, F] with the statistics of
+    the reference's dense [P, N, F] layout. Returns (bn(x), bn(0)).
 
-    def __init__(self, features: int, eps: float):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+    Train mode: sums over kept points only (the dense layout's zero rows add
+    nothing to them), divided by ``count`` = real pillars x N, the dense
+    layout's row count; biased variance E[x^2] - E[x]^2 clipped at 0; the
+    gradient flows through both."""
 
-    def forward(self, x):
+    def __init__(self, features: int, eps: float, momentum: float):
+        super().__init__(features, eps, momentum, count_batches=False)
+
+    def forward(self, x, kept, count):
         if self.training:
-            raise NotImplementedError("masked BN training is not ported yet")
-        mean = self.running_mean
-        inv = torch.rsqrt(self.running_var + self.eps)
+            k = kept[:, None].to(x.dtype)
+            count = torch.clamp(count.to(x.dtype), min=1.0)
+            mean = (x * k).sum(dim=0) / count
+            var = torch.clamp((x * x * k).sum(dim=0) / count - mean * mean,
+                              min=0.0)
+            self._record(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
         y = (x - mean) * inv * self.weight + self.bias
         zero_vec = (0.0 - mean) * inv * self.weight + self.bias
         return y, zero_vec
 
 
-def _encode(pfn, points, mean, cx, cy, kept):
+def _encode(pfn, points, mean, cx, cy, kept, count=None):
     """Per point: the 8 features (xyz, offset to the pillar's point mean
     ``mean`` [M, 3], offset to the pillar centre ``cx``/``cy``), zero where
-    not ``kept``, through Linear + BN + ReLU -> (x [M, F], relu(bn(0)) [F])."""
+    not ``kept``, through Linear + BN + ReLU -> (x [M, F], relu(bn(0)) [F]).
+    ``count``: the dense layout's row count, for train-mode statistics."""
     feats = torch.cat([points, points[:, :3] - mean,
                        (points[:, 0] - cx)[:, None],
                        (points[:, 1] - cy)[:, None]], dim=-1)
     feats = torch.where(kept[:, None], feats, torch.zeros_like(feats))
-    x, zero_vec = pfn.bn(pfn.dense(feats))
+    x, zero_vec = pfn.bn(pfn.dense(feats), kept, count)
     return torch.relu(x), torch.relu(zero_vec)
 
 
@@ -67,7 +76,8 @@ class PointwisePFN(nn.Module):
             raise NotImplementedError("pfn.with_distance is not ported yet")
         self.dense = nn.Linear(cfg.num_point_features + 5, pcfg.num_filters,
                                bias=False)
-        self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps)
+        self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps,
+                                     pcfg.bn_momentum)
 
     def forward(self, points, point_pillar, point_kept, point_mean,
                 point_zyx, num_points, pillar_mask):
@@ -82,8 +92,11 @@ class PointwisePFN(nn.Module):
         cx = point_zyx[:, 2].to(points.dtype) * vx + (vx / 2 + pcr[0])
         cy = point_zyx[:, 1].to(points.dtype) * vy + (vy / 2 + pcr[1])
 
+        # train-mode BN: real pillars x N rows of the dense layout
+        count = (pillar_mask.sum() * vcfg.max_points_per_voxel
+                 if self.training else None)
         x, zero_contrib = _encode(self, points, point_mean[:, :3], cx, cy,
-                                  point_kept)
+                                  point_kept, count)
         neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
         x = torch.where(kept, x, neg)  # dropped points cannot win a max
         # one spare row takes the id P (the JAX package drops it)
@@ -112,13 +125,18 @@ class DenseCellPFN(nn.Module):
         if pcfg.with_distance:
             raise NotImplementedError("pfn.with_distance is not ported yet")
         self.dense = nn.Linear(in_features, pcfg.num_filters, bias=False)
-        self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps)
+        self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps,
+                                     pcfg.bn_momentum)
 
     def forward(self, points, cell_local, cell_global, kept, count, mean,
                 n_cells_total: int):
         """points [M, D] (cell-sorted, batch-folded), cell_local [M] (id in
         the per-sample grid; sentinel n_cells when invalid), cell_global [M]
         (batch-offset), kept [M], count [M], mean [M, 3]."""
+        if self.training:
+            raise NotImplementedError(
+                "DenseCellPFN is the inference front end and eval-only; "
+                "training runs PointwisePFN")
         vcfg = self.cfg.voxel
         vx, vy = vcfg.voxel_size[:2]
         pcr = vcfg.point_cloud_range

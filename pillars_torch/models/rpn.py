@@ -1,12 +1,18 @@
-"""RPN in eval mode (pillars_tpu/models/rpn.py; reference
-model/voxelnet.py:517-717).
+"""RPN (pillars_tpu/models/rpn.py; reference model/voxelnet.py:517-717).
 
 Three downsample blocks of separable convs, each conv followed by BN+ReLU;
 three ConvTranspose up-branches; 1x1 heads applied per branch and summed
 (the same math as a head on the concat, without materializing it).
 :class:`RPNTail` is the part after the blocks, for the path whose blocks run
 fused (ops/rpn_blocks.py). The modules take and return NHWC like the JAX
-package; inside they are NCHW.
+package; inside they are NCHW. BatchNorm follows flax's conventions in train
+mode (models/layers.py).
+
+``rpn.remat`` recomputes each block and deconv in the backward
+(``torch.utils.checkpoint``); with ``rpn.remat_bf16`` the seven boundary
+tensors it keeps (the canvas, three block and three deconv outputs) are
+stored as bfloat16 and upcast where they are read, so every conv, BN and
+gradient still computes in f32.
 """
 
 from __future__ import annotations
@@ -15,9 +21,35 @@ from typing import Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pillars_torch.config import ModelConfig
-from pillars_torch.models.layers import SeparableConv
+from pillars_torch.models.layers import BatchNorm, SeparableConv
+
+
+def _upcast(x):
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _remat(module: nn.Module, x):
+    """``module(x)``, recomputed in the backward instead of stored. The
+    module's tensors go in as explicit inputs and its mode is restored for
+    the recomputation, so that reads what the forward read (also under
+    ``torch.func.functional_call``, which has returned by then)."""
+    names, tensors = zip(*(list(module.named_parameters())
+                           + list(module.named_buffers())))
+    training = module.training
+
+    def run(x, *ts):
+        was = module.training
+        module.train(training)
+        try:
+            return torch.func.functional_call(module, dict(zip(names, ts)),
+                                              (x,))
+        finally:
+            module.train(was)
+
+    return checkpoint(run, x, *tensors, use_reentrant=False)
 
 
 class _SplitHead(nn.Module):
@@ -34,7 +66,7 @@ class _SplitHead(nn.Module):
     def forward(self, ups):
         acc = None
         for u, w in zip(ups, self.weight.split(self.in_chs, dim=1)):
-            term = nn.functional.conv2d(u, w)
+            term = nn.functional.conv2d(_upcast(u), w)
             acc = term if acc is None else acc + term
         return acc + self.bias[None, :, None, None]
 
@@ -45,7 +77,8 @@ class _Block(nn.Module):
     3x3 convs, each followed by BN+ReLU."""
 
     def __init__(self, in_ch: int, features: int, num_layers: int,
-                 stride: int, bn_eps: float, separable: bool):
+                 stride: int, bn_eps: float, separable: bool,
+                 bn_momentum: float = 0.99):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers + 1):
@@ -55,9 +88,10 @@ class _Block(nn.Module):
                     else nn.Conv2d(cin, features, 3, stride=s, padding=1,
                                    bias=False))
             self.add_module(f"conv{i}", conv)
-            self.add_module(f"bn{i}", nn.BatchNorm2d(features, eps=bn_eps))
+            self.add_module(f"bn{i}", BatchNorm(features, bn_eps, bn_momentum))
 
     def forward(self, x):
+        x = _upcast(x)
         for i in range(self.num_layers + 1):
             x = getattr(self, f"conv{i}")(x)
             x = torch.relu(getattr(self, f"bn{i}")(x))
@@ -68,14 +102,14 @@ class _Deconv(nn.Module):
     """Up-branch: ConvTranspose (kernel == stride) + BN + ReLU."""
 
     def __init__(self, in_ch: int, features: int, stride: int,
-                 bn_eps: float):
+                 bn_eps: float, bn_momentum: float = 0.99):
         super().__init__()
         self.deconv = nn.ConvTranspose2d(in_ch, features, stride,
                                          stride=stride, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=bn_eps)
+        self.bn = BatchNorm(features, bn_eps, bn_momentum)
 
     def forward(self, x):
-        return torch.relu(self.bn(self.deconv(x)))
+        return torch.relu(self.bn(self.deconv(_upcast(x))))
 
 
 class RPNTail(nn.Module):
@@ -92,7 +126,7 @@ class RPNTail(nn.Module):
         for i in range(3):
             self.add_module(f"deconv{i + 1}", _Deconv(
                 rcfg.num_filters[i], rcfg.num_upsample_filters[i],
-                rcfg.upsample_strides[i], rcfg.bn_eps))
+                rcfg.upsample_strides[i], rcfg.bn_eps, rcfg.bn_momentum))
         ups = list(rcfg.num_upsample_filters)
         n_anchor = cfg.num_anchors_per_loc
         num_cls = n_anchor * (cfg.num_class if cfg.encode_background_as_zeros
@@ -111,6 +145,10 @@ class RPNTail(nn.Module):
         """NCHW block outputs -> head outputs, NHWC."""
         ups = [getattr(self, f"deconv{i + 1}")(b)
                for i, b in enumerate(blocks)]
+        return self.apply_heads(ups)
+
+    def apply_heads(self, ups) -> Dict[str, torch.Tensor]:
+        """NCHW up-branches -> head outputs, NHWC."""
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         out = {"box_preds": nhwc(self.conv_box(ups)),
                "cls_preds": nhwc(self.conv_cls(ups))}
@@ -130,14 +168,28 @@ class RPN(RPNTail):
             self.add_module(f"block{i + 1}", _Block(
                 cin, rcfg.num_filters[i], rcfg.layer_nums[i],
                 rcfg.layer_strides[i], rcfg.bn_eps,
-                rcfg.use_separable_conv))
+                rcfg.use_separable_conv, rcfg.bn_momentum))
             cin = rcfg.num_filters[i]
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
         """x: [B, ny, nx, C] canvas -> head outputs, NHWC."""
-        x = x.permute(0, 3, 1, 2).contiguous()
-        blocks = []
+        rcfg = self.cfg.rpn
+        # as the JAX package: the boundaries are bf16 whenever both flags
+        # are set; recomputation matters only where a backward follows
+        remat = rcfg.remat and torch.is_grad_enabled()
+        bf16 = rcfg.remat and rcfg.remat_bf16
+
+        def cast(a):
+            return a.to(torch.bfloat16) if bf16 else a
+
+        def call(module, a):
+            return _remat(module, a) if remat else module(a)
+
+        # one bf16 copy of each boundary feeds both the deconv and the next
+        # block, so each is stored once
+        x = cast(x.permute(0, 3, 1, 2).contiguous())
+        ups = []
         for i in range(3):
-            x = getattr(self, f"block{i + 1}")(x)
-            blocks.append(x)
-        return self.heads(blocks)
+            x = cast(call(getattr(self, f"block{i + 1}"), x))
+            ups.append(cast(call(getattr(self, f"deconv{i + 1}"), x)))
+        return self.apply_heads(ups)

@@ -1,10 +1,12 @@
-"""Offline evaluation: dataset -> inference on the device -> KITTI AP
-(pillars_tpu/train/trainer.py::Evaluator; reference train.py:480-932,
-evaluate). The ``Trainer`` of that module is not ported yet.
+"""Training and evaluation (pillars_tpu/train/trainer.py; reference
+train.py:126-460, train, and :480-932, evaluate): epochs of train steps on
+the card, a full KITTI eval after each epoch, weights kept iff the aggregate
+score improves.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 import time
 from typing import Dict, List, Optional, Tuple
@@ -14,11 +16,17 @@ import torch
 
 from pillars_torch.config import Config
 from pillars_torch.data.pipeline import BatchIterator, PedestrianDataset
+from pillars_torch.data.sampler import DataBaseSampler
 from pillars_torch.eval import kitti_ap
 from pillars_torch.eval.predict_to_anno import (infos_to_gt_annos,
                                                 predictions_to_annos)
 from pillars_torch.eval.proxies import detection_quality_proxies
 from pillars_torch.models.detector import HostFetch, PillarsDetector
+from pillars_torch.train import checkpoint as ckpt
+from pillars_torch.train.loop import (batch_to_device, create_train_state,
+                                      make_train_step, split_state, variables)
+from pillars_torch.train.metrics import TrainMetricsState
+from pillars_torch.train.metrics_log import MetricLogger
 from pillars_torch.utils.profiling import StageTimer
 
 # what the inference function reads of a batch; the rest stays on the host
@@ -31,17 +39,13 @@ class Evaluator:
     reference evaluate() (train.py:480-932), minus ROS (see data/stream.py
     for the production path). The state passed to :meth:`run` is moved to
     the detector's device once per call (a no-op when it is there already).
+    ``eval_input.bn_recal_batches`` > 0 refreshes its BN statistics first
+    (train/bn_recal.py).
 
-    Not ported yet: the data-parallel mesh over several cards, and the BN
-    statistics refresh before eval (``eval_input.bn_recal_batches`` > 0
-    raises)."""
+    Not ported yet: the data-parallel mesh over several cards."""
 
     def __init__(self, cfg: Config, detector: PillarsDetector,
                  measure_time: bool = False, buckets=None):
-        if cfg.eval_input.bn_recal_batches:
-            raise NotImplementedError(
-                "eval_input.bn_recal_batches > 0: the BN statistics refresh "
-                "needs train-mode BatchNorm, which is not ported yet")
         self.cfg = cfg
         self.detector = detector
         self.device = detector.device
@@ -49,6 +53,8 @@ class Evaluator:
         self.class_names = list(cfg.eval_input.desired_objects)
         self.measure_time = measure_time
         self.last_proxies: Dict[str, float] = {}
+        self._recal_batches = None  # host cache of the bn_recal scenes
+        self._recal_step = None
         # ms per cloud of each stage of the last measured run
         self.last_stage_ms: Dict[str, float] = {}
         # bucketed dispatch (pillars_torch/infer.py): batches are sliced on
@@ -89,15 +95,8 @@ class Evaluator:
                                 pts.shape[2]), pts.dtype)
                 batch = dict(batch,
                              points=np.concatenate([pts, pad], axis=1))
-        out = dict(batch)
-        for key in _DEVICE_KEYS:
-            if key not in batch:
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(batch[key]))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[key] = t
-        return out
+        return {**batch, **batch_to_device(
+            batch, self.device, [k for k in _DEVICE_KEYS if k in batch])}
 
     def _drain(self, entry, dt_annos, timer):
         """Read back one in-flight batch and convert it to annos."""
@@ -108,6 +107,35 @@ class Evaluator:
             dt_annos += predictions_to_annos(
                 preds, image_idx, self.class_names,
                 self.cfg.model.postprocess.post_center_limit_range)
+
+    def _maybe_recalibrate(self, variables):
+        """AdaBN refresh of the BN statistics before eval
+        (train/bn_recal.py). The scenes come from the TRAIN split read
+        through the eval-mode (unaugmented) pipeline; no labels are read."""
+        k = self.cfg.eval_input.bn_recal_batches
+        if not k or not any(n.endswith("running_mean") for n in variables):
+            return variables
+        if self._recal_batches is None:
+            reader = (self.cfg.train_input
+                      if self.cfg.train_input.info_path else
+                      self.cfg.eval_input)
+            ds = (PedestrianDataset(self.cfg, reader, training=False)
+                  if reader is self.cfg.train_input else self.dataset)
+            batches = []
+            for b in BatchIterator(ds, self.cfg.eval_input.batch_size,
+                                   shuffle=False, num_workers=1,
+                                   drop_remainder=True):
+                batches.append({"points": np.asarray(b["points"]),
+                                "num_points": np.asarray(b["num_points"])})
+                if len(batches) >= k:
+                    break
+            self._recal_batches = batches
+        from pillars_torch.train.bn_recal import build_recal_fn, recalibrate
+
+        if self._recal_step is None:
+            self._recal_step = build_recal_fn(self.cfg, device=self.device)
+        return recalibrate(self.cfg, variables, self._recal_batches,
+                           step=self._recal_step)
 
     def run(self, variables, max_samples: Optional[int] = None,
             save_path: Optional[str] = None,
@@ -121,7 +149,8 @@ class Evaluator:
         Stage timers keep the reference's names (train.py:629-712):
         t_preprocess = host batch build wait, t_network = dispatch,
         t_predict = device->host readback, t_anno = anno conversion."""
-        variables = self.detector.state_to_device(variables)
+        variables = self._maybe_recalibrate(
+            self.detector.state_to_device(variables))
         batch_size = self.cfg.eval_input.batch_size
         it = BatchIterator(self.dataset, batch_size, shuffle=False,
                            num_workers=self.cfg.eval_input.num_workers,
@@ -215,3 +244,199 @@ class Evaluator:
             gt_annos, dt_annos, self.class_names, compute_bbox=False)
         score = kitti_ap.aggregate_eval_score(mAP3d, mAPaos, mAPbev)
         return result, mAPbev, mAP3d, mAPaos, score
+
+
+class Trainer:
+    """Epoch loop, per-epoch eval and score-gated checkpoints on one device
+    (the card unless ``device`` says otherwise)."""
+
+    def __init__(self, cfg: Config, use_wandb: bool = False, device=None):
+        if (cfg.runtime.num_devices or 1) > 1:
+            raise NotImplementedError(
+                "runtime.num_devices > 1: data-parallel training over several "
+                "cards comes with the parallel/ slice of the port")
+        self.cfg = cfg
+        self.detector = PillarsDetector(cfg, device=device)
+        self.device = self.detector.device
+        self.dirs = ckpt.create_out_dirs(cfg.out_dir, cfg.model_id)
+        # archive the resolved config into the run dir (reference copies
+        # configs/train.yaml, train.py:158)
+        try:
+            cfg.to_yaml(os.path.join(self.dirs["model_dir"], "train.yaml"))
+        except RuntimeError:
+            pass  # no yaml module: the run goes on, unarchived
+        self.logger = MetricLogger(self.dirs["logs"], use_wandb=use_wandb,
+                                   run_name=f"model_{self.dirs['model_id']}")
+
+        sampler = None
+        if cfg.train_input.sampler.info_path:
+            sampler = DataBaseSampler(
+                cfg.train_input.sampler.info_path, cfg.train_input.sampler,
+                rng=np.random.RandomState(cfg.train.seed))
+        self.dataset = PedestrianDataset(
+            cfg, cfg.train_input, training=True, sampler=sampler,
+            rng=np.random.RandomState(cfg.train.seed))
+        self.state, self.opt = create_train_state(
+            self.detector, torch.Generator().manual_seed(cfg.train.seed),
+            cfg.train_input.batch_size)
+        self.step_fn = make_train_step(self.detector, self.opt,
+                                       with_metrics=cfg.train.train_metrics)
+        self.tm_state = (TrainMetricsState.init(self.device)
+                         if cfg.train.train_metrics else None)
+        self.evaluator = None
+        if cfg.train.do_evaluate and cfg.eval_input.info_path:
+            from pillars_torch.infer import parse_bucket_arg
+
+            self.evaluator = Evaluator(
+                cfg, self.detector,
+                buckets=parse_bucket_arg(cfg.eval_input.buckets,
+                                         cfg.model.voxel.max_points))
+        if cfg.train.load_weights:
+            self._load_variables(*ckpt.load_params(cfg.train.load_weights))
+        self._start_epoch = 0
+        self._best_score = 0.0
+        # epoch whose eval/gating was interrupted (resume re-runs it)
+        self._pending_eval_epoch: Optional[int] = None
+
+    def _load_variables(self, params, batch_stats):
+        from pillars_torch.weights import from_jax_variables
+
+        full = from_jax_variables(params, batch_stats, self.cfg)
+        p, s = split_state(self.detector.state_to_device(full))
+        self.state = self.state._replace(
+            params=p, batch_stats=s if batch_stats else self.state.batch_stats)
+
+    # ------------------------------------------------------------------
+    def resume(self, checkpoint_path: str) -> int:
+        """Restore the FULL train state (parameters, BN statistics, Adam
+        moments, step) from a checkpoint of either package, and the epoch
+        counter, best-score gate and pending eval from its ``extra``, so a
+        resumed run continues numbering and gating where the interrupted
+        one stopped. Returns the restored step."""
+        state, extra = ckpt.load_checkpoint(checkpoint_path)
+        if isinstance(state, dict):  # params-only checkpoint
+            self._load_variables(state["params"], state.get("batch_stats"))
+        else:
+            self.state = ckpt.train_state_from_host(state, self.cfg,
+                                                    self.device)
+        self._start_epoch = int(extra.get("epoch", -1)) + 1
+        self._best_score = float(
+            extra.get("best_score", extra.get("score", 0.0)))
+        # the pre-eval temp checkpoint carries evaluated=False: a run that
+        # died DURING the eval re-runs that epoch's eval and gating first
+        self._pending_eval_epoch = (self._start_epoch - 1
+                                    if not extra.get("evaluated", True)
+                                    else None)
+        return self.state.step
+
+    # ------------------------------------------------------------------
+    def variables(self) -> Dict[str, torch.Tensor]:
+        return variables(self.state)
+
+    # ------------------------------------------------------------------
+    def train(self, epochs: Optional[int] = None,
+              eval_max_samples: Optional[int] = None,
+              overfit_first_batch: bool = False,
+              replay_batch_file: Optional[str] = None,
+              save_batch_file: Optional[str] = None,
+              fixture_repeats: int = 100) -> float:
+        """Debug fixtures of the reference's test strategy:
+        ``overfit_first_batch`` repeats the first batch ``fixture_repeats``
+        times per epoch (reference take_first, train.py:249),
+        ``replay_batch_file`` trains on one pickled batch (from_file_mode,
+        train.py:248-256), ``save_batch_file`` records the first batch."""
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.train.epochs_total
+        batch_size = cfg.train_input.batch_size
+        best_score = self._best_score
+        step_count = self.state.step
+        # H2D prefetch: the loader's thread copies each batch to the card
+        # through pinned memory, overlapping the previous step
+        def put(batch):
+            return {**batch, **batch_to_device(batch, self.device)}
+
+        if self._pending_eval_epoch is not None and self.evaluator is not None:
+            best_score = self._eval_and_gate(
+                self._pending_eval_epoch, best_score, eval_max_samples)
+            self._pending_eval_epoch = None
+
+        fixed_batch = None
+        if replay_batch_file:
+            with open(replay_batch_file, "rb") as f:
+                fixed_batch = pickle.load(f)
+
+        for epoch in range(self._start_epoch, epochs):
+            if fixed_batch is not None:
+                it = [put(fixed_batch)] * fixture_repeats
+            elif overfit_first_batch:
+                first = next(iter(BatchIterator(
+                    self.dataset, batch_size, shuffle=False, num_workers=1)))
+                it = [put(first)] * fixture_repeats
+            else:
+                it = BatchIterator(
+                    self.dataset, batch_size, shuffle=cfg.train_input.shuffle,
+                    num_workers=cfg.train_input.num_workers,
+                    prefetch_depth=cfg.train_input.prefetch_depth,
+                    device_put_fn=put, seed=cfg.train.seed + epoch)
+            t_epoch = time.time()
+            for batch in it:
+                if save_batch_file and step_count == 0:
+                    with open(save_batch_file, "wb") as f:
+                        pickle.dump({k: (v.cpu().numpy()
+                                         if isinstance(v, torch.Tensor)
+                                         else v) for k, v in batch.items()},
+                                    f, 2)
+                if self.tm_state is not None:
+                    self.state, self.tm_state, metrics, tm_values = \
+                        self.step_fn(self.state, self.tm_state, batch)
+                else:
+                    self.state, metrics = self.step_fn(self.state, batch)
+                    tm_values = None
+                if step_count % cfg.train.log_every_steps == 0:
+                    self.logger.log_train_step(step_count, epoch, metrics,
+                                               extra=tm_values)
+                if step_count % cfg.train.print_every_steps == 0:
+                    print(f"[train] epoch {epoch} step {step_count} "
+                          f"loss {float(metrics.loss):.4f} "
+                          f"lr {float(metrics.learning_rate):.6f}")
+                step_count += 1
+            print(f"[train] epoch {epoch} done in {time.time()-t_epoch:.1f}s")
+
+            if self.evaluator is not None:
+                best_score = self._eval_and_gate(epoch, best_score,
+                                                 eval_max_samples)
+        self._best_score = best_score
+        return best_score
+
+    # ------------------------------------------------------------------
+    def _eval_and_gate(self, epoch: int, best_score: float,
+                       eval_max_samples: Optional[int]) -> float:
+        """Per-epoch eval and score-gated retention (reference
+        train.py:403-440). The pre-eval temp checkpoint carries
+        evaluated=False so a kill DURING the eval resumes by re-running it;
+        after gating the temp is rewritten with evaluated=True."""
+        step_count = self.state.step
+        temp = os.path.join(self.dirs["checkpoints"], "weights_temp.pkl")
+        ckpt.save_checkpoint(temp, self.state, extra={
+            "epoch": epoch, "best_score": best_score, "evaluated": False})
+        result, bev, d3, aos, score = self.evaluator.evaluate(
+            self.variables(), max_samples=eval_max_samples,
+            save_path=os.path.join(self.dirs["results"],
+                                   f"result_{epoch}.pkl"))
+        self.logger.log_eval(step_count, d3, aos, bev, score,
+                             extra=self.evaluator.last_proxies)
+        print(f"[eval] epoch {epoch} score {score:.2f} "
+              f"(best {best_score:.2f})")
+        with open(os.path.join(self.dirs["results"],
+                               f"model_result_{epoch}.txt"), "w") as f:
+            f.write(result)
+        if score > best_score:
+            best_score = score
+            ckpt.save_checkpoint(
+                os.path.join(self.dirs["checkpoints"],
+                             f"weights_{epoch}.pkl"),
+                self.state, extra={"score": score, "epoch": epoch,
+                                   "best_score": best_score})
+        ckpt.save_checkpoint(temp, self.state, extra={
+            "epoch": epoch, "best_score": best_score, "evaluated": True})
+        return best_score

@@ -90,7 +90,7 @@ def profile_stages(det, state, points, num_valid, rect, trv2c,
     """ms per call of each stage of the dense-cell path, each timed alone on
     inputs made by the stage before it, and of the whole path."""
     thr = det.config.eval_input.anchor_area_threshold
-    net = det.network
+    net = det.dense_network
     net.load_state_dict(state)
     b = points.shape[0]
     nx, ny, nz = det.mcfg.voxel.grid_size

@@ -110,8 +110,75 @@ def test_bad_buckets_exit_with_usage():
     assert "--buckets: expected 'auto'" in out.stderr
 
 
-@pytest.mark.parametrize("cmd", ["train", "capture", "sample-val-data",
-                                 "visualize", "bench"])
+def train_overrides(root, out):
+    return ["--set", f"train_input.dataset_root={root}",
+            f"train_input.info_path={root}/kitti_infos_train.pkl",
+            f"train_input.sampler.info_path={root}/kitti_dbinfos_train.pkl",
+            "train_input.num_workers=1", f"eval_input.dataset_root={root}",
+            f"eval_input.info_path={root}/kitti_infos_val.pkl",
+            "eval_input.num_workers=1", "model.voxel.max_points=4096",
+            "train.log_every_steps=1", f"out_dir={out}"]
+
+
+def test_train_on_the_cpu(dataset, tmp_path):
+    """One epoch (one step at B=2 of the 3 train clouds) with the
+    per-epoch eval, then a resumed second epoch."""
+    out = tmp_path / "runs"
+    got = cli("train", "--device", "cpu", "--epochs", "1",
+              *train_overrides(dataset, out))
+    assert got.returncode == 0, got.stderr
+    assert "[train] epoch 0 step 0 loss" in got.stdout
+    assert "best eval score:" in got.stdout
+    run = out / "model_1"
+    assert (run / "checkpoints" / "weights_temp.pkl").stat().st_size > 0
+    assert (run / "results" / "model_result_0.txt").exists()
+    assert (run / "results" / "result_0.pkl").exists()
+    assert (run / "logs" / "metrics.csv").exists()
+    assert (run / "train.yaml").exists()
+    again = cli("train", "--device", "cpu", "--epochs", "2", "--resume",
+                str(run / "checkpoints" / "weights_temp.pkl"),
+                *train_overrides(dataset, out))
+    assert again.returncode == 0, again.stderr
+    assert "at step 1" in again.stdout
+    assert "[train] epoch 1 done" in again.stdout
+    assert "[train] epoch 0" not in again.stdout
+    assert (out / "model_2" / "results" / "model_result_1.txt").exists()
+
+
+def test_sample_val_data_matches_jax(dataset):
+    import pickle
+
+    import numpy as np
+
+    from pillars_tpu.config import Config as JaxConfig
+    from pillars_tpu.data.val_sampling import create_sampled_val_dataset
+
+    root = pathlib.Path(dataset)
+    sets = ["--set", f"train_input.dataset_root={dataset}",
+            f"train_input.info_path={dataset}/kitti_infos_train.pkl",
+            f"train_input.sampler.info_path={dataset}/kitti_dbinfos_train.pkl"]
+    out = cli("sample-val-data", "--val-info",
+              f"{dataset}/kitti_infos_val.pkl", "--seed", "3", *sets)
+    assert out.returncode == 0, out.stderr
+    assert "sampled val info file:" in out.stdout
+    jcfg = JaxConfig.default().overrides(sets[1:])
+    create_sampled_val_dataset(jcfg, f"{dataset}/kitti_infos_val.pkl",
+                               out_info_name="jax_sampled.pkl",
+                               out_dir_name="velodyne_jax", seed=3)
+    with open(root / "kitti_infos_val_sampled.pkl", "rb") as f:
+        got = pickle.load(f)
+    with open(root / "jax_sampled.pkl", "rb") as f:
+        want = pickle.load(f)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for key, value in w["annos"].items():
+            np.testing.assert_array_equal(g["annos"][key], value, err_msg=key)
+        mine = (root / g["velodyne_path"]).read_bytes()
+        theirs = (root / w["velodyne_path"]).read_bytes()
+        assert mine == theirs
+
+
+@pytest.mark.parametrize("cmd", ["capture", "visualize", "bench"])
 def test_later_slices_say_so(cmd):
     out = cli(cmd, "--config", "configs/pedestrian_d435i.yaml")
     assert out.returncode != 0

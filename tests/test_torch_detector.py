@@ -84,3 +84,42 @@ def test_no_card_without_explicit_cpu_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         TorchDetector(TorchConfig.default())
+
+
+def test_point_major_entry_points_on_the_default_config():
+    """The default (dense-cell) config still has the point-major network
+    that the JAX package trains through: ``voxelize_batch``,
+    ``anchors_mask_batch`` and ``apply`` give the JAX package's outputs on
+    ``Config.default()`` (max_points cut), B=2. Heads within 1e-4 of their
+    max |value|; the anchors mask equal. A config of another front end keeps
+    its dense-cell inference and says what is missing when asked."""
+    jcfg = JaxConfig.default().override("model.voxel.max_points", 2048)
+    tcfg = TorchConfig.default().override("model.voxel.max_points", 2048)
+    jdet, tdet = JaxDetector(jcfg), TorchDetector(tcfg, device="cpu")
+    assert jdet.dense_cell and tdet.dense_cell
+    variables = randomize_variables(
+        jax.device_get(jdet.init(jax.random.PRNGKey(0))), seed=21)
+    state = from_jax_variables(variables["params"],
+                               variables["batch_stats"], tcfg)
+    pts, num = d435i_clouds(4, 2, 2048, 1900)
+    thr = jcfg.eval_input.anchor_area_threshold
+    jv = jdet.voxelize_batch(pts, num)
+    want = jax.device_get(jdet.apply(variables, jv))
+    want_mask = np.asarray(jdet.anchors_mask_batch(jv.coords,
+                                                   jv.pillar_mask, thr))
+    tv = tdet.voxelize_batch(torch.from_numpy(pts), torch.from_numpy(num))
+    with torch.no_grad():
+        got = tdet.apply(state, tv)
+    np.testing.assert_array_equal(
+        tdet.anchors_mask_batch(tv.coords, tv.pillar_mask, thr).numpy(),
+        want_mask)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=key)
+    other = TorchConfig.default().override("model.pfn.pointwise", False)
+    det = TorchDetector(other, device="cpu")
+    assert det.dense_cell
+    with pytest.raises(NotImplementedError, match="pointwise=false"):
+        det.voxelize_batch(torch.from_numpy(pts), torch.from_numpy(num))

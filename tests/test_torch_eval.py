@@ -247,6 +247,15 @@ def test_no_annos_mode_returns_predictions_only(tmp_path):
 
 
 def test_bn_recal_raises(tmp_path):
+    """``bn_recal_batches`` > 0 used to raise for want of train-mode BN; the
+    Evaluator now builds, and raises only where the JAX package's would: a
+    train split that cannot be read."""
     cfg = Config.default().override("eval_input.bn_recal_batches", 2)
-    with pytest.raises(NotImplementedError, match="bn_recal_batches"):
-        Evaluator(cfg, PillarsDetector(cfg, device="cpu"))
+    root = synthetic.generate_dataset(str(tmp_path / "d"), num_train=1,
+                                      num_test=1, seed=1)
+    cfg = _with_dataset(cfg, root).override("train_input.info_path",
+                                            str(tmp_path / "missing.pkl"))
+    ev = Evaluator(cfg, PillarsDetector(cfg, device="cpu"))
+    state = from_jax_variables(*load_params(WEIGHTS), cfg)
+    with pytest.raises(FileNotFoundError):
+        ev.run(state, progress=False)

@@ -1,5 +1,5 @@
 """The port stands alone: no file of pillars_torch/ (the serving, data,
-eval and CLI modules included) or chip_smoke.py imports JAX, flax, optax or
+eval, training and CLI modules included) or chip_smoke.py imports JAX, flax, optax or
 the JAX package, the package imports and reads the trained checkpoint into the dense-cell and the point-major network in a
 process where those cannot be imported, and its config copy equals the JAX
 package's."""
@@ -55,6 +55,11 @@ import pillars_torch.cli, pillars_torch.infer, pillars_torch.native
 import pillars_torch.data.stream, pillars_torch.data.pipeline
 import pillars_torch.data.synthetic, pillars_torch.data.kitti_infos
 import pillars_torch.train.trainer, pillars_torch.eval.kitti_ap
+import pillars_torch.train.loop, pillars_torch.train.optim
+import pillars_torch.train.metrics, pillars_torch.train.metrics_log
+import pillars_torch.train.checkpoint, pillars_torch.train.bn_recal
+import pillars_torch.models.losses, pillars_torch.ops.targets
+import pillars_torch.data.val_sampling
 import pillars_torch.eval.proxies, pillars_torch.viz
 import pillars_torch.geometry.rotated_iou, pillars_torch.utils.profiling
 from pillars_torch.config import Config
@@ -85,6 +90,14 @@ def test_every_port_module_is_checked():
     for must in ("pillars_torch/cli.py", "pillars_torch/infer.py",
                  "pillars_torch/data/stream.py",
                  "pillars_torch/train/trainer.py",
+                 "pillars_torch/train/loop.py", "pillars_torch/train/optim.py",
+                 "pillars_torch/train/metrics.py",
+                 "pillars_torch/train/metrics_log.py",
+                 "pillars_torch/train/checkpoint.py",
+                 "pillars_torch/train/bn_recal.py",
+                 "pillars_torch/models/losses.py",
+                 "pillars_torch/ops/targets.py",
+                 "pillars_torch/data/val_sampling.py",
                  "pillars_torch/eval/kitti_ap.py",
                  "pillars_torch/native/__init__.py",
                  "pillars_torch/viz/publisher.py", "chip_smoke.py"):

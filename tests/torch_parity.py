@@ -131,3 +131,53 @@ def standup_box_sets(seed, b, k, n_dup=10):
     valid = r.uniform(size=(b, k)) > 0.2
     scores = (r.randint(0, 8, (b, k)) / 8.0).astype(np.float32)
     return boxes, scores, valid
+
+
+# the reduced training setup of the train-step tests: the narrow model, a
+# small point pad and pillar budget, four gt slots, batch 2
+TRAIN_OVERRIDES = SMALL_OVERRIDES + (
+    ("model.voxel.max_voxels", 512),
+    ("model.target.max_gt_boxes", 4),
+    ("train_input.batch_size", 2),
+)
+
+
+def train_config(config_cls):
+    cfg = config_cls.default()
+    for key, value in TRAIN_OVERRIDES:
+        cfg = cfg.override(key, value)
+    return cfg
+
+
+def train_batches(seed, n_batches, b=2, maxpts=2048, max_gt=4, n=1500):
+    """Padded train batches: uniform d435i-range clouds plus, per sample,
+    1-3 pedestrian-sized boxes filled with points (so anchors match), the
+    last gt slot padding (dims 1, invalid)."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_batches):
+        pts = np.zeros((b, maxpts, 3), np.float32)
+        num = np.zeros((b,), np.int32)
+        gt = np.zeros((b, max_gt, 7), np.float32)
+        gt[..., 3:6] = 1.0
+        valid = np.zeros((b, max_gt), bool)
+        for i in range(b):
+            k = r.randint(1, max_gt)
+            boxes = np.stack([r.uniform(1.0, 5.5, k), r.uniform(-2.0, 2.0, k),
+                              np.full(k, -1.5), r.uniform(0.5, 0.8, k),
+                              r.uniform(0.6, 1.0, k), r.uniform(1.5, 1.9, k),
+                              r.uniform(-np.pi, np.pi, k)], 1)
+            gt[i, :k], valid[i, :k] = boxes, True
+            parts = [np.stack([bx[0] + r.uniform(-bx[3] / 2, bx[3] / 2, 120),
+                               bx[1] + r.uniform(-bx[4] / 2, bx[4] / 2, 120),
+                               bx[2] + r.uniform(0, bx[5], 120)], 1)
+                     for bx in boxes]
+            parts.append(np.stack([r.uniform(0, 6.4, n),
+                                   r.uniform(-2.56, 2.56, n),
+                                   r.uniform(-3, 1, n)], 1))
+            cloud = r.permutation(np.concatenate(parts))[:maxpts]
+            pts[i, :len(cloud)], num[i] = cloud, len(cloud)
+        out.append(dict(points=pts, num_points=num, gt_boxes=gt,
+                        gt_classes=np.ones((b, max_gt), np.int32),
+                        gt_valid=valid))
+    return out
