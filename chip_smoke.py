@@ -71,6 +71,28 @@ Phases, none of whose failures is caught:
    ``AP1_FLOOR``; printed beside the JAX run of the recipe at the same step
    (benchmarks/hard_synth/metrics.csv).
 
+12. SECOND sparse (``configs/second_sparse_d435i.yaml``) at full width with
+   benchmarks/second_sparse_synth/weights_33.pkl on the val clouds of the
+   same split: launch counts around four B=1 batches and one B=2 batch (NMS
+   once per batch, the fused RPN blocks never: the SECOND RPN has plain
+   convs); the active sets and rulebooks of both stages on the card equal to
+   the CPU's, head tensors within ``HEAD_RTOL`` of each tensor's max, the
+   card's postprocess fed the CPU's heads within ``POST_ATOL``; warm ms per
+   cloud at B=1 (CUDA events), host wall, launches, device ms and idle share
+   (torch.profiler) with the rulebooks' and ``gather_conv``'s device time;
+   the ``Evaluator`` over the 150 val clouds against the golden AP of
+   tests/golden/torch_second_sparse_val_ap.json within ``AP_TOL``; one B=2
+   train step from the checkpoint, every gradient leaf and new BN statistic
+   within ``GRAD_RTOL`` of its max against the CPU;
+13. SECOND dense (``configs/second_d435i.yaml``, the conv3d middle) from a
+   seeded ``PillarsDetector.init`` at full width, B=1 and B=2: launch counts,
+   heads card vs CPU within ``HEAD_RTOL``, ms per cloud;
+14. ``configs/kitti_second.yaml`` at full scale (grid 1408 x 1600 x 40) on
+   one synthetic KITTI-range cloud of 120000 points (NumPy seed 0), B=1,
+   seeded init: the active sets of all three sparse stages (the last a
+   (3, 1, 1) z-squash) card vs CPU, heads within ``HEAD_RTOL``, launch
+   counts, ms per cloud and the peak device memory of a call.
+
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
 the port is not beside this script.
@@ -134,6 +156,14 @@ STAT_RTOL = 1e-4       # of each new BN statistic's max |value|
 LOSS_GATE = 4.0
 AP1_FLOOR = 1.0
 JAX_AP_AFTER_STEPS = {300: 1.48, 600: 19.12}
+# SECOND: the three configs of the second model family, the trained sparse
+# checkpoint and its golden AP (pillars_tpu on the CPU, f32)
+CONFIGS = ROOT / "configs"
+SECOND_WEIGHTS = ROOT / "benchmarks" / "second_sparse_synth" / "weights_33.pkl"
+SECOND_GOLDEN = ROOT / "tests" / "golden" / "torch_second_sparse_val_ap.json"
+# SECOND head tensors card vs CPU, of each tensor's max |value|: the same f32
+# gathers, matmuls and convs summed in another order (TF32 off)
+HEAD_RTOL = 1e-3
 
 
 def _sorted_box_sets(rng, b, k):
@@ -1100,6 +1130,359 @@ def run_trainer(smi, root, out, n_clouds):
     return [r0["nms_launches"], r1["nms_launches"]]
 
 
+def _rulebooks_equal(det, det_cpu, v, v_cpu, label):
+    """The voxelization's integers and every stage's active set and
+    rulebooks, card against CPU; returns the active rows per stage."""
+    for name in ("coords", "pillar_mask", "num_points"):
+        if not torch.equal(getattr(v, name).cpu(), getattr(v_cpu, name)):
+            raise AssertionError(f"{label}: voxelization {name} differs")
+    stages, last = det.network.middle.rulebooks(v.coords, v.pillar_mask)
+    want, want_last = det_cpu.network.middle.rulebooks(v_cpu.coords,
+                                                       v_cpu.pillar_mask)
+    names = ("keys", "valid", "subm_rulebook", "out_keys", "out_valid",
+             "strided_rulebook")
+    for i, (got, exp) in enumerate(zip(stages, want)):
+        for name, g, w in zip(names, got, exp):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"{label}: stage {i} {name} differs "
+                                     f"between card and CPU")
+    for g, w in zip(last[:2], want_last[:2]):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{label}: the last active set differs")
+    return [int(st[1].sum()) for st in want] + [int(want_last[1].sum())]
+
+
+def _heads_close(preds, preds_cpu, label):
+    worst = 0.0
+    for key, w in preds_cpu.items():
+        if not torch.isfinite(preds[key]).all():
+            raise AssertionError(f"{label} {key}: non-finite on the card")
+        err = _max_rel(preds[key], w)
+        worst = max(worst, err)
+        if err > HEAD_RTOL:
+            raise AssertionError(f"{label} {key}: card vs CPU {err} of max "
+                                 f"> {HEAD_RTOL}")
+    return worst
+
+
+def _post_close(det, det_cpu, preds_cpu, amask_cpu, rect, trv2c, label):
+    """The card's postprocess fed the CPU's heads against the CPU's."""
+    want = det_cpu.postprocess(preds_cpu, amask_cpu, rect, trv2c)
+    got = det.postprocess({k: v.cuda() for k, v in preds_cpu.items()},
+                          amask_cpu.cuda(), rect.cuda(), trv2c.cuda())
+    got = type(got)(*(t.cpu() for t in got))
+    v = want.valid
+    if not (torch.equal(got.valid, v)
+            and torch.equal(got.labels[v], want.labels[v])):
+        raise AssertionError(f"{label}: postprocess valid/labels differ")
+    err = 0.0
+    for name in ("boxes_lidar", "boxes_camera", "scores"):
+        e = (getattr(got, name)[v] - getattr(want, name)[v]).abs()
+        err = max(err, float(e.max()) if e.numel() else 0.0)
+    if err > POST_ATOL:
+        raise AssertionError(f"{label}: postprocess {err} > {POST_ATOL}")
+    return err
+
+
+def _counted(fn, state, batches):
+    """Launch counts around ``fn`` over ``batches`` (dicts on the card)."""
+    _reset_counts()
+    outs = [fn(state, b["points"], b["num_points"], b["rect"], b["trv2c"])
+            for b in batches]
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    if (launches["nms_keep_mask"] != len(batches)
+            or launches["rpn_sep_block"] != 0):
+        raise AssertionError(f"launches {launches} for {len(batches)} "
+                             f"batches")
+    for out in outs:
+        if not out.valid.any():
+            raise AssertionError("no valid detection")
+    return launches
+
+
+def _cloud_times(call, iters=50):
+    """Warm ms per call (CUDA events), host wall ms, and launches, device
+    ms and idle share per call (torch.profiler)."""
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
+
+    ms = cuda_ms(call, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    prof_wall, device, rows = device_busy(call, 20, "nms_keep_mask_kernel")
+    top = sorted(rows, key=lambda r: -r[2])[:6]
+    return {"ms": ms, "host_wall_ms": wall,
+            "launches": sum(c for _, c, _ in rows), "device_ms": device,
+            "idle_share": 1 - device / prof_wall,
+            "top_kernels": [[n[:60], c, t] for n, c, t in top]}
+
+
+def _on_card(batch):
+    return {k: torch.as_tensor(batch[k]).cuda()
+            for k in ("points", "num_points", "rect", "trv2c")}
+
+
+def run_second_sparse(smi, root):
+    """Phase 12; returns {path: launches}."""
+    from pillars_torch.config import Config
+    from pillars_torch.data.pipeline import (PedestrianDataset, collate)
+    from pillars_torch.data.sampler import DataBaseSampler
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.ops import sparse_conv
+    from pillars_torch.train.loop import forward_backward
+    from pillars_torch.train.trainer import Evaluator
+    from pillars_torch.utils.profiling import device_busy
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    cfg = _with_split(Config.from_yaml(str(CONFIGS
+                                           / "second_sparse_d435i.yaml")),
+                      root)
+    thr = cfg.eval_input.anchor_area_threshold
+    det, det_cpu = PillarsDetector(cfg), PillarsDetector(cfg, device="cpu")
+    state_cpu = from_jax_variables(*load_params(str(SECOND_WEIGHTS)), cfg)
+    state = det.state_to_device(state_cpu)
+    fn = det.make_inference_fn()
+    ev = Evaluator(cfg, det, measure_time=True)
+    items = [ev.dataset[i] for i in range(6)]
+    batches = [collate([it]) for it in items[:4]] + [collate(items[4:])]
+    on_card = [_on_card(b) for b in batches]
+    launches = {"B1": _counted(fn, state, on_card[:4]),
+                "B2": _counted(fn, state, on_card[4:])}
+    print(f"SECOND sparse, 4 batches at B=1 and 1 at B=2: launches "
+          f"{launches}")
+
+    head_err, post_err, active = 0.0, 0.0, []
+    with torch.inference_mode():
+        for b, bc in zip(batches, on_card):
+            pts, num = torch.from_numpy(b["points"]), torch.from_numpy(
+                b["num_points"])
+            v_cpu = det_cpu.voxelize_batch(pts, num)
+            v = det.voxelize_batch(bc["points"], bc["num_points"])
+            active.append(_rulebooks_equal(det, det_cpu, v, v_cpu,
+                                           "SECOND sparse"))
+            amask_cpu = det_cpu.anchors_mask_batch(v_cpu.coords,
+                                                   v_cpu.pillar_mask, thr)
+            if not torch.equal(det.anchors_mask_batch(
+                    v.coords, v.pillar_mask, thr).cpu(), amask_cpu):
+                raise AssertionError("SECOND sparse: anchors mask differs")
+            preds_cpu = det_cpu.apply(state_cpu, v_cpu)
+            head_err = max(head_err, _heads_close(
+                det.apply(state, v), preds_cpu, "SECOND sparse"))
+            post_err = max(post_err, _post_close(
+                det, det_cpu, preds_cpu, amask_cpu,
+                torch.from_numpy(b["rect"]), torch.from_numpy(b["trv2c"]),
+                "SECOND sparse"))
+    print(f"SECOND sparse card vs CPU: active rows per stage (input, "
+          f"stage 1, stage 2 out) {active}, every active set and rulebook "
+          f"equal; head tensors max diff {head_err:.3e} of their max (tol "
+          f"{HEAD_RTOL}); postprocess on the same heads max |diff| "
+          f"{post_err:.3e} (tol {POST_ATOL}); anchors mask equal")
+
+    b0 = on_card[0]
+    times = _cloud_times(lambda: fn(state, b0["points"], b0["num_points"],
+                                    b0["rect"], b0["trv2c"]))
+    with torch.inference_mode():
+        v = det.voxelize_batch(b0["points"], b0["num_points"])
+        mid = det.network.middle
+        _, rulebook_ms, rows = device_busy(
+            lambda: mid.rulebooks(v.coords, v.pillar_mask), 20)
+        rulebook_launches = sum(c for _, c, _ in rows)
+        calls, inner = [], sparse_conv.gather_conv
+        sparse_conv.gather_conv = lambda *a: (calls.append(a), inner(*a))[1]
+        try:
+            fn(state, b0["points"], b0["num_points"], b0["rect"], b0["trv2c"])
+        finally:
+            sparse_conv.gather_conv = inner
+        _, gather_ms, rows = device_busy(lambda: [inner(*a) for a in calls],
+                                         20)
+    times.update(rulebooks_launches=rulebook_launches,
+                 gather_conv_launches=sum(c for _, c, _ in rows),
+                 rulebooks_device_ms=rulebook_ms,
+                 gather_conv_device_ms=gather_ms, gather_conv_calls=len(calls),
+                 rulebooks_share=rulebook_ms / times["device_ms"],
+                 gather_conv_share=gather_ms / times["device_ms"])
+    print(f"SECOND sparse B=1: {times['ms']:.3f} ms/cloud (CUDA events, "
+          f"warm), {times['host_wall_ms']:.3f} ms host wall; "
+          f"{times['launches']:g} launches, {times['device_ms']:.4f} ms of "
+          f"device time per cloud, idle share {times['idle_share']:.3f} "
+          f"(torch.profiler); rulebooks {rulebook_ms:.4f} ms "
+          f"({times['rulebooks_share']:.3f} of the device time), gather_conv "
+          f"x{len(calls)} {gather_ms:.4f} ms "
+          f"({times['gather_conv_share']:.3f}) [{smi}]")
+    print("second sparse: " + json.dumps(times))
+
+    golden = json.loads(SECOND_GOLDEN.read_text())
+    _reset_counts()
+    t0 = time.perf_counter()
+    text, bev, d3, aos, score = ev.evaluate(state)
+    seconds = time.perf_counter() - t0
+    launches["eval"] = _read_counts()
+    print(text)
+    n_batches = -(-len(ev.dataset) // cfg.eval_input.batch_size)
+    if (launches["eval"]["nms_keep_mask"] != n_batches + 1
+            or launches["eval"]["rpn_sep_block"] != 0):
+        raise AssertionError(f"SECOND evaluate: launches {launches['eval']} "
+                             f"for {n_batches} batches and one warm-up")
+    worst = max(np.abs(np.asarray(got) - np.asarray(golden[key])).max()
+                for got, key in ((bev, "mAP_bev"), (d3, "mAP_3d"),
+                                 (aos, "mAP_aos")))
+    print(f"SECOND sparse evaluate, {len(ev.dataset)} hard val clouds: "
+          f"aggregate {score:.4f}, golden {golden['aggregate']:.4f} "
+          f"(pillars_tpu on the CPU, f32), difference "
+          f"{score - golden['aggregate']:+.4f} (tol {AP_TOL}), largest AP "
+          f"cell difference {worst:.4f}; {seconds:.2f} s with AP, stages "
+          f"ms/cloud "
+          f"{json.dumps({k: round(v, 4) for k, v in sorted(ev.last_stage_ms.items())})}"
+          f"; NMS launches {launches['eval']['nms_keep_mask']} = batches + "
+          f"warm-up [{smi}]")
+    if not abs(score - golden["aggregate"]) <= AP_TOL:
+        raise AssertionError(f"SECOND aggregate {score} vs golden "
+                             f"{golden['aggregate']}: more than {AP_TOL}")
+
+    sampler = DataBaseSampler(cfg.train_input.sampler.info_path,
+                              cfg.train_input.sampler,
+                              rng=np.random.RandomState(0))
+    ds = PedestrianDataset(cfg, cfg.train_input, training=True,
+                           sampler=sampler, rng=np.random.RandomState(0))
+    batch = collate([ds[0], ds[1]])
+    state_t, _ = _train_state(det, state_cpu)
+    state_h, _ = _train_state(det_cpu, state_cpu)
+    fb = forward_backward(det, state_t, batch,
+                          cfg.train_input.anchor_area_threshold)
+    fb_h = forward_backward(det_cpu, state_h, batch,
+                            cfg.train_input.anchor_area_threshold)
+    torch.cuda.synchronize()
+    if not torch.equal(fb.targets.labels.cpu(), fb_h.targets.labels):
+        raise AssertionError("SECOND train step: labels differ")
+    n_pos = int((fb_h.targets.labels > 0).sum())
+    loss_err = abs(float(fb.loss.loss) - float(fb_h.loss.loss)) / max(
+        abs(float(fb_h.loss.loss)), 1e-6)
+    grad_err = max(_max_rel(fb.grads[k], g) for k, g in fb_h.grads.items())
+    stat_err = max(_max_rel(fb.batch_stats[k], v)
+                   for k, v in fb_h.batch_stats.items()
+                   if v.is_floating_point())
+    if loss_err > LOSS_RTOL or grad_err > GRAD_RTOL or stat_err > GRAD_RTOL:
+        raise AssertionError(f"SECOND train step card vs CPU: loss "
+                             f"{loss_err}, gradients {grad_err}, BN "
+                             f"statistics {stat_err}")
+    if not any(k.startswith("middle.") for k in fb_h.batch_stats):
+        raise AssertionError("SECOND train step: no middle BN statistics")
+    print(f"SECOND sparse train step B=2 from the checkpoint, card vs CPU: "
+          f"labels equal ({n_pos} positive anchors), loss rel {loss_err:.3e} "
+          f"(tol {LOSS_RTOL}), {len(fb_h.grads)} gradient leaves max diff "
+          f"{grad_err:.3e} of their max (tol {GRAD_RTOL}), "
+          f"{len(fb_h.batch_stats)} new BN statistics {stat_err:.3e} (tol "
+          f"{GRAD_RTOL}); loss {float(fb.loss.loss):.4f}")
+    return launches
+
+
+def run_second_dense(smi):
+    """Phase 13; returns the launches."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+
+    cfg = Config.from_yaml(str(CONFIGS / "second_d435i.yaml"))
+    det, det_cpu = PillarsDetector(cfg), PillarsDetector(cfg, device="cpu")
+    state_cpu = det_cpu.init(torch.Generator().manual_seed(0))
+    state = det.state_to_device(state_cpu)
+    fn = det.make_inference_fn()
+    maxpts = cfg.model.voxel.max_points
+    head_err, launches, on_card = 0.0, {}, {}
+    for b in (1, 2):
+        pts, num = _clouds(maxpts, b, 1)
+        eye = torch.eye(4).expand(b, 4, 4).contiguous()
+        on_card[b] = {"points": torch.from_numpy(pts[0]).cuda(),
+                      "num_points": torch.from_numpy(num).cuda(),
+                      "rect": eye.cuda(), "trv2c": eye.cuda()}
+        launches[f"B{b}"] = _counted(fn, state, [on_card[b]])
+        with torch.inference_mode():
+            v = det.voxelize_batch(on_card[b]["points"],
+                                   on_card[b]["num_points"])
+            v_cpu = det_cpu.voxelize_batch(torch.from_numpy(pts[0]),
+                                           torch.from_numpy(num))
+            head_err = max(head_err, _heads_close(
+                det.apply(state, v), det_cpu.apply(state_cpu, v_cpu),
+                f"SECOND dense B={b}"))
+    b1 = on_card[1]
+    times = _cloud_times(lambda: fn(state, b1["points"], b1["num_points"],
+                                    b1["rect"], b1["trv2c"]))
+    print(f"SECOND dense (conv3d middle) seeded init, 19200-point clouds: "
+          f"launches {launches}; head tensors card vs CPU max diff "
+          f"{head_err:.3e} of their max (tol {HEAD_RTOL}) at B=1 and B=2; "
+          f"B=1 {times['ms']:.3f} ms/cloud (CUDA events), "
+          f"{times['host_wall_ms']:.3f} ms host wall, {times['launches']:g} "
+          f"launches, {times['device_ms']:.4f} ms device, idle share "
+          f"{times['idle_share']:.3f} [{smi}]")
+    print("second dense: " + json.dumps(times))
+    return launches
+
+
+def _kitti_cloud(n=120000, seed=0):
+    """A KITTI-range cloud [n, 4]: a ground plane and upright clutter in the
+    front camera's 90 degrees, denser near the sensor; intensity in [0, 1)."""
+    r = np.random.RandomState(seed)
+    az = r.uniform(-np.pi / 4, np.pi / 4, n)
+    rng_m = 2.0 + 68.0 * r.uniform(0, 1, n) ** 2
+    ground = r.uniform(size=n) < 0.7
+    z = np.where(ground, -1.73 + r.normal(0, 0.05, n), r.uniform(-1.7, 0.9, n))
+    return np.stack([rng_m * np.cos(az), rng_m * np.sin(az), z,
+                     r.uniform(0, 1, n)], 1).astype(np.float32)
+
+
+def run_kitti_second(smi):
+    """Phase 14; returns the launches."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+
+    cfg = Config.from_yaml(str(CONFIGS / "kitti_second.yaml"))
+    det, det_cpu = PillarsDetector(cfg), PillarsDetector(cfg, device="cpu")
+    state_cpu = det_cpu.init(torch.Generator().manual_seed(0))
+    state = det.state_to_device(state_cpu)
+    fn = det.make_inference_fn()
+    cloud = _kitti_cloud()
+    pts = np.zeros((1, cfg.model.voxel.max_points, 4), np.float32)
+    pts[0, :len(cloud)] = cloud
+    num = np.asarray([len(cloud)], np.int32)
+    eye = torch.eye(4)[None]
+    bc = {"points": torch.from_numpy(pts).cuda(),
+          "num_points": torch.from_numpy(num).cuda(), "rect": eye.cuda(),
+          "trv2c": eye.cuda()}
+    launches = _counted(fn, state, [bc])
+    with torch.inference_mode():
+        v = det.voxelize_batch(bc["points"], bc["num_points"])
+        v_cpu = det_cpu.voxelize_batch(torch.from_numpy(pts),
+                                       torch.from_numpy(num))
+        active = _rulebooks_equal(det, det_cpu, v, v_cpu, "kitti_second")
+        head_err = _heads_close(det.apply(state, v),
+                                det_cpu.apply(state_cpu, v_cpu),
+                                "kitti_second")
+    call = lambda: fn(state, bc["points"], bc["num_points"], bc["rect"],  # noqa: E731
+                      bc["trv2c"])
+    times = _cloud_times(call, iters=10)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    times["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    print(f"kitti_second full scale (grid 1408x1600x40), one cloud of "
+          f"{len(cloud)} points, seeded init: launches {launches}; active "
+          f"rows per stage (input, stage 1, stage 2, stage 3 out) {active}, "
+          f"every active set and rulebook equal card vs CPU; head tensors "
+          f"max diff {head_err:.3e} of their max (tol {HEAD_RTOL}); "
+          f"{times['ms']:.3f} ms/cloud (CUDA events), "
+          f"{times['host_wall_ms']:.3f} ms host wall, {times['launches']:g} "
+          f"launches, {times['device_ms']:.4f} ms device, idle share "
+          f"{times['idle_share']:.3f}; peak device memory of a call "
+          f"{times['peak_mib']:.1f} MiB above the state [{smi}]")
+    print("kitti second: " + json.dumps(times))
+    return launches
+
+
 def main(argv=None):
     import argparse
 
@@ -1145,19 +1528,32 @@ def main(argv=None):
         run_train_step(state_cpu, smi, root)
         train_eval = run_trainer(smi, root, os.path.join(root, "runs"),
                                  args.train_clouds)
+        second = run_second_sparse(smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    second_dense = run_second_dense(smi)
+    kitti = run_kitti_second(smi)
     nms["launches"] = dense["nms_keep_mask"]
     rpn["launches"] = fast["rpn_sep_block"]
     # the same counts on the serving and evaluation paths, each read around
     # its own run
+    # the SECOND paths, each read around its own run
+    second_paths = {
+        "second_sparse": [second["B1"], second["B2"]],
+        "second_eval": [second["eval"]],
+        "second_dense": [second_dense["B1"], second_dense["B2"]],
+        "kitti_second": [kitti]}
     nms["launches_by_path"] = {
         "dense": dense["nms_keep_mask"], "fast": fast["nms_keep_mask"],
         **{k: v["nms_keep_mask"] for k, v in serving.items()},
-        "train_eval": sum(train_eval)}
+        "train_eval": sum(train_eval),
+        **{k: sum(c["nms_keep_mask"] for c in v)
+           for k, v in second_paths.items()}}
     rpn["launches_by_path"] = {
         "fast": fast["rpn_sep_block"],
-        **{k: v["rpn_sep_block"] for k, v in serving.items()}}
+        **{k: v["rpn_sep_block"] for k, v in serving.items()},
+        **{k: sum(c["rpn_sep_block"] for c in v)
+           for k, v in second_paths.items()}}
     print(json.dumps({"kernels": [nms, rpn]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
-"""The d435i detector (pillars_tpu/models/detector.py): voxelize -> PFN ->
+"""The detector (pillars_tpu/models/detector.py): voxelize -> PFN ->
 canvas -> RPN -> [train] targets + loss | [eval] decode + top-k + NMS +
 direction flip, with fixed-size outputs and a validity mask.
 
-Two front ends, as in the JAX package. Point-major (``apply``, the network
-every config trains through): ``VoxelizedPoints`` -> ``PointwisePFN`` ->
-canvas scatter -> RPN; with ``rpn.use_pallas_blocks`` the inference path
-runs the three downsample blocks as the fused kernel (``_forward_fast``:
-``ops/rpn_blocks.py``, the CUDA kernel on the card, its plain twin on the
-CPU) and ``RPNTail`` follows. Dense cell (``_forward_dense``, inference on
-the default config): the pillar space is the cell grid and the canvas a
-reshape. Both networks read the same state dict.
+The networks of the JAX package. ``apply`` (the network every config trains
+through): the point-major ``VoxelizedPoints`` -> ``PointwisePFN``, or the
+dense ``VoxelizedSample`` -> ``PillarFeatureNet`` (``pfn.pointwise`` off),
+or SECOND's SimpleVoxel means (``pfn.simple_mean``); then the canvas
+scatter, or SECOND's sparse or dense 3D middle (``middle.enabled``); then
+the RPN. With ``rpn.use_pallas_blocks`` the point-major PointPillars
+inference path runs the three downsample blocks as the fused kernel
+(``_forward_fast``: ``ops/rpn_blocks.py``, the CUDA kernel on the card, its
+plain twin on the CPU) and ``RPNTail`` follows. Dense cell
+(``_forward_dense``, inference on the default config): the pillar space is
+the cell grid and the canvas a reshape. The networks read one state dict.
 
 Precision: the JAX reference on the CPU computes in full f32, while cuDNN
 convolutions default to TF32 (about 3 decimal digits). Every stage of these
@@ -31,16 +34,22 @@ from pillars_torch.config import Config, ModelConfig
 from pillars_torch.geometry import boxes as gb
 from pillars_torch.models.layers import collect_batch_stats
 from pillars_torch.models.losses import LossOutput, detection_loss
-from pillars_torch.models.pfn import DenseCellPFN, PointwisePFN
+from pillars_torch.models.middle import (MiddleExtractor3D, output_depth,
+                                         scatter_to_grid3d)
+from pillars_torch.models.pfn import (DenseCellPFN, PillarFeatureNet,
+                                      PointwisePFN)
 from pillars_torch.models.rpn import RPN, RPNTail
-from pillars_torch.ops.anchors import (StructuredSAT, anchors_mask_batched,
-                                       anchors_mask_from_dense, build_anchors)
+from pillars_torch.models.sparse_middle import (SparseMiddleExtractor,
+                                                output_dims)
+from pillars_torch.ops.anchors import (anchors_mask_batched,
+                                       anchors_mask_from_dense, build_anchors,
+                                       clamp_sat_tables)
 from pillars_torch.ops.nms import nms_standup
 from pillars_torch.ops.rpn_blocks import FoldedBlocksCache, fused_rpn_blocks
 from pillars_torch.ops.scatter import scatter_to_canvas_batched
 from pillars_torch.ops.targets import TargetAssignment, assign_targets_batched
 from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
-                                        make_point_voxelizer)
+                                        make_point_voxelizer, make_voxelizer)
 
 
 class Predictions(NamedTuple):
@@ -85,66 +94,113 @@ def _full_f32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def point_canvas(pfn, v: VoxelizedPoints, ny: int, nx: int) -> torch.Tensor:
-    """Point-major front end: ``pfn`` (a :class:`PointwisePFN` or a call
-    of one) over the batch folded into the point and pillar axes, then the
-    canvas scatter -> [B, ny, nx, C]."""
-    b, p = v.pillar_mask.shape
-    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
-    # per-sample pillar ids offset into the folded [B*P] rows; the sentinel
-    # segment's id may reach the next sample's row 0, but its points are
-    # not kept and cannot win a max
-    offset = torch.arange(b, dtype=torch.int32, device=v.points.device) * p
-    feats = pfn(flat(v.points), flat(v.point_pillar + offset[:, None]),
-                flat(v.point_kept), flat(v.point_mean), flat(v.point_zyx),
-                flat(v.num_points), flat(v.pillar_mask))
-    return scatter_to_canvas_batched(feats.reshape(b, p, -1), v.coords,
-                                     v.pillar_mask, ny, nx)
-
-
 def uses_dense_cell(mcfg: ModelConfig) -> bool:
     """The JAX package's rule: the dense-cell front end serves inference on
-    every grid that fits in max_voxels, unless a middle extractor is on."""
+    every grid that fits in max_voxels, unless a middle extractor is on.
+    Also not where its PFN cannot read the network's weights (SimpleVoxel
+    has none, and ``PillarFeatureNet`` with ``with_distance`` is a wider
+    Dense), configs on which the JAX package's dense cell fails."""
     gx, gy, gz = mcfg.voxel.grid_size
-    return (mcfg.pfn.dense_cell and not mcfg.middle.enabled
+    pcfg = mcfg.pfn
+    return (pcfg.dense_cell and not mcfg.middle.enabled
+            and not pcfg.simple_mean
+            and (pcfg.pointwise or not pcfg.with_distance)
             and gx * gy * gz <= mcfg.voxel.max_voxels)
 
 
-def _unported_point_major(mcfg: ModelConfig):
-    return [name for name, on in (
-        ("model.middle.enabled", mcfg.middle.enabled),
-        ("model.pfn.simple_mean", mcfg.pfn.simple_mean),
-        ("model.pfn.pointwise=false", not mcfg.pfn.pointwise)) if on]
+def canvas_channels(mcfg: ModelConfig) -> int:
+    """The channels of the BEV canvas the RPN reads."""
+    if mcfg.middle.enabled and mcfg.middle.sparse:
+        return output_dims(mcfg)[0] * mcfg.middle.num_filters[-1]
+    if mcfg.middle.enabled:
+        return output_depth(mcfg) * mcfg.middle.num_filters[-1]
+    return voxel_channels(mcfg)
+
+
+def voxel_channels(mcfg: ModelConfig) -> int:
+    """The width of the per-voxel features: SimpleVoxel's point-feature
+    means, or the PFN's filters."""
+    return (mcfg.num_point_features if mcfg.pfn.simple_mean
+            else mcfg.pfn.num_filters)
 
 
 class Network(nn.Module):
     """PFN + canvas + RPN. Dense cell: ``forward(points, num_valid)`` ->
     (NHWC head tensors, [B, ny, nx] occupied-cell count summed over z).
-    Point-major: ``forward(voxelized)`` -> NHWC head tensors. The two
-    share parameter names, so one checkpoint loads into either.
-    ``dense_cell`` defaults to :func:`uses_dense_cell`."""
+    Otherwise ``forward(voxelized)`` -> NHWC head tensors, with the front
+    end the config names: SimpleVoxel (``pfn.simple_mean``: per-voxel
+    means, no parameters), ``PointwisePFN`` over :class:`VoxelizedPoints`
+    (``pfn.pointwise``) or ``PillarFeatureNet`` over
+    :class:`VoxelizedSample`; then the canvas scatter, or SECOND's sparse or
+    dense middle (``middle.enabled``). The networks share parameter names,
+    so one checkpoint loads into either. ``dense_cell`` defaults to
+    :func:`uses_dense_cell`."""
 
     def __init__(self, mcfg: ModelConfig, dense_cell: Optional[bool] = None):
         super().__init__()
         self.mcfg = mcfg
+        pcfg = mcfg.pfn
         self.dense_cell = (uses_dense_cell(mcfg) if dense_cell is None
                            else dense_cell)
-        if not self.dense_cell:
-            unported = _unported_point_major(mcfg)
-            if unported:
-                raise NotImplementedError(
-                    f"not ported yet: {', '.join(unported)} (the dense-cell "
-                    f"and the point-major PointwisePFN front ends are)")
-        self.pfn = (DenseCellPFN(mcfg) if self.dense_cell
-                    else PointwisePFN(mcfg))
-        self.rpn = RPN(mcfg)
         if self.dense_cell:
+            self.pfn = DenseCellPFN(mcfg)
             self.cell_voxelize = make_cell_voxelizer(mcfg.voxel)
+        elif not pcfg.simple_mean:
+            self.pfn = (PointwisePFN(mcfg) if pcfg.pointwise
+                        else PillarFeatureNet(mcfg))
+        if mcfg.middle.enabled and not self.dense_cell:
+            self.middle = (SparseMiddleExtractor if mcfg.middle.sparse
+                           else MiddleExtractor3D)(mcfg, voxel_channels(mcfg))
+        self.rpn = RPN(mcfg, canvas_channels(mcfg))
 
-    def forward(self, *inputs):
+    def voxel_features(self, v) -> torch.Tensor:
+        """[B, P, C] per-voxel features of a voxelized batch."""
+        b, p = v.pillar_mask.shape
+        flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
+        if self.mcfg.pfn.simple_mean and isinstance(v, VoxelizedPoints):
+            # SECOND's SimpleVoxel, the means the voxelizer took scan-wise
+            return v.voxel_mean
+        if self.mcfg.pfn.simple_mean:
+            # padded slots are zero: sum / clamped count is the mean over
+            # the real points
+            cnt = torch.clamp(v.num_points, min=1).to(v.voxels.dtype)
+            return v.voxels.sum(dim=2) / cnt[..., None]
+        if isinstance(v, VoxelizedPoints):
+            # per-sample pillar ids offset into the folded [B*P] rows; the
+            # sentinel segment's id may reach the next sample's row 0, but
+            # its points are not kept and cannot win a max
+            offset = torch.arange(b, dtype=torch.int32,
+                                  device=v.points.device) * p
+            feats = self.pfn(flat(v.points),
+                             flat(v.point_pillar + offset[:, None]),
+                             flat(v.point_kept), flat(v.point_mean),
+                             flat(v.point_zyx), flat(v.num_points),
+                             flat(v.pillar_mask))
+        else:
+            feats = self.pfn(flat(v.voxels), flat(v.num_points),
+                             flat(v.coords), flat(v.pillar_mask))
+        return feats.reshape(b, p, -1)
+
+    def canvas(self, v) -> torch.Tensor:
+        """[B, ny, nx, C] BEV canvas of a voxelized batch."""
+        feats = self.voxel_features(v)
+        mcfg = self.mcfg
+        _, ny, nx = mcfg.feature_map_size
+        if mcfg.middle.enabled and mcfg.middle.sparse:
+            return self.middle(feats, v.coords, v.pillar_mask)
+        if mcfg.middle.enabled:
+            nz = mcfg.voxel.grid_size[2]
+            return self.middle(scatter_to_grid3d(feats, v.coords,
+                                                 v.pillar_mask, nz, ny, nx))
+        return scatter_to_canvas_batched(feats, v.coords, v.pillar_mask,
+                                         ny, nx)
+
+    def forward(self, *inputs, canvas_only: bool = False):
+        """``canvas_only``: the BEV canvas without the RPN (not on the dense
+        cell)."""
         if not self.dense_cell:
-            _, ny, nx = self.mcfg.feature_map_size
-            return self.rpn(point_canvas(self.pfn, *inputs, ny, nx))
+            canvas = self.canvas(*inputs)
+            return canvas if canvas_only else self.rpn(canvas)
         points, num_valid = inputs
         b = points.shape[0]
         nx, ny, nz = self.mcfg.voxel.grid_size
@@ -165,6 +221,12 @@ class Network(nn.Module):
         return self.rpn(canvas), dense_grid
 
 
+def _front_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The entries of ``state`` that the canvas reads (all but the RPN's):
+    the fewer tensors ``functional_call`` swaps in, the less host time."""
+    return {k: v for k, v in state.items() if not k.startswith("rpn.")}
+
+
 def _sub_state(state: Dict[str, torch.Tensor], module: nn.Module,
                prefix: str) -> Dict[str, torch.Tensor]:
     """The entries of ``state`` under ``prefix`` that ``module`` holds."""
@@ -182,20 +244,20 @@ class PillarsDetector:
         if config.runtime.compute_dtype != "float32":
             raise NotImplementedError("only float32 compute is ported")
         self.dense_cell = uses_dense_cell(self.mcfg)
-        # the point-major network: apply, training, and inference off the
-        # dense cell; built for every config it is ported for (a dense-cell
-        # config of another front end keeps its inference path)
-        self.network = None
-        if not (self.dense_cell and _unported_point_major(self.mcfg)):
-            self.network = Network(self.mcfg, dense_cell=False).to(
-                self.device).eval()
-            self.voxelize = make_point_voxelizer(self.mcfg.voxel)
+        # the network of apply and training, and of inference off the dense
+        # cell; the dense-cell network reads the same state
+        self.network = Network(self.mcfg, dense_cell=False).to(
+            self.device).eval()
+        self.voxelize = (make_point_voxelizer if self.mcfg.pfn.pointwise
+                         else make_voxelizer)(self.mcfg.voxel)
         self.dense_network = (Network(self.mcfg, dense_cell=True).to(
             self.device).eval() if self.dense_cell else None)
         rcfg = self.mcfg.rpn
         # the fused blocks: the CUDA kernel on the card, its twin on the CPU
         self.fast = (rcfg.use_pallas_blocks and rcfg.use_separable_conv
-                     and self.mcfg.pfn.pointwise and not self.dense_cell)
+                     and self.mcfg.pfn.pointwise and not self.dense_cell
+                     and not self.mcfg.pfn.simple_mean
+                     and not self.mcfg.middle.enabled)
         if self.fast:
             self.rpn_tail = RPNTail(self.mcfg).to(self.device).eval()
             # the blocks' folded, packed weights, kept while the state
@@ -205,11 +267,8 @@ class PillarsDetector:
         self.anchor_set = build_anchors(self.mcfg)
         dev = self.device
         self.anchors = torch.as_tensor(self.anchor_set.anchors, device=dev)
-        self.sat_corners = torch.as_tensor(self.anchor_set.sat_corners,
-                                           dtype=torch.long, device=dev)
-        s = self.anchor_set.sat_structured
-        self.sat_structured = None if s is None else StructuredSAT(
-            *(torch.as_tensor(a, dtype=torch.long, device=dev) for a in s))
+        self.sat_corners, self.sat_structured = clamp_sat_tables(
+            self.anchor_set, self.ny, self.nx, dev)
         self.anchors_standup = torch.as_tensor(self.anchor_set.standup_bv,
                                                device=dev)
         self.matched_thresholds = torch.as_tensor(
@@ -223,7 +282,8 @@ class PillarsDetector:
         """A fresh ``state_dict`` on this detector's device, drawn from
         ``generator`` with the JAX package's initialisers: every kernel
         uniform in +-sqrt(6 / fan_in) (flax's fan_in: the input features of
-        a Dense, kh*kw*in/groups of a conv, kh*kw*in of a ConvTranspose),
+        a Dense, kh*kw*in/groups of a conv, kh*kw*in of a ConvTranspose,
+        27*in of a conv3d, K*in of the sparse convs' [K, in, out] taps),
         BN scale 1, bias 0, running mean 0 and variance 1, head biases 0
         but the class head's, which takes the focal prior -log((1 - p) / p)
         when ``model.rpn.cls_bias_prior`` is set. Same keys and shapes as
@@ -233,17 +293,19 @@ class PillarsDetector:
         del batch_size
         prior = self.mcfg.rpn.cls_bias_prior
         state = {}
-        net = self.network if self.network is not None else self.dense_network
-        for name, ref in net.state_dict().items():
+        for name, ref in self.network.state_dict().items():
             leaf = name.rsplit(".", 1)[-1]
             t = torch.zeros(ref.shape, dtype=ref.dtype)
             if leaf == "running_var" or (leaf == "weight" and t.ndim == 1):
                 t.fill_(1)
             elif leaf == "weight":
-                k = t[0, 0].numel() if t.ndim == 4 else 1
-                # torch keeps a ConvTranspose kernel as [in, out, k, k]
-                fan_in = (t.shape[0] if ".deconv." in name
-                          else t.shape[1]) * k
+                if t.ndim == 3:  # sparse-conv taps [K, Cin, Cout]
+                    fan_in = t.shape[0] * t.shape[1]
+                else:
+                    k = t[0, 0].numel() if t.ndim >= 4 else 1
+                    # torch keeps a ConvTranspose kernel as [in, out, k, k]
+                    fan_in = (t.shape[0] if ".deconv." in name
+                              else t.shape[1]) * k
                 bound = math.sqrt(6.0 / fan_in)
                 t.uniform_(-bound, bound, generator=generator)
             elif name == "rpn.conv_cls.bias" and prior is not None:
@@ -270,17 +332,11 @@ class PillarsDetector:
         return preds, amask
 
     # ------------------------------------------------------------------
-    def _point_major(self):
-        if self.network is None:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(_unported_point_major(self.mcfg))}"
-                f" (the point-major PointwisePFN front end is)")
-        return self.network
-
-    def voxelize_batch(self, points, num_valid) -> VoxelizedPoints:
-        """[B, MAXPTS, D] + [B] -> the point-major voxelization of the batch
-        (each sample as the JAX package's ``voxelize_points`` gives it)."""
-        self._point_major()
+    def voxelize_batch(self, points, num_valid):
+        """[B, MAXPTS, D] + [B] -> the batch's voxelization: point-major
+        (each sample as the JAX package's ``voxelize_points`` gives it) or,
+        with ``pfn.pointwise`` off, the dense [P, N, D] layout
+        (``voxelize``)."""
         return self.voxelize(points, num_valid)
 
     def anchors_mask_batch(self, coords, pillar_mask, threshold: float):
@@ -291,14 +347,14 @@ class PillarsDetector:
             coords, pillar_mask, self.sat_corners, self.ny, self.nx,
             threshold, structured=self.sat_structured, coord_stride=stride)
 
-    def apply(self, state, voxelized: VoxelizedPoints, train: bool = False):
-        """Point-major PFN + canvas + RPN -> NHWC head tensors; with
+    def apply(self, state, voxelized, train: bool = False):
+        """Front end + canvas (or middle) + RPN -> NHWC head tensors; with
         ``train``, (head tensors, the new BN statistics as ``state`` entries)
         from the batch statistics, the counterpart of flax's
         ``mutable=["batch_stats"]``. The tensors of ``state`` are left as
         they were."""
         _full_f32()
-        net = self._point_major()
+        net = self.network
         if not train:
             return torch.func.functional_call(net, state, (voxelized,))
         collect_batch_stats(net)  # drop what a remat recomputation left
@@ -332,11 +388,9 @@ class PillarsDetector:
         """:meth:`apply` with the three downsample blocks as one fused
         kernel launch (BN folded once per state), then :class:`RPNTail`."""
         _full_f32()
-        pfn = self.network.pfn
-        pfn_state = _sub_state(state, pfn, "pfn.")
-        canvas = point_canvas(
-            lambda *a: torch.func.functional_call(pfn, pfn_state, a),
-            voxelized, self.ny, self.nx)
+        canvas = torch.func.functional_call(
+            self.network, _front_state(state), (voxelized,),
+            {"canvas_only": True})
         b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn,
                                       self.folded_blocks)
         return torch.func.functional_call(

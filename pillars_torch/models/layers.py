@@ -82,6 +82,34 @@ class BatchNorm(nn.Module):
                 + self.bias.reshape(shape))
 
 
+class MaskedBatchNorm(BatchNorm):
+    """BatchNorm over the LAST axis whose batch statistics count only the
+    rows a mask selects (pillars_tpu/models/layers.py::MaskedBatchNorm):
+    padding pillars of the static [P, N, F] layout stay out of them, padded
+    points of real pillars add their zeros, as in the reference's ragged
+    layout. Train: mean and max(E[x^2] - E[x]^2, 0) over the selected rows;
+    eval: the running statistics. Keys as :class:`BatchNorm`'s, without a
+    batch count."""
+
+    def __init__(self, features: int, eps: float, momentum: float):
+        super().__init__(features, eps, momentum, count_batches=False)
+
+    def forward(self, x, mask):
+        """x [..., F]; mask broadcastable to x[..., 0] (True = real)."""
+        if self.training:
+            m = torch.broadcast_to(mask, x.shape[:-1]).to(x.dtype)[..., None]
+            axes = tuple(range(x.ndim - 1))
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=axes) / count
+            var = torch.clamp((x * x * m).sum(dim=axes) / count - mean * mean,
+                              min=0.0)
+            self._record(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+
+
 def collect_batch_stats(module: nn.Module) -> Dict[str, torch.Tensor]:
     """The running statistics that a train-mode forward of ``module`` left
     in its :class:`BatchNorm` layers, as ``state_dict`` entries

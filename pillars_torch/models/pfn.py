@@ -1,15 +1,17 @@
-"""PillarFeatureNet over point-major layouts (pillars_tpu/models/pfn.py::
-DenseCellPFN, PointwisePFN and _PointwiseMaskedBN; reference
-model/pointpillars.py:65-225).
+"""PillarFeatureNet over point-major layouts and the dense [P, N, D] layout
+(pillars_tpu/models/pfn.py: DenseCellPFN, PointwisePFN, _PointwiseMaskedBN
+and PillarFeatureNet; reference model/pointpillars.py:65-225).
 
 Per point: 8 features (xyz, offset to the pillar's point mean, offset to the
 pillar centre), Linear 8->128 without bias, BatchNorm, ReLU. Per pillar: one
 scatter-max. Pillars with fewer than N points also take the max with
 relu(bn(0)), the processed zero row of the reference's padded layout; empty
-pillars are zero. Both modules name their parameters ``dense`` and ``bn``, so
-they load the same checkpoint. ``PointwisePFN`` trains (the batch statistics
-of the reference's dense layout); ``DenseCellPFN`` is the inference front end
-and eval-only.
+pillars are zero. Every module names its parameters ``dense`` and ``bn``, so
+they load the same checkpoint (``PillarFeatureNet``'s only while
+``pfn.with_distance`` is off: the flag widens its input by the point's
+norm, and only this PFN reads it, as in the JAX package). ``PointwisePFN``
+and ``PillarFeatureNet`` train (the batch statistics of the reference's
+dense layout); ``DenseCellPFN`` is the inference front end and eval-only.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 
 from pillars_torch.config import ModelConfig
-from pillars_torch.models.layers import BatchNorm
+from pillars_torch.models.layers import BatchNorm, MaskedBatchNorm
 
 
 class _PointwiseMaskedBN(BatchNorm):
@@ -72,8 +74,7 @@ class PointwisePFN(nn.Module):
         super().__init__()
         self.cfg = cfg
         pcfg = cfg.pfn
-        if pcfg.with_distance:
-            raise NotImplementedError("pfn.with_distance is not ported yet")
+        # like the JAX package's, this PFN reads no ``with_distance``
         self.dense = nn.Linear(cfg.num_point_features + 5, pcfg.num_filters,
                                bias=False)
         self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps,
@@ -121,10 +122,9 @@ class DenseCellPFN(nn.Module):
         super().__init__()
         self.cfg = cfg
         pcfg = cfg.pfn
-        in_features = cfg.num_point_features + 5
-        if pcfg.with_distance:
-            raise NotImplementedError("pfn.with_distance is not ported yet")
-        self.dense = nn.Linear(in_features, pcfg.num_filters, bias=False)
+        # like the JAX package's, this PFN reads no ``with_distance``
+        self.dense = nn.Linear(cfg.num_point_features + 5, pcfg.num_filters,
+                               bias=False)
         self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps,
                                      pcfg.bn_momentum)
 
@@ -183,3 +183,46 @@ class DenseCellPFN(nn.Module):
         num_points = torch.where(occupied, npts,
                                  torch.zeros_like(npts)).to(torch.int32)
         return cell_feats, num_points
+
+
+class PillarFeatureNet(nn.Module):
+    """PFN over the dense layout (ops/voxelize.py VoxelizedSample, batch
+    folded into the pillar axis): voxels [P, N, D] -> [P, F], the max over
+    the N slots taken after Linear + BN + ReLU, so the processed zero rows
+    of padded slots take part, as in the reference; rows of padding pillars
+    are zero."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        pcfg = cfg.pfn
+        in_features = cfg.num_point_features + 5 + int(pcfg.with_distance)
+        self.dense = nn.Linear(in_features, pcfg.num_filters, bias=False)
+        self.bn = MaskedBatchNorm(pcfg.num_filters, pcfg.bn_eps,
+                                  pcfg.bn_momentum)
+
+    def forward(self, voxels, num_points, coords, pillar_mask):
+        """voxels [P, N, D], num_points [P], coords [P, 3] (z, y, x),
+        pillar_mask [P]."""
+        vcfg = self.cfg.voxel
+        vx, vy = vcfg.voxel_size[:2]
+        pcr = vcfg.point_cloud_range
+        n_slots = voxels.shape[1]
+        npts = torch.clamp(num_points, min=1).to(voxels.dtype)[:, None, None]
+        # offset to the pillar's point mean (padded slots are zero)
+        f_cluster = voxels[..., :3] - voxels[..., :3].sum(
+            dim=1, keepdim=True) / npts
+        cx = coords[:, 2].to(voxels.dtype) * vx + (vx / 2 + pcr[0])
+        cy = coords[:, 1].to(voxels.dtype) * vy + (vy / 2 + pcr[1])
+        feats = [voxels, f_cluster, (voxels[..., 0] - cx[:, None])[..., None],
+                 (voxels[..., 1] - cy[:, None])[..., None]]
+        if self.cfg.pfn.with_distance:
+            feats.append(torch.linalg.vector_norm(voxels[..., :3], dim=-1,
+                                                  keepdim=True))
+        feats = torch.cat(feats, dim=-1)
+        slot = torch.arange(n_slots, device=voxels.device)
+        point_mask = (slot[None, :] < num_points[:, None]).to(feats.dtype)
+        feats = feats * point_mask[..., None]
+        x = torch.relu(self.bn(self.dense(feats), pillar_mask[:, None]))
+        out = x.amax(dim=1)
+        return torch.where(pillar_mask[:, None], out, torch.zeros_like(out))

@@ -17,7 +17,7 @@ gradient still computes in f32.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -158,12 +158,13 @@ class RPNTail(nn.Module):
 
 
 class RPN(RPNTail):
-    """The three downsample blocks, then :class:`RPNTail`."""
+    """The three downsample blocks, then :class:`RPNTail`. ``in_ch``: the
+    canvas channels (default the PFN's filters)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, in_ch: Optional[int] = None):
         super().__init__(cfg)
         rcfg = cfg.rpn
-        cin = cfg.pfn.num_filters
+        cin = cfg.pfn.num_filters if in_ch is None else in_ch
         for i in range(3):
             self.add_module(f"block{i + 1}", _Block(
                 cin, rcfg.num_filters[i], rcfg.layer_nums[i],

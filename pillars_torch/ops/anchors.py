@@ -140,29 +140,54 @@ def build_anchors(cfg: ModelConfig) -> AnchorSet:
                      structured)
 
 
+def clamp_sat_tables(anchor_set: AnchorSet, ny: int, nx: int, device):
+    """(corners [A, 4], StructuredSAT or None) as long tensors on ``device``,
+    clamped to a [ny, nx] SAT as a JAX gather clamps them. The corners are
+    in voxel-grid units, which exceed the feature map where a middle
+    extractor strides y/x (SECOND's sparse middle); clamping once here
+    keeps the clamps out of every call."""
+    def table(a, n):
+        return torch.as_tensor(np.clip(a, 0, n - 1), dtype=torch.long,
+                               device=device)
+
+    c = anchor_set.sat_corners
+    corners = torch.stack([table(c[:, i], ny if i % 2 else nx)
+                           for i in range(4)], -1)
+    s = anchor_set.sat_structured
+    structured = None if s is None else StructuredSAT(
+        table(s.x0, nx), table(s.y0, ny), table(s.x1, nx), table(s.y1, ny))
+    return corners, structured
+
+
 def anchors_mask_from_dense(dense: torch.Tensor, sat_corners,
                             area_threshold: float,
                             structured: Optional[StructuredSAT] = None
                             ) -> torch.Tensor:
     """[B, ny, nx] per-location pillar count -> [B, A] bool anchor mask.
 
-    The corner tables may be NumPy or long tensors on ``dense``'s device
-    (the detector uploads them once). With ``structured`` the four lookups
+    The corner tables may be NumPy (clamped to the SAT here, as a JAX
+    gather clamps) or long tensors on ``dense``'s device, clamped already
+    (:func:`clamp_sat_tables`; the detector uploads them once). With ``structured`` the four lookups
     per anchor are row/column takes of the SAT per anchor type; otherwise
     four gathers at ``sat_corners`` ([A, 4] (x0, y0, x1, y1))."""
     sat = torch.cumsum(torch.cumsum(dense, dim=1), dim=2)
-    b = dense.shape[0]
+    b, ny, nx = dense.shape
     dev = dense.device
 
-    def as_idx(a):  # NumPy tables, or index tensors already on the device
-        return torch.as_tensor(a, dtype=torch.long, device=dev)
+    def as_idx(a, n):
+        """NumPy tables, clamped here; index tensors already on the device
+        must be clamped already (:func:`clamp_sat_tables`)."""
+        if isinstance(a, torch.Tensor):
+            return a
+        return torch.as_tensor(np.clip(a, 0, n - 1), dtype=torch.long,
+                               device=dev)
 
     if structured is not None:
         s = structured
         T = s.x0.shape[1]
 
         def lut(yv, xv):  # [ny_f] rows, [nx_f] cols -> [B, ny_f, nx_f]
-            return sat[:, as_idx(yv)][:, :, as_idx(xv)]
+            return sat[:, as_idx(yv, ny)][:, :, as_idx(xv, nx)]
 
         areas = []
         for t in range(T):
@@ -174,8 +199,8 @@ def anchors_mask_from_dense(dense: torch.Tensor, sat_corners,
         area = torch.stack(areas, dim=-1)  # [B, ny_f, nx_f, T] = anchor order
         return (area > area_threshold).reshape(b, -1)
 
-    corners = as_idx(sat_corners)
-    x0, y0, x1, y1 = corners.unbind(-1)
+    x0, y0, x1, y1 = (as_idx(sat_corners[:, i], ny if i % 2 else nx)
+                      for i in range(4))
     ID = sat[:, y1, x1]
     IA = sat[:, y0, x0]
     IB = sat[:, y1, x0]

@@ -1,5 +1,7 @@
 """Voxelization (pillars_tpu/ops/voxelize.py): the dense-cell layout
-(``voxelize_cells``) and the point-major pillar layout (``voxelize_points``).
+(``voxelize_cells``), the point-major pillar layout (``voxelize_points``)
+and the dense [P, N, D] layout (``voxelize``), plus ``voxelize_np``, the
+NumPy loop of the reference's kernel that the tests hold them against.
 
 Dense cell: the pillar index space is the cell grid itself, usable whenever
 the grid has no more cells than ``max_voxels`` (the d435i config: 80*64*2 =
@@ -112,6 +114,145 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
                          num_pillars)
 
 
+class _Sorted(NamedTuple):
+    """The points of a batch sorted by cell and cut into pillars: what the
+    point-major and the dense layouts share (every array [B, MAXPTS, ...])."""
+
+    idx: torch.Tensor        # [1, MAXPTS] sorted position
+    order: torch.Tensor      # input position of each sorted point
+    points: torch.Tensor     # [B, MAXPTS, D] sorted points
+    cell: torch.Tensor       # sorted cell id; sentinel n_cells when invalid
+    zyx: torch.Tensor        # [B, MAXPTS, 3] cell (z, y, x), int64
+    valid: torch.Tensor      # in range and inside num_valid
+    is_start: torch.Tensor   # first point of its cell's segment
+    seg_id: torch.Tensor     # segment number (the sentinel one included)
+    rank: torch.Tensor       # position inside the segment
+    seg_keep: torch.Tensor   # the segment's pillar survives the cap
+    pillar_id: torch.Tensor  # pillar number, in cell order, clamped to P
+    keep: torch.Tensor       # the point enters its pillar
+
+
+def _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
+                       grid_size, max_points_per_voxel: int,
+                       max_voxels: int) -> _Sorted:
+    """Cell ids, one stable sort by cell (the key ``cell * MAXPTS + index``
+    is unique and int64 for every grid size), segments, and on a grid with
+    more cells than ``max_voxels`` the reference's pillar cap.
+
+    The reference breaks out of its point loop when a point would open
+    pillar P+1 (load_data.py:630-637): the first P pillars in arrival order
+    survive, and every point at or after the overflow position is dropped,
+    also points of pillars that survive. Two order statistics of the
+    segment heads' input positions give that: ``thr``, the P-th smallest (a
+    pillar survives iff its head is at or before it), and ``cutoff``, the
+    (P+1)-th (the overflow point). The surviving pillars are renumbered in
+    cell order, so the ids stay non-decreasing over the sorted points."""
+    b, maxpts, dim = points.shape
+    dev = points.device
+    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
+    pcr = torch.as_tensor(point_cloud_range, dtype=points.dtype, device=dev)
+    nx, ny, nz = (int(g) for g in grid_size)
+    n_cells = nx * ny * nz
+    P = int(max_voxels)
+
+    idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
+    in_count = idx < num_valid.to(dev)[:, None]
+    c = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
+    gs = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    valid = in_count & ((c >= 0) & (c < gs)).all(dim=-1)
+    cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]
+    cell = torch.where(valid, cell, torch.full_like(cell, n_cells))
+
+    # the sorted permutation is each point's input position
+    key_s, order = torch.sort(cell.to(torch.int64) * maxpts + idx, dim=1)
+    points_s = torch.gather(points, 1, order[..., None].expand(-1, -1, dim))
+    cell_s = key_s // maxpts
+    valid_s = cell_s < n_cells
+
+    prev = torch.cat([torch.full((b, 1), -1, dtype=cell_s.dtype, device=dev),
+                      cell_s[:, :-1]], dim=1)
+    is_start = cell_s != prev
+    seg_id = torch.cumsum(is_start.to(torch.int64), dim=1) - 1
+    seg_start = torch.cummax(
+        torch.where(is_start, idx, torch.zeros_like(idx)), dim=1).values
+    if n_cells > P:
+        first_pos = torch.gather(order, 1, seg_start)  # the head's position
+        heads_sorted = torch.sort(torch.where(
+            is_start & valid_s, first_pos, torch.full_like(first_pos, maxpts)),
+            dim=1).values
+        # with fewer than P occupied cells both read the filler maxpts
+        full = torch.full((b, 1), maxpts, dtype=torch.int64, device=dev)
+        thr = heads_sorted[:, P - 1:P] if P <= maxpts else full
+        cutoff = heads_sorted[:, P:P + 1] if P < maxpts else full
+        survives = first_pos <= thr
+        seg_keep = survives & (order < cutoff)
+        pillar_id = torch.clamp(
+            torch.cumsum((is_start & survives).to(torch.int64), dim=1) - 1,
+            0, P)
+    else:
+        seg_keep = torch.ones_like(valid_s)
+        pillar_id = seg_id
+    rank = idx - seg_start
+    keep = (valid_s & (rank < int(max_points_per_voxel)) & seg_keep
+            & (pillar_id < P))
+
+    z = torch.div(cell_s, ny * nx, rounding_mode="floor")
+    rem = cell_s - z * (ny * nx)
+    y = torch.div(rem, nx, rounding_mode="floor")
+    zyx = torch.stack([z, y, rem - y * nx], dim=-1)
+    return _Sorted(idx, order, points_s, cell_s, zyx, valid_s, is_start,
+                   seg_id, rank, seg_keep, pillar_id, keep)
+
+
+class VoxelizedSample(NamedTuple):
+    """Dense-layout voxelization of a BATCH (every array has a leading B).
+
+    voxels:      [B, P, N, D] points gathered per pillar (zero padded)
+    num_points:  [B, P] int32, points per pillar (capped at N)
+    coords:      [B, P, 3] int32 (z, y, x); zeros for padding pillars
+    pillar_mask: [B, P] bool
+    """
+
+    voxels: torch.Tensor
+    num_points: torch.Tensor
+    coords: torch.Tensor
+    pillar_mask: torch.Tensor
+
+
+def voxelize(points: torch.Tensor, num_valid: torch.Tensor, *,
+             voxel_size, point_cloud_range, grid_size,
+             max_points_per_voxel: int, max_voxels: int) -> VoxelizedSample:
+    """points [B, MAXPTS, D], num_valid [B] -> :class:`VoxelizedSample`,
+    each sample as pillars_tpu's ``voxelize`` gives it: pillars in ascending
+    cell order, each keeping its first N points in input order at slots
+    0..N-1; on a grid with more cells than ``max_voxels`` the pillar cap and
+    the overflow cutoff of :func:`voxelize_points`."""
+    b, _, dim = points.shape
+    dev = points.device
+    P = int(max_voxels)
+    N = int(max_points_per_voxel)
+    srt = _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
+                             grid_size, N, P)
+    keep, pillar_id = srt.keep, srt.pillar_id
+
+    # one spare pillar row and one spare slot take every dropped point
+    sample = torch.arange(b, device=dev)[:, None]
+    pid = torch.where(keep, pillar_id, torch.full_like(pillar_id, P))
+    slot = torch.where(keep, srt.rank, torch.full_like(srt.rank, N))
+    voxels = points.new_zeros((b, P + 1, N + 1, dim))
+    voxels[sample, pid, slot] = srt.points
+    num_points = torch.zeros((b, P + 1), dtype=torch.int32, device=dev)
+    num_points.scatter_add_(1, pid, keep.to(torch.int32))
+
+    head = srt.is_start & srt.valid & srt.seg_keep & (pillar_id < P)
+    coords = torch.zeros((b, P + 1, 3), dtype=torch.int32, device=dev)
+    coords[sample, torch.where(head, pillar_id, torch.full_like(
+        pillar_id, P))] = srt.zyx.to(torch.int32)
+    num_points = num_points[:, :P]
+    return VoxelizedSample(voxels[:, :P, :N], num_points, coords[:, :P],
+                           num_points > 0)
+
+
 # one unit of the fixed-point segment sums of ``voxelize_points``, and what
 # |value| * max_points_per_voxel must stay under for an int64 sum of them
 _FIXED_ONE = float(2 ** 40)
@@ -154,14 +295,7 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     each sample as pillars_tpu's ``voxelize_points`` gives it.
 
     A grid with more cells than ``max_voxels`` can fill more pillars than
-    fit. The reference breaks out of its point loop when a point would open
-    pillar P+1 (load_data.py:630-637): the first P pillars in arrival order
-    survive, and every point at or after the overflow position is dropped,
-    also points of pillars that survive. Two order statistics of the
-    segment heads' input positions give that: ``thr``, the P-th smallest (a
-    pillar survives iff its head is at or before it), and ``cutoff``, the
-    (P+1)-th (the overflow point). The surviving pillars are renumbered in
-    cell order, so the ids stay non-decreasing over the sorted points.
+    fit: the reference's pillar cap (:func:`_sort_into_pillars`).
 
     The sort key is int64, so one sort serves every grid size (the JAX
     package needs a second int32 key from 2^31 on). The per-pillar tables
@@ -184,57 +318,14 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     dev = points.device
     vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
     pcr = torch.as_tensor(point_cloud_range, dtype=points.dtype, device=dev)
-    nx, ny, nz = (int(g) for g in grid_size)
-    n_cells = nx * ny * nz
     P = int(max_voxels)
     N = int(max_points_per_voxel)
-
-    idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
-    in_count = idx < num_valid.to(dev)[:, None]
-    c = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
-    gs = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
-    valid = in_count & ((c >= 0) & (c < gs)).all(dim=-1)
-    cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]
-    cell = torch.where(valid, cell, torch.full_like(cell, n_cells))
-
-    # unique key: the sort keeps input order within a cell; the sorted
-    # permutation is each point's input position
-    key_s, order = torch.sort(cell.to(torch.int64) * maxpts + idx, dim=1)
-    points_s = torch.gather(points, 1, order[..., None].expand(-1, -1, dim))
-    cell_s = key_s // maxpts
-    valid_s = cell_s < n_cells
-
-    prev = torch.cat([torch.full((b, 1), -1, dtype=cell_s.dtype, device=dev),
-                      cell_s[:, :-1]], dim=1)
-    is_start = cell_s != prev
-    seg_id = torch.cumsum(is_start.to(torch.int64), dim=1) - 1
-    seg_start = torch.cummax(
-        torch.where(is_start, idx, torch.zeros_like(idx)), dim=1).values
-    if n_cells > P:
-        first_pos = torch.gather(order, 1, seg_start)  # the head's position
-        heads_sorted = torch.sort(torch.where(
-            is_start & valid_s, first_pos, torch.full_like(first_pos, maxpts)),
-            dim=1).values
-        # with fewer than P occupied cells both read the filler maxpts
-        full = torch.full((b, 1), maxpts, dtype=torch.int64, device=dev)
-        thr = heads_sorted[:, P - 1:P] if P <= maxpts else full
-        cutoff = heads_sorted[:, P:P + 1] if P < maxpts else full
-        survives = first_pos <= thr
-        seg_keep = survives & (order < cutoff)
-        pillar_id = torch.clamp(
-            torch.cumsum((is_start & survives).to(torch.int64), dim=1) - 1,
-            0, P)
-    else:
-        seg_keep = torch.ones_like(valid_s)
-        pillar_id = seg_id
-    keep = valid_s & (idx - seg_start < N) & seg_keep & (pillar_id < P)
-    point_pillar = torch.clamp_max(pillar_id, P)
-
-    z = torch.div(cell_s, ny * nx, rounding_mode="floor")
-    rem = cell_s - z * (ny * nx)
-    y = torch.div(rem, nx, rounding_mode="floor")
-    x = rem - y * nx
-    zyx = torch.stack([z, y, x], dim=-1).to(torch.int32)
+    srt = _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
+                             grid_size, N, P)
+    points_s, keep, seg_id = srt.points, srt.keep, srt.seg_id
+    point_pillar = torch.clamp_max(srt.pillar_id, P)
+    z, y, x = srt.zyx.unbind(-1)
+    zyx = srt.zyx.to(torch.int32)
 
     # per-segment sums of kept points relative to the cell centre, plus a
     # kept-count column (the mean's denominator leaves out capped and
@@ -275,13 +366,14 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
                             reduce)
         return out[:, :P]
 
-    head = is_start & valid_s & seg_keep
+    live = srt.valid & srt.seg_keep
+    head = srt.is_start & live
     num_points = per_pillar(1, torch.int32, keep[..., None].to(torch.int32),
                             "sum")[..., 0]
     # points of a dropped pillar carry the id of the pillar before it and
     # must not reach its coords
     coords = per_pillar(3, torch.int32, torch.where(
-        (valid_s & seg_keep)[..., None], zyx, torch.zeros_like(zyx)), "amax")
+        live[..., None], zyx, torch.zeros_like(zyx)), "amax")
     voxel_mean = per_pillar(dim, points.dtype, torch.where(
         head[..., None], point_mean, torch.zeros_like(point_mean)), "sum")
     return VoxelizedPoints(points_s, pp.to(torch.int32), keep, point_mean, zyx,
@@ -318,3 +410,58 @@ def make_cell_voxelizer(cfg: VoxelConfig):
         grid_size=cfg.grid_size,
         max_points_per_voxel=cfg.max_points_per_voxel,
     )
+
+
+def make_voxelizer(cfg: VoxelConfig):
+    """Bound dense-layout voxelizer, ``fn(points [B, M, D], num_valid [B])``
+    -> :class:`VoxelizedSample`."""
+    return functools.partial(
+        voxelize,
+        voxel_size=np.asarray(cfg.voxel_size, np.float32),
+        point_cloud_range=np.asarray(cfg.point_cloud_range, np.float32),
+        grid_size=cfg.grid_size,
+        max_points_per_voxel=cfg.max_points_per_voxel,
+        max_voxels=cfg.max_voxels,
+    )
+
+
+def voxelize_np(points: np.ndarray, voxel_size, point_cloud_range,
+                max_points_per_voxel: int, max_voxels: int):
+    """One cloud [M, D] through the reference's sequential kernel
+    (load_data.py:593-692, reverse_index=True), pillars in ARRIVAL order:
+    (voxels [V, N, D], coords [V, 3] (z, y, x), num_points [V]). A copy of
+    pillars_tpu's NumPy twin, the parity oracle of the tests."""
+    vs = np.asarray(voxel_size, dtype=points.dtype)
+    pcr = np.asarray(point_cloud_range, dtype=points.dtype)
+    grid = np.round((pcr[3:] - pcr[:3]) / vs).astype(np.int32)
+    nx, ny, nz = int(grid[0]), int(grid[1]), int(grid[2])
+    coor_to_voxelidx = -np.ones((nz, ny, nx), dtype=np.int32)
+    voxels = np.zeros((max_voxels, max_points_per_voxel, points.shape[-1]),
+                      dtype=points.dtype)
+    coors = np.zeros((max_voxels, 3), dtype=np.int32)
+    num_points = np.zeros((max_voxels,), dtype=np.int32)
+    voxel_num = 0
+    for i in range(points.shape[0]):
+        coor = np.zeros(3, dtype=np.int32)
+        failed = False
+        for j in range(3):
+            cj = int(np.floor((points[i, j] - pcr[j]) / vs[j]))
+            if cj < 0 or cj >= grid[j]:
+                failed = True
+                break
+            coor[2 - j] = cj
+        if failed:
+            continue
+        voxelidx = coor_to_voxelidx[coor[0], coor[1], coor[2]]
+        if voxelidx == -1:
+            voxelidx = voxel_num
+            if voxel_num >= max_voxels:
+                break
+            voxel_num += 1
+            coor_to_voxelidx[coor[0], coor[1], coor[2]] = voxelidx
+            coors[voxelidx] = coor
+        num = num_points[voxelidx]
+        if num < max_points_per_voxel:
+            voxels[voxelidx, num] = points[i]
+            num_points[voxelidx] += 1
+    return voxels[:voxel_num], coors[:voxel_num], num_points[:voxel_num]

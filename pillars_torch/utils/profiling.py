@@ -133,18 +133,15 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
     PFN + canvas, the three fused blocks, the RPN tail, postprocess), each
     timed alone on inputs made by the stage before it, and of the whole
     path."""
-    from pillars_torch.models.detector import _sub_state, point_canvas
+    from pillars_torch.models.detector import _front_state, _sub_state
     from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
 
     thr = det.config.eval_input.anchor_area_threshold
-    pfn = det.network.pfn
-    pfn_state = _sub_state(state, pfn, "pfn.")
     tail_state = _sub_state(state, det.rpn_tail, "rpn.")
 
     def front(v):
-        return point_canvas(
-            lambda *a: torch.func.functional_call(pfn, pfn_state, a), v,
-            det.ny, det.nx)
+        return torch.func.functional_call(det.network, _front_state(state),
+                                          (v,), {"canvas_only": True})
 
     def tail(blocks):
         return torch.func.functional_call(det.rpn_tail, tail_state,

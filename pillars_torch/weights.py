@@ -111,6 +111,10 @@ def _convert_param(path, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     if leaf == "kernel":
         if arr.ndim == 2:                      # Dense [in, out] -> [out, in]
             arr = arr.T
+        elif arr.ndim == 3:                    # sparse taps [K, Ci, Co]
+            pass
+        elif arr.ndim == 5:                    # conv3d [kd, kh, kw, Ci, Co]
+            arr = arr.transpose(4, 3, 0, 1, 2)
         elif mods[-1] == "deconv":
             # flax ConvTranspose [k, k, Ci, Co] (transpose_kernel=False) ->
             # torch ConvTranspose2d [Ci, Co, k, k], spatially flipped
@@ -152,6 +156,10 @@ def _unconvert_param(name: str, arr: np.ndarray) -> Tuple[tuple, np.ndarray]:
     elif leaf == "weight":
         if arr.ndim == 2:                      # Linear [out, in] -> [in, out]
             arr = arr.T
+        elif arr.ndim == 3:                    # sparse taps, as they are
+            pass
+        elif arr.ndim == 5:                    # [Co, Ci, kd, kh, kw]
+            arr = arr.transpose(2, 3, 4, 1, 0)
         elif mods[-1] == "deconv":             # [Ci, Co, k, k] -> flipped
             arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         else:                                  # [Co, Ci, kh, kw]

@@ -68,6 +68,50 @@ def test_evaluate_on_the_cpu(dataset, tmp_path):
     assert save.stat().st_size > 0
 
 
+def test_evaluate_second_sparse_gives_the_evaluators_annos(dataset,
+                                                           tmp_path):
+    """``evaluate --config configs/second_sparse_d435i.yaml`` (reduced)
+    with the trained sparse checkpoint: the saved annos are those of the
+    port's Evaluator called in this process (floats within 1e-5: the two
+    processes run the convs on different thread counts)."""
+    import pickle
+
+    import numpy as np
+
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.trainer import Evaluator
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    weights = str(ROOT / "benchmarks" / "second_sparse_synth"
+                  / "weights_33.pkl")
+    config = str(ROOT / "configs" / "second_sparse_d435i.yaml")
+    sets = dataset_overrides(dataset) + ["model.voxel.max_points=8192",
+                                         "model.voxel.max_voxels=6000",
+                                         "model.middle.max_active=6000"]
+    save = tmp_path / "result.pkl"
+    out = cli("evaluate", "--config", config, "--device", "cpu",
+              "--checkpoint", weights, "--save-predictions", str(save), *sets)
+    assert out.returncode == 0, out.stderr
+    assert "aggregate score:" in out.stdout
+    cfg = Config.from_yaml(config).overrides(sets[1:])
+    det = PillarsDetector(cfg, device="cpu")
+    want, _ = Evaluator(cfg, det).run(
+        from_jax_variables(*load_params(weights), cfg))
+    with open(save, "rb") as f:
+        got = pickle.load(f)
+    assert len(got) == len(want) == 4
+    assert sum(len(a["score"]) for a in want) > 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key, value in w.items():
+            if np.asarray(value).dtype.kind == "f":
+                np.testing.assert_allclose(g[key], value, rtol=0, atol=1e-5,
+                                           err_msg=key)
+            else:
+                np.testing.assert_array_equal(g[key], value, err_msg=key)
+
+
 def test_evaluate_with_buckets_and_coco_and_random_init(dataset):
     out = cli("evaluate", "--device", "cpu", "--max-samples", "2", "--coco",
               "--buckets", "auto", *dataset_overrides(dataset))

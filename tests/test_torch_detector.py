@@ -16,7 +16,8 @@ import jax
 
 from pillars_torch.config import Config as TorchConfig
 from pillars_torch.models.detector import PillarsDetector as TorchDetector
-from pillars_torch.weights import from_jax_variables, load_params
+from pillars_torch.weights import (from_jax_variables, load_params,
+                                   to_jax_variables)
 from pillars_tpu.config import Config as JaxConfig
 from pillars_tpu.models.detector import PillarsDetector as JaxDetector
 from pillars_tpu.train.checkpoint import load_params as jax_load_params
@@ -69,11 +70,25 @@ def test_inference_default_widths_trained_weights(batch):
 
 
 def test_unported_configs_raise():
-    point_major = TorchConfig.default().override("model.pfn.dense_cell", False)
-    for key, value in (("model.pfn.pointwise", False),
-                       ("model.pfn.simple_mean", True)):
-        with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
-            TorchDetector(point_major.override(key, value), device="cpu")
+    """The front ends that raised before SECOND's slice now run against the
+    JAX package (the dense [P, N, D] layout, SimpleVoxel on either
+    voxelizer); only bf16 compute still raises."""
+    for key, value, pointwise in (("model.pfn.pointwise", False, False),
+                                  ("model.pfn.simple_mean", True, True),
+                                  ("model.pfn.simple_mean", True, False)):
+        jcfg, tcfg = small_config(JaxConfig), small_config(TorchConfig)
+        for k, v in (("model.pfn.dense_cell", False),
+                     ("model.pfn.pointwise", pointwise), (key, value)):
+            jcfg, tcfg = jcfg.override(k, v), tcfg.override(k, v)
+        # the tree's structure from the port's init (flax's runs eagerly)
+        params, stats = to_jax_variables(TorchDetector(
+            tcfg, device="cpu").init(torch.Generator().manual_seed(0)))
+        variables = randomize_variables(
+            {"params": params, "batch_stats": stats}, seed=12)
+        state = from_jax_variables(variables["params"],
+                                   variables["batch_stats"], tcfg)
+        want, got = _run_both(jcfg, tcfg, variables, state, 2, 1800, seed=6)
+        compare_predictions(want, got)
     cfg = TorchConfig.default().override("runtime.compute_dtype", "bfloat16")
     with pytest.raises(NotImplementedError):
         TorchDetector(cfg, device="cpu")
@@ -91,8 +106,9 @@ def test_point_major_entry_points_on_the_default_config():
     that the JAX package trains through: ``voxelize_batch``,
     ``anchors_mask_batch`` and ``apply`` give the JAX package's outputs on
     ``Config.default()`` (max_points cut), B=2. Heads within 1e-4 of their
-    max |value|; the anchors mask equal. A config of another front end keeps
-    its dense-cell inference and says what is missing when asked."""
+    max |value|; the anchors mask equal. A config of the dense-layout
+    front end keeps its dense-cell inference, and its voxelization and
+    apply are the JAX package's."""
     jcfg = JaxConfig.default().override("model.voxel.max_points", 2048)
     tcfg = TorchConfig.default().override("model.voxel.max_points", 2048)
     jdet, tdet = JaxDetector(jcfg), TorchDetector(tcfg, device="cpu")
@@ -118,8 +134,19 @@ def test_point_major_entry_points_on_the_default_config():
         w = np.asarray(w)
         np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
                                    atol=1e-4 * np.abs(w).max(), err_msg=key)
-    other = TorchConfig.default().override("model.pfn.pointwise", False)
-    det = TorchDetector(other, device="cpu")
-    assert det.dense_cell
-    with pytest.raises(NotImplementedError, match="pointwise=false"):
-        det.voxelize_batch(torch.from_numpy(pts), torch.from_numpy(num))
+    # a dense-cell config of the dense-layout front end: inference stays on
+    # the dense cell, apply runs PillarFeatureNet, both as the JAX package's
+    jcfg = jcfg.override("model.pfn.pointwise", False)
+    other = tcfg.override("model.pfn.pointwise", False)
+    det, jdet = TorchDetector(other, device="cpu"), JaxDetector(jcfg)
+    assert det.dense_cell and jdet.dense_cell
+    jv = jax.jit(jdet.voxelize_batch)(pts, num)
+    tv = det.voxelize_batch(torch.from_numpy(pts), torch.from_numpy(num))
+    for name, g, w in zip(jv._fields, tv, jax.device_get(jv)):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    want = jax.device_get(jax.jit(jdet.apply)(variables, jv))
+    with torch.no_grad():
+        got = det.apply(state, tv)
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=key)

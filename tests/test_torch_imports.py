@@ -1,6 +1,6 @@
 """The port stands alone: no file of pillars_torch/ (the serving, data,
 eval, training and CLI modules included) or chip_smoke.py imports JAX, flax, optax or
-the JAX package, the package imports and reads the trained checkpoint into the dense-cell and the point-major network in a
+the JAX package, the package imports and reads the trained checkpoints into the dense-cell, the point-major and the SECOND network in a
 process where those cannot be imported, and its config copy equals the JAX
 package's."""
 
@@ -62,6 +62,8 @@ import pillars_torch.models.losses, pillars_torch.ops.targets
 import pillars_torch.data.val_sampling
 import pillars_torch.eval.proxies, pillars_torch.viz
 import pillars_torch.geometry.rotated_iou, pillars_torch.utils.profiling
+import pillars_torch.models.middle, pillars_torch.models.sparse_middle
+import pillars_torch.ops.sparse_conv
 from pillars_torch.config import Config
 from pillars_torch.weights import from_jax_variables, load_params
 params, stats = load_params(sys.argv[1])
@@ -69,6 +71,10 @@ state = from_jax_variables(params, stats, Config.default())
 point_major = (Config.default().override("model.pfn.dense_cell", False)
                .override("model.rpn.use_pallas_blocks", True))
 assert from_jax_variables(params, stats, point_major).keys() == state.keys()
+if len(sys.argv) > 2:  # the SECOND sparse checkpoint into its network
+    sparse = from_jax_variables(*load_params(sys.argv[3]),
+                                Config.from_yaml(sys.argv[2]))
+    assert any(k.startswith("middle.down1.") for k in sparse)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print(len(state))
@@ -79,8 +85,9 @@ def test_weights_load_where_jax_cannot_import():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN.format(forbidden=FORBIDDEN),
-         str(WEIGHTS)], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=300)
+         str(WEIGHTS), str(ROOT / "configs" / "second_sparse_d435i.yaml"),
+         str(ROOT / "benchmarks" / "second_sparse_synth" / "weights_33.pkl")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) > 100
 
@@ -100,7 +107,10 @@ def test_every_port_module_is_checked():
                  "pillars_torch/data/val_sampling.py",
                  "pillars_torch/eval/kitti_ap.py",
                  "pillars_torch/native/__init__.py",
-                 "pillars_torch/viz/publisher.py", "chip_smoke.py"):
+                 "pillars_torch/viz/publisher.py",
+                 "pillars_torch/ops/sparse_conv.py",
+                 "pillars_torch/models/sparse_middle.py",
+                 "pillars_torch/models/middle.py", "chip_smoke.py"):
         assert must in names, must
 
 
@@ -129,7 +139,9 @@ def test_cli_runs_where_jax_cannot_import(tmp_path):
 
 @pytest.mark.parametrize("yaml_name", [None, "pedestrian_d435i.yaml",
                                        "kitti_3class.yaml",
-                                       "second_sparse_d435i.yaml"])
+                                       "second_sparse_d435i.yaml",
+                                       "second_d435i.yaml",
+                                       "kitti_second.yaml"])
 def test_config_equals_jax_config(yaml_name):
     from pillars_torch.config import Config as TorchConfig
     from pillars_tpu.config import Config as JaxConfig

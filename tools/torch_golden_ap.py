@@ -1,16 +1,25 @@
-"""The accuracy anchor of the PyTorch port: KITTI AP of the trained d435i
+"""The accuracy anchors of the PyTorch port: KITTI AP of a trained
 checkpoint on the regenerated hard validation split, through either package
 on the CPU.
 
     python tools/torch_golden_ap.py --package jax   --root DIR [--scenes N]
+                                    [--config YAML --weights PKL]
                                     [--write tests/golden/torch_hard_val_ap.json]
     python tools/torch_golden_ap.py --package torch --root DIR [--scenes N]
+                                    [--config YAML --weights PKL]
                                     [--against tests/golden/torch_hard_val_ap.json]
+
+Two goldens are kept: the d435i PointPillars model (``Config.default()``,
+benchmarks/hard_synth/weights_59.pkl, the defaults here) in
+tests/golden/torch_hard_val_ap.json, and the SECOND sparse model
+(``--config configs/second_sparse_d435i.yaml --weights
+benchmarks/second_sparse_synth/weights_33.pkl``) in
+tests/golden/torch_second_sparse_val_ap.json.
 
 Regenerates the dataset of benchmarks/hard_synth/README.md (600 train / 150
 val hard-profile scenes, seed 7) under ``--root`` with the chosen package's
-own generator, runs that package's ``Evaluator`` with
-benchmarks/hard_synth/weights_59.pkl, and prints one JSON object: the val
+own generator (an existing split there is reused), runs that package's
+``Evaluator`` with the checkpoint, and prints one JSON object: the val
 split's checksum (``pillars_torch.data.synthetic.split_checksum``, a hash
 of the files, for either package), the aggregate score, the mean APs and the
 AP text. One process runs one package's generator and evaluator. ``--write``
@@ -31,6 +40,17 @@ sys.path.insert(0, str(ROOT))
 WEIGHTS = ROOT / "benchmarks" / "hard_synth" / "weights_59.pkl"
 
 
+def load_config(cls, path):
+    return cls.from_yaml(path) if path else cls.default()
+
+
+def ensure_split(synthetic, root):
+    """The hard split under ``root``, generated unless it is there."""
+    if not pathlib.Path(root, "kitti_infos_val.pkl").exists():
+        synthetic.generate_dataset(root, num_train=600, num_test=150, seed=7,
+                                   profile="hard")
+
+
 def with_dataset(cfg, root):
     for key, value in (("eval_input.dataset_root", root),
                        ("eval_input.info_path",
@@ -41,7 +61,7 @@ def with_dataset(cfg, root):
     return cfg
 
 
-def run_jax(root, scenes):
+def run_jax(root, scenes, config, weights):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -51,27 +71,25 @@ def run_jax(root, scenes):
     from pillars_tpu.train import checkpoint as ckpt
     from pillars_tpu.train.trainer import Evaluator
 
-    synthetic.generate_dataset(root, num_train=600, num_test=150, seed=7,
-                               profile="hard")
-    cfg = with_dataset(Config.default(), root)
+    ensure_split(synthetic, root)
+    cfg = with_dataset(load_config(Config, config), root)
     det = PillarsDetector(cfg)
-    params, stats = ckpt.load_params(str(WEIGHTS))
+    params, stats = ckpt.load_params(weights)
     variables = {"params": params, "batch_stats": stats or {}}
     return Evaluator(cfg, det).evaluate(variables, max_samples=scenes)
 
 
-def run_torch(root, scenes):
+def run_torch(root, scenes, config, weights):
     from pillars_torch.config import Config
     from pillars_torch.data import synthetic
     from pillars_torch.models.detector import PillarsDetector
     from pillars_torch.train.trainer import Evaluator
     from pillars_torch.weights import from_jax_variables, load_params
 
-    synthetic.generate_dataset(root, num_train=600, num_test=150, seed=7,
-                               profile="hard")
-    cfg = with_dataset(Config.default(), root)
+    ensure_split(synthetic, root)
+    cfg = with_dataset(load_config(Config, config), root)
     det = PillarsDetector(cfg, device="cpu")
-    state = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
+    state = from_jax_variables(*load_params(weights), cfg)
     return Evaluator(cfg, det).evaluate(state, max_samples=scenes)
 
 
@@ -81,6 +99,11 @@ def main():
     ap.add_argument("--root", required=True, help="where the dataset goes")
     ap.add_argument("--scenes", type=int, default=None,
                     help="evaluate the first N val scenes only")
+    ap.add_argument("--config", default=None,
+                    help="model config (default: Config.default())")
+    ap.add_argument("--weights", default=str(WEIGHTS),
+                    help="checkpoint (default: benchmarks/hard_synth/"
+                         "weights_59.pkl)")
     ap.add_argument("--write", default=None)
     ap.add_argument("--against", default=None)
     args = ap.parse_args()
@@ -89,11 +112,15 @@ def main():
 
     t0 = time.perf_counter()
     run = run_jax if args.package == "jax" else run_torch
-    text, bev, d3, aos, score = run(args.root, args.scenes)
+    text, bev, d3, aos, score = run(args.root, args.scenes, args.config,
+                                    args.weights)
+    weights = pathlib.Path(args.weights).resolve()
+    if weights.is_relative_to(ROOT):
+        weights = weights.relative_to(ROOT)
     out = {
-        "what": "KITTI AP of benchmarks/hard_synth/weights_59.pkl on the "
-                "hard val split (synth-data --profile hard --num-train 600 "
-                "--num-test 150 --seed 7), Config.default(), CPU, f32",
+        "what": f"KITTI AP of {weights} on the hard val split (synth-data "
+                f"--profile hard --num-train 600 --num-test 150 --seed 7), "
+                f"{args.config or 'Config.default()'}, CPU, f32",
         "package": args.package,
         "scenes": args.scenes or 150,
         "val_checksum": split_checksum(args.root),
