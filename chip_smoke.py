@@ -91,7 +91,21 @@ Phases, none of whose failures is caught:
    one synthetic KITTI-range cloud of 120000 points (NumPy seed 0), B=1,
    seeded init: the active sets of all three sparse stages (the last a
    (3, 1, 1) z-squash) card vs CPU, heads within ``HEAD_RTOL``, launch
-   counts, ms per cloud and the peak device memory of a call.
+   counts, ms per cloud and the peak device memory of a call;
+15. ``runtime.compute_dtype=bfloat16`` (the criteria of
+   tests/torch_parity.py): the bfloat16 variant of the fused RPN chain
+   kernel against its twin at the d435i block shapes, B in {1, 2}, one
+   block per launch and the three chained in one launch (each element
+   within one bf16 step, or near 0 within ``BLOCK_RTOL`` of the max), its
+   times beside the float32 kernel's; the dense-cell and fast paths in
+   bfloat16 from ``weights_59.pkl`` on phase 4's clouds (launch counts:
+   NMS once per batch, the bfloat16 chain once per batch on the fast path;
+   heads card vs CPU within 0.7 of the CPU's bf16-f32 rms gap; predictions
+   matched as sets; ms and device ms per cloud beside phases 4-5); the
+   bfloat16 ``Evaluator`` over phase 9's 150 val clouds against
+   tests/golden/torch_hard_val_bf16_ap.json (the JAX package on the CPU in
+   bfloat16) within ``AP_TOL``; SECOND sparse in bfloat16 from
+   ``weights_33.pkl`` on four of phase 12's val clouds, card vs CPU.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -246,13 +260,15 @@ def _block_shapes(mcfg):
     return shapes
 
 
-def _block_work(b, h, w, cin, cout, n, stride):
+def _block_work(b, h, w, cin, cout, n, stride, act_bytes=4):
     """(f32 operations, bytes) one fused block needs: per output pixel and
     layer the depthwise (9 multiply-adds per input channel), the pointwise
     (C_in multiply-adds per output channel), bias and ReLU; the input read
-    once, the output and every weight written or read once."""
+    once, the output and every weight written or read once. ``act_bytes``:
+    the bytes of an input or output element (2 in bfloat16); the weights
+    are float32."""
     px = b * (h // stride) * (w // stride)
-    flops, n_bytes = 0, 4 * (b * h * w * cin + px * cout)
+    flops, n_bytes = 0, act_bytes * (b * h * w * cin + px * cout)
     for i in range(n + 1):
         ci = cin if i == 0 else cout
         flops += px * (2 * 9 * ci + 2 * ci * cout + 2 * cout)
@@ -416,13 +432,17 @@ def _reset_counts():
 
     nms_cuda.nms_keep_mask.launches = 0
     rpn_cuda.fused_sep_block.launches = 0
+    rpn_cuda.fused_sep_block.launches_bf16 = 0
 
 
 def _read_counts():
+    """Launches since :func:`_reset_counts`; ``rpn_sep_block`` counts both
+    dtypes of the block kernel, ``rpn_sep_block_bf16`` the bfloat16 ones."""
     from pillars_torch.ops import nms_cuda, rpn_cuda
 
     return {"nms_keep_mask": nms_cuda.nms_keep_mask.launches,
-            "rpn_sep_block": rpn_cuda.fused_sep_block.launches}
+            "rpn_sep_block": rpn_cuda.fused_sep_block.launches,
+            "rpn_sep_block_bf16": rpn_cuda.fused_sep_block.launches_bf16}
 
 
 def _check_outputs(cfg, on_card, outs):
@@ -448,10 +468,14 @@ def _warm_ms(fn, state, p, n, eye, label):
     wall_ms = (time.perf_counter() - t0) * 1e3 / 50
     print(f"{label} B=1: {ms:.3f} ms/cloud (CUDA events, warm), "
           f"{wall_ms:.3f} ms/cloud host wall")
-    _, device, rows = device_busy(lambda: fn(state, p, n, eye, eye), 20,
-                                  "nms_keep_mask_kernel")
-    print(f"{label} B=1: {sum(c for _, c, _ in rows):g} kernel launches and "
-          f"{device:.4f} ms of device time per cloud (torch.profiler)")
+    prof_wall, device, rows = device_busy(
+        lambda: fn(state, p, n, eye, eye), 20, "nms_keep_mask_kernel")
+    launches = sum(c for _, c, _ in rows)
+    print(f"{label} B=1: {launches:g} kernel launches and "
+          f"{device:.4f} ms of device time per cloud, idle share "
+          f"{1 - device / prof_wall:.3f} (torch.profiler)")
+    return {"ms": ms, "host_wall_ms": wall_ms, "launches": launches,
+            "device_ms": device, "idle_share": 1 - device / prof_wall}
 
 
 def run_main_path(state_cpu):
@@ -521,8 +545,8 @@ def run_main_path(state_cpu):
     print(f"card vs CPU: head tensors max |diff| {head_err:.3e} "
           f"(tol {HEAD_ATOL}), postprocess on the same heads max |diff| "
           f"{post_err:.3e} (tol {POST_ATOL}); valid/labels/anchors mask equal")
-    _warm_ms(fn, state, *on_card[0], eye[1], "dense-cell path")
-    return launches, batches, on_card, outs
+    times = _warm_ms(fn, state, *on_card[0], eye[1], "dense-cell path")
+    return launches, batches, on_card, outs, times
 
 
 def run_fast_path(state_cpu, batches, on_card, dense_outs):
@@ -600,8 +624,8 @@ def run_fast_path(state_cpu, batches, on_card, dense_outs):
     print(f"fast path vs dense-cell path on the card: valid/labels equal, "
           f"scores max |diff| {score_err:.3e} (tol {SCORE_ATOL}), boxes max "
           f"|diff| {box_err:.3e} (tol {BOX_ATOL} + {BOX_RTOL} relative)")
-    _warm_ms(fn, state, *on_card[0], eye[1], "point-major fast path")
-    return launches
+    times = _warm_ms(fn, state, *on_card[0], eye[1], "point-major fast path")
+    return launches, times
 
 
 def _fast_config():
@@ -1483,6 +1507,345 @@ def run_kitti_second(smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: runtime.compute_dtype=bfloat16
+
+BF16_GOLDEN = ROOT / "tests" / "golden" / "torch_hard_val_bf16_ap.json"
+
+
+def _parity():
+    """tests/torch_parity.py, the bfloat16 criteria of the CPU tests: the
+    kernel against its twin (``bf16_rounded_close``: each rounds float32
+    results that agree within BLOCK_RTOL of their max once, so within one
+    bfloat16 step, or near 0 within BLOCK_RTOL of the max), the heads card
+    against CPU (``heads_criterion`` with BF16_RMS_FACTOR_FULL: rms within
+    0.7 of the CPU's own bfloat16-float32 gap, max within the gap's max; a
+    whole network at full width, where flipped roundings spread), and the
+    predictions matched as sets (``compare_predictions_bf16``)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_parity
+
+    return torch_parity
+
+
+def check_rpn_kernel_bf16(mcfg, f32):
+    """15.1: the bfloat16 chain kernel against its twin on the card, and
+    its times beside the float32 kernel's (``f32``: phase 3's entry)."""
+    from pillars_torch.models.rpn import _Block
+    from pillars_torch.ops import rpn_cuda
+    from pillars_torch.ops.rpn_blocks import (FoldedLayer,
+                                              fused_sep_block_plain,
+                                              pack_block)
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
+
+    tp = _parity()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    bf = torch.bfloat16
+    shapes = _block_shapes(mcfg)
+    layers = []
+    for h, w, cin, cout, n, s in shapes:
+        layers.append([FoldedLayer(*(torch.from_numpy(a.astype(np.float32))
+                                     .cuda() for a in (
+            rng.randn(3, 3, ci), rng.randn(ci, cout) / np.sqrt(9 * ci),
+            rng.randn(cout) * 0.1)))
+            for ci in [cin] + [cout] * n])
+    packed = [pack_block(layers[i], sh[4], sh[5])
+              for i, sh in enumerate(shapes)]
+
+    def relu_input(*shape):
+        return torch.from_numpy(np.maximum(rng.randn(*shape), 0).astype(
+            np.float32)).cuda().to(bf)
+
+    max_err, worst_share, worst_steps = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for b in (1, 2):
+            checks = []
+            # the three blocks in one launch, each held against the twin
+            # fed what the kernel's block before it wrote
+            x = relu_input(b, *shapes[0][:3])
+            got = rpn_cuda.fused_sep_chain(x, packed)
+            torch.cuda.synchronize()
+            for i, (h, w, cin, cout, n, s) in enumerate(shapes):
+                checks.append((f"chain block{i + 1} B={b}", got[i],
+                               fused_sep_block_plain(x, layers[i], n, s)))
+                x = got[i]
+            for i, (h, w, cin, cout, n, s) in enumerate(shapes):
+                x = relu_input(b, h, w, cin)
+                checks.append((f"block{i + 1} B={b} {h}x{w}x{cin}->{cout}",
+                               rpn_cuda.fused_sep_block(x, layers[i], n, s),
+                               fused_sep_block_plain(x, layers[i], n, s)))
+            torch.cuda.synchronize()
+            for label, g, want in checks:
+                if g.dtype != bf or want.dtype != bf:
+                    raise AssertionError(f"{label}: not bfloat16")
+                share, steps = tp.bf16_rounded_close(
+                    g, want, BLOCK_RTOL, f"rpn_sep_block bf16 {label}")
+                worst_share = max(worst_share, share)
+                worst_steps = max(worst_steps, steps)
+                max_err = max(max_err,
+                              (g.float() - want.float()).abs().max().item())
+
+        xs = [relu_input(1, h, w, cin) for h, w, cin, *_ in shapes]
+        unfused = [_Block(cin, cout, n, s, mcfg.rpn.bn_eps, True,
+                          dtype=bf).cuda().eval()
+                   for _, _, cin, cout, n, s in shapes]
+        nchw = xs[0].permute(0, 3, 1, 2).contiguous()
+
+        def twin_chain():
+            x = xs[0]
+            for i, (*_, n, s) in enumerate(shapes):
+                x = fused_sep_block_plain(x, layers[i], n, s)
+            return x
+
+        def cudnn_chain():
+            x = nchw
+            for blk in unfused:
+                x = blk(x)
+            return x
+
+        plain_ms = cuda_ms(twin_chain, 20)
+        cudnn_ms = cuda_ms(cudnn_chain, 200)
+        _, cudnn_dev_ms, cudnn_rows = device_busy(cudnn_chain, 50)
+        # the chain kernel in both dtypes, in turns, on the same inputs:
+        # warm events per call, and the device time per launch from the
+        # kernel's own profiler rows (a trace may miss a launch)
+        times = {}
+        for b in (1, 2):
+            x = relu_input(b, *shapes[0][:3])
+            for dt in (torch.float32, bf, bf, torch.float32):
+                xd = x.to(dt)
+                ms = cuda_ms(lambda: rpn_cuda.fused_sep_chain(xd, packed),
+                             200)
+                _, _, rows = device_busy(
+                    lambda: rpn_cuda.fused_sep_chain(xd, packed), 50,
+                    "rpn_sep_chain_kernel")
+                mine = [(c, t) for name, c, t in rows
+                        if "rpn_sep_chain_kernel" in name]
+                per_launch = sum(t for _, t in mine) / sum(c for c, _ in mine)
+                times.setdefault((b, str(dt)[6:]), []).append(
+                    (ms, per_launch, sum(c for c, _ in mine)))
+    work = [_block_work(1, *sh, act_bytes=2) for sh in shapes]
+    flops = sum(f for f, _ in work)
+    n_bytes = sum(nb for _, nb in work)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    print(f"rpn_sep_block bf16: every element within one bf16 step of the "
+          f"twin or within {BLOCK_RTOL} of its max; at most {worst_share:.2e}"
+          f" of a tensor's elements differ, at most {worst_steps} steps (near"
+          f" 0), max |diff| {max_err:.3e}")
+    for (b, dt), runs in sorted(times.items()):
+        print(f"rpn_sep_block three blocks B={b} {dt} (one launch, two runs "
+              f"in turns): "
+              + "; ".join(f"{ms * 1e3:.2f} us per call, {dev * 1e3:.2f} us "
+                          f"device per launch ({n:g} traced per call)"
+                          for ms, dev, n in runs))
+    print(f"rpn_sep_block bf16 B=1: plain twin {plain_ms * 1e3:.2f} us; "
+          f"unfused bf16 cuDNN blocks {cudnn_ms * 1e3:.2f} us, "
+          f"{cudnn_dev_ms * 1e3:.2f} us device "
+          f"({sum(c for _, c, _ in cudnn_rows):g} launches); bound "
+          f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops / 1e6:.1f} M f32 "
+          f"ops, {n_bytes / 1e6:.2f} MB with bf16 activations); phase 3's "
+          f"f32 kernel {f32['ms'] * 1e3:.2f} us per call, "
+          f"{f32['device_ms'] * 1e3:.2f} us device")
+    best = {k: min(r, key=lambda t: t[1]) for k, r in times.items()}
+    return {"launches": None, "max_abs_err": max_err,
+            "ms": best[(1, "bfloat16")][0], "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "device_ms": best[(1, "bfloat16")][1],
+            "ms_b2": best[(2, "bfloat16")][0],
+            "device_ms_b2": best[(2, "bfloat16")][1],
+            "f32_same_call": {f"B{b}": {"ms": best[(b, "float32")][0],
+                                        "device_ms": best[(b, "float32")][1]}
+                              for b in (1, 2)},
+            "unfused_cudnn_ms": cudnn_ms,
+            "unfused_cudnn_device_ms": cudnn_dev_ms,
+            "max_share_differing": worst_share}
+
+
+def run_bf16_paths(state_cpu, batches, on_card, f32_times):
+    """15.2: the dense-cell and the fast path in bfloat16 on phase 4's
+    clouds, against the port on the CPU; returns {path: launches}."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector, Predictions
+
+    tp = _parity()
+    eye = {b: torch.eye(4).expand(b, 4, 4).contiguous().cuda() for b in (1, 2)}
+    result = {}
+    for name, cfg in (("dense", Config.default()), ("fast", _fast_config())):
+        thr = cfg.eval_input.anchor_area_threshold
+        pp = cfg.model.postprocess
+        cfg_bf = cfg.override("runtime.compute_dtype", "bfloat16")
+        det = PillarsDetector(cfg_bf)
+        det_cpu = PillarsDetector(cfg_bf, device="cpu")
+        det32_cpu = PillarsDetector(cfg, device="cpu")
+        state = det.state_to_device(state_cpu)
+        fn, fn_cpu = det.make_inference_fn(), det_cpu.make_inference_fn()
+        _reset_counts()
+        outs = [fn(state, p, n, eye[p.shape[0]], eye[p.shape[0]])
+                for p, n in on_card]
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        want_rpn = len(on_card) if name == "fast" else 0
+        print(f"{name} path bf16: {len(on_card)} batches, launches "
+              f"{launches}")
+        if (launches["nms_keep_mask"] != len(on_card)
+                or launches["rpn_sep_block"] != want_rpn
+                or launches["rpn_sep_block_bf16"] != want_rpn):
+            raise AssertionError(f"{name} bf16: launches {launches}")
+        _check_outputs(cfg, on_card, outs)
+
+        def heads(d, st, p, n):
+            if name == "dense":
+                return d._forward_dense(st, p, n, thr)[0]
+            return d._forward_fast(st, d.voxelize_batch(p, n))
+
+        worst, exceptions = {}, 0
+        with torch.inference_mode():
+            for (pts, num), (p, n), got in zip(batches, on_card, outs):
+                b = pts.shape[0]
+                pts_t, num_t = torch.from_numpy(pts), torch.from_numpy(num)
+                card = {k: v.cpu() for k, v in heads(det, state, p, n).items()}
+                if any(v.dtype != torch.bfloat16 for v in card.values()):
+                    raise AssertionError(f"{name} bf16: heads not bfloat16")
+                ratios = tp.heads_criterion(
+                    card, heads(det_cpu, state_cpu, pts_t, num_t),
+                    heads(det32_cpu, state_cpu, pts_t, num_t),
+                    f"{name} bf16 B={b} card vs CPU",
+                    tp.BF16_RMS_FACTOR_FULL)
+                for k, (ratio, err) in ratios.items():
+                    r0, e0 = worst.get(k, (0.0, 0.0))
+                    worst[k] = (max(r0, ratio), max(e0, err))
+                eye_cpu = torch.eye(4).expand(b, 4, 4)
+                exceptions += tp.compare_predictions_bf16(
+                    fn_cpu(state_cpu, pts_t, num_t, eye_cpu, eye_cpu),
+                    Predictions(*(t.cpu() for t in got)),
+                    pp.nms_score_threshold, pp.nms_iou_threshold,
+                    f"{name} bf16 B={b} card vs CPU")
+        print(f"{name} path bf16, card vs CPU: heads rms ratio / max |diff| "
+              + ", ".join(f"{k} {r:.4f} / {e:.3e}"
+                          for k, (r, e) in sorted(worst.items()))
+              + f" (rms within {tp.BF16_RMS_FACTOR_FULL} of the CPU's "
+              f"bf16-f32 gap); predictions matched as sets, "
+              f"{exceptions} borderline exceptions")
+        times = _warm_ms(fn, state, *on_card[0], eye[1], f"{name} path bf16")
+        ref = f32_times[name]
+        print(f"{name} path B=1, bf16 against f32: {times['ms']:.3f} against "
+              f"{ref['ms']:.3f} ms/cloud (events), {times['device_ms']:.4f} "
+              f"against {ref['device_ms']:.4f} ms device, "
+              f"{times['launches']:g} against {ref['launches']:g} launches, "
+              f"idle share {times['idle_share']:.3f} against "
+              f"{ref['idle_share']:.3f}")
+        print(f"{name} bf16: " + json.dumps({"bf16": times, "f32": ref}))
+        result[name] = launches
+    return result
+
+
+def run_bf16_evaluate(state_cpu, smi, root):
+    """15.3: the Evaluator in bfloat16 against the bfloat16 golden."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.trainer import Evaluator
+
+    golden = json.loads(BF16_GOLDEN.read_text())
+    f32_golden = json.loads(GOLDEN.read_text())
+    cfg = _with_split(Config.default(), root).override(
+        "runtime.compute_dtype", "bfloat16")
+    det = PillarsDetector(cfg)
+    ev = Evaluator(cfg, det, measure_time=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    text, bev, d3, aos, score = ev.evaluate(det.state_to_device(state_cpu))
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    print(text)
+    n_batches = -(-len(ev.dataset) // cfg.eval_input.batch_size)
+    if (launches["nms_keep_mask"] != n_batches + 1
+            or launches["rpn_sep_block"] != 0):
+        raise AssertionError(f"evaluate bf16: launches {launches} for "
+                             f"{n_batches} batches and one warm-up")
+    worst = max(np.abs(np.asarray(got) - np.asarray(golden[key])).max()
+                for got, key in ((bev, "mAP_bev"), (d3, "mAP_3d"),
+                                 (aos, "mAP_aos")))
+    print(f"evaluate bf16, {len(ev.dataset)} hard val clouds: aggregate "
+          f"{score:.4f}, bf16 golden {golden['aggregate']:.4f} (pillars_tpu "
+          f"on the CPU in bf16), difference "
+          f"{score - golden['aggregate']:+.4f} (tol {AP_TOL}), largest AP "
+          f"cell difference {worst:.4f}; the f32 golden reads "
+          f"{f32_golden['aggregate']:.4f}; {seconds:.2f} s with AP, stages "
+          f"ms/cloud "
+          f"{json.dumps({k: round(v, 4) for k, v in sorted(ev.last_stage_ms.items())})}"
+          f"; NMS launches {launches['nms_keep_mask']} [{smi}]")
+    if golden["val_checksum"] != f32_golden["val_checksum"]:
+        raise AssertionError("the bf16 golden was read on another split")
+    if not abs(score - golden["aggregate"]) <= AP_TOL:
+        raise AssertionError(f"bf16 aggregate {score} vs golden "
+                             f"{golden['aggregate']}: more than {AP_TOL}")
+    return launches
+
+
+def run_bf16_second(root):
+    """15.4: SECOND sparse in bfloat16 from its checkpoint, four B=1 val
+    clouds of phase 12, card against CPU; returns the launches."""
+    from pillars_torch.config import Config
+    from pillars_torch.data.pipeline import collate
+    from pillars_torch.models.detector import PillarsDetector, Predictions
+    from pillars_torch.train.trainer import Evaluator
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    tp = _parity()
+    cfg = _with_split(Config.from_yaml(str(CONFIGS
+                                           / "second_sparse_d435i.yaml")),
+                      root)
+    pp = cfg.model.postprocess
+    cfg_bf = cfg.override("runtime.compute_dtype", "bfloat16")
+    det = PillarsDetector(cfg_bf)
+    det_cpu = PillarsDetector(cfg_bf, device="cpu")
+    det32_cpu = PillarsDetector(cfg, device="cpu")
+    state_cpu = from_jax_variables(*load_params(str(SECOND_WEIGHTS)), cfg)
+    state = det.state_to_device(state_cpu)
+    fn, fn_cpu = det.make_inference_fn(), det_cpu.make_inference_fn()
+    dataset = Evaluator(cfg_bf, det_cpu).dataset
+    batches = [collate([dataset[i]]) for i in range(4)]
+    on_card = [_on_card(b) for b in batches]
+    launches = _counted(fn, state, on_card)
+    worst, exceptions = {}, 0
+    with torch.inference_mode():
+        for b, bc in zip(batches, on_card):
+            pts, num = (torch.from_numpy(b["points"]),
+                        torch.from_numpy(b["num_points"]))
+            card = det.apply(state, det.voxelize_batch(bc["points"],
+                                                       bc["num_points"]))
+            card = {k: v.cpu() for k, v in card.items()}
+            ratios = tp.heads_criterion(
+                card, det_cpu.apply(state_cpu, det_cpu.voxelize_batch(pts,
+                                                                      num)),
+                det32_cpu.apply(state_cpu, det32_cpu.voxelize_batch(pts, num)),
+                "SECOND sparse bf16 card vs CPU", tp.BF16_RMS_FACTOR_FULL)
+            for k, (ratio, err) in ratios.items():
+                r0, e0 = worst.get(k, (0.0, 0.0))
+                worst[k] = (max(r0, ratio), max(e0, err))
+            got = fn(state, bc["points"], bc["num_points"], bc["rect"],
+                     bc["trv2c"])
+            exceptions += tp.compare_predictions_bf16(
+                fn_cpu(state_cpu, pts, num, torch.from_numpy(b["rect"]),
+                       torch.from_numpy(b["trv2c"])),
+                Predictions(*(t.cpu() for t in got)),
+                pp.nms_score_threshold, pp.nms_iou_threshold,
+                "SECOND sparse bf16 card vs CPU")
+    print(f"SECOND sparse bf16, 4 val clouds at B=1, card vs CPU: launches "
+          f"{launches}; heads rms ratio / max |diff| "
+          + ", ".join(f"{k} {r:.4f} / {e:.3e}"
+                      for k, (r, e) in sorted(worst.items()))
+          + f"; predictions matched as sets, {exceptions} borderline "
+          f"exceptions")
+    return launches
+
+
 def main(argv=None):
     import argparse
 
@@ -1516,8 +1879,8 @@ def main(argv=None):
     nms = check_nms_kernel(cfg.model.postprocess.nms_iou_threshold)
     rpn = check_rpn_kernel(cfg.model)
     state_cpu = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
-    dense, batches, on_card, outs = run_main_path(state_cpu)
-    fast = run_fast_path(state_cpu, batches, on_card, outs)
+    dense, batches, on_card, outs, dense_times = run_main_path(state_cpu)
+    fast, fast_times = run_fast_path(state_cpu, batches, on_card, outs)
     check_big_grid_voxelizer(smi)
     check_bucketed(state_cpu, smi)
     serving = run_serving(state_cpu, smi)
@@ -1529,12 +1892,24 @@ def main(argv=None):
         train_eval = run_trainer(smi, root, os.path.join(root, "runs"),
                                  args.train_clouds)
         second = run_second_sparse(smi, root)
+        t15 = time.perf_counter()
+        rpn_bf16 = check_rpn_kernel_bf16(cfg.model, rpn)
+        bf16 = run_bf16_paths(state_cpu, batches, on_card,
+                              {"dense": dense_times, "fast": fast_times})
+        bf16["evaluate"] = run_bf16_evaluate(state_cpu, smi, root)
+        bf16["second_sparse"] = run_bf16_second(root)
+        print(f"phase 15 (bf16): {time.perf_counter() - t15:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     second_dense = run_second_dense(smi)
     kitti = run_kitti_second(smi)
     nms["launches"] = dense["nms_keep_mask"]
     rpn["launches"] = fast["rpn_sep_block"]
+    # kernel 2 in both dtypes: the bfloat16 variant's numbers, its launches
+    # read around the bfloat16 fast path
+    rpn["dtypes"] = ["float32", "bfloat16"]
+    rpn_bf16["launches"] = bf16["fast"]["rpn_sep_block_bf16"]
+    rpn["bfloat16"] = rpn_bf16
     # the same counts on the serving and evaluation paths, each read around
     # its own run
     # the SECOND paths, each read around its own run
@@ -1548,12 +1923,14 @@ def main(argv=None):
         **{k: v["nms_keep_mask"] for k, v in serving.items()},
         "train_eval": sum(train_eval),
         **{k: sum(c["nms_keep_mask"] for c in v)
-           for k, v in second_paths.items()}}
+           for k, v in second_paths.items()},
+        **{f"{k}_bf16": v["nms_keep_mask"] for k, v in bf16.items()}}
     rpn["launches_by_path"] = {
         "fast": fast["rpn_sep_block"],
         **{k: v["rpn_sep_block"] for k, v in serving.items()},
         **{k: sum(c["rpn_sep_block"] for c in v)
-           for k, v in second_paths.items()}}
+           for k, v in second_paths.items()},
+        **{f"{k}_bf16": v["rpn_sep_block_bf16"] for k, v in bf16.items()}}
     print(json.dumps({"kernels": [nms, rpn]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

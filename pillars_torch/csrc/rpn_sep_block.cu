@@ -4,8 +4,14 @@
 // (pallas_call in fused_sep_block) and computes the same function per block:
 // 1 + num_layers separable layers, each a SAME 3x3 depthwise conv (stride 2
 // on the first layer only: the even centres), a 1x1 pointwise product with
-// eval-mode BN folded into its weights and bias, then ReLU. NHWC float32
-// throughout; full f32 FMAs on the CUDA cores. Not TF32: one TF32 pass
+// eval-mode BN folded into its weights and bias, then ReLU. NHWC, with full
+// f32 FMAs on the CUDA cores. Two entry points: rpn_sep_chain reads and
+// writes float32; rpn_sep_chain_bf16 reads each block's input and writes its
+// output as bfloat16, as the Pallas kernel does under
+// runtime.compute_dtype=bfloat16, while every layer inside a block still
+// computes in f32 from the f32 weights and keeps its activations in f32
+// (two f32 scratch buffers): a block rounds once, at its output, and the
+// next block reads that bfloat16 tensor. Not TF32: one TF32 pass
 // misses the 1e-5 tolerance against the plain twin. A three-pass split
 // product through mma.sync was weighed and not built: on tiles this small
 // (20 pixels padded to 32 rows, three passes) it would by estimate save a
@@ -78,8 +84,20 @@
 // - Ragged shapes: channels are any multiples of 4 (weight columns past
 //   C_out and pixels past the tile or image are computed on whatever the
 //   buffers hold and never stored); C_in needs no padding.
+// - bfloat16 input and output (the template flag kBf16): cp.async cannot
+//   convert, so a block's first layer loads its bfloat16 halo with 8-byte
+//   loads (4 channels, L2 only, as the copies) and stores it to shared
+//   memory as f32; the halo, the depthwise and the product are the f32
+//   path's, and the shared-memory budget is the same. The last layer of a
+//   block rounds its f32 sums to bfloat16 (round to nearest even) in the
+//   store; the layers before it ping-pong between two f32 scratch buffers.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 15),
+//   the bfloat16 chain takes about 94 us of device time per launch at B = 1
+//   against the f32 kernel's 89 in the same run: the same FMAs, minus the
+//   cp.async overlap of the first layers' halos.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -114,8 +132,8 @@ __host__ __device__ constexpr int cfg_tp(int cfg) {
 }
 
 struct BlockDesc {
-  const float* x;  // [b, h, w, cin]
-  float* out;      // [b, oh, ow, cout]
+  const void* x;   // [b, h, w, cin], float or bfloat16
+  void* out;       // [b, oh, ow, cout], as x
   const float* w;  // packed per layer: wd [3, 3, ci], wp [ci, cout], bias
   int h, w_in, cin, cout, num_layers, stride, oh, ow;
   int cfg, th, tw, tiles_y, tiles_x, ctiles;
@@ -124,7 +142,8 @@ struct BlockDesc {
 
 struct Params {
   BlockDesc blk[kMaxBlocks];
-  float* scratch;  // as large as the largest output
+  float* scratch;   // as large as the largest output, in floats
+  float* scratch2;  // the same, bfloat16 chains only
   int nblocks, b;
 };
 
@@ -271,6 +290,48 @@ __device__ void stage_halo(float* halo, const float* src, int ih, int iw,
   }
 }
 
+// The bfloat16 counterpart of stage_halo: the same pixels and lanes, each
+// lane 4 channels loaded as 8 bytes from L2 and stored as f32.
+__device__ __forceinline__ float4 bf16x4_to_float4(const uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ void stage_halo_bf16(float* halo, const __nv_bfloat16* src, int ih,
+                                int iw, int k, int iy0, int ix0, int hr,
+                                int hc, const HaloLanes hl) {
+  int r = hl.r0, cx = hl.cx0;
+  while (r < hr) {
+    const int iy = iy0 + r, ix = ix0 + cx;
+    const bool in = iy >= 0 && iy < ih && ix >= 0 && ix < iw;
+    float* dst = halo + ((size_t)r * hc + cx) * k + hl.c0;
+    const __nv_bfloat16* from = src + ((long long)iy * iw + ix) * k + hl.c0;
+    for (int c = 0; hl.c0 + c < k; c += hl.step)
+      *reinterpret_cast<float4*>(dst + c) =
+          in ? bf16x4_to_float4(
+                   __ldcg(reinterpret_cast<const uint2*>(from + c)))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+    r += hl.dr;
+    cx += hl.dc;
+    if (cx >= hc) {
+      cx -= hc;
+      ++r;
+    }
+  }
+}
+
+// 4 f32 -> 4 bfloat16 (round to nearest even), one 8-byte store.
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst,
+                                             const float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
 // 3x3 depthwise of the tile from the halo: an item is kSeg outputs of one
 // row x 4 channels, taps in (dy, dx) order. dw [TP, kpad]. ``first`` is
 // this thread's first item (channel, segment, row), split once per layer.
@@ -347,8 +408,9 @@ __device__ inline TileIdx split_tile(const BlockDesc& d, int t) {
 
 // All layers of one block. Shared memory: two weight buffers | halo (later
 // the partial sums) | depthwise output.
+template <bool kBf16>
 __device__ void run_block(const BlockDesc& d, int b, float* scratch,
-                          bool last_block, float* smem,
+                          float* scratch2, bool last_block, float* smem,
                           cg::grid_group& grid) {
   const int cl_shift = cfg_cl_shift(d.cfg), pw_shift = cfg_pw_shift(d.cfg);
   const int TC = 4 << cl_shift, CL = 1 << cl_shift, PL = 32 >> cl_shift;
@@ -389,10 +451,21 @@ __device__ void run_block(const BlockDesc& d, int b, float* scratch,
     const int s = first ? d.stride : 1;
     const int ih = first ? d.h : d.oh, iw = first ? d.w_in : d.ow;
     const float* wl = d.w + (first ? 0 : size0 + (l - 1) * size_n);
-    // the last layer writes ``out``; the ones before alternate with scratch
-    float* dst = (d.num_layers - l) % 2 == 0 ? d.out : scratch;
-    const float* src =
-        first ? d.x : ((d.num_layers - l + 1) % 2 == 0 ? d.out : scratch);
+    const bool last = l == d.num_layers;
+    // f32: the last layer writes ``out``, the ones before alternate with
+    // scratch. bfloat16: the last writes ``out`` rounded; the ones before
+    // alternate between the two f32 scratch buffers (dst unused when last)
+    float* dst;
+    const float* src;
+    if (kBf16) {
+      dst = l % 2 ? scratch2 : scratch;
+      src = first ? nullptr : ((l - 1) % 2 ? scratch2 : scratch);
+    } else {
+      float* out = static_cast<float*>(d.out);
+      dst = (d.num_layers - l) % 2 == 0 ? out : scratch;
+      src = first ? static_cast<const float*>(d.x)
+                  : ((d.num_layers - l + 1) % 2 == 0 ? out : scratch);
+    }
     const int hr = halo_rows(d.th, s), hc = halo_cols(d.tw, s);
     float* wb = smem + (l & 1) * d.w_floats;
     const float* swd = wb;
@@ -416,8 +489,14 @@ __device__ void run_block(const BlockDesc& d, int b, float* scratch,
         stage_weights(wb, wl, k, d.cout, c0, cl_shift);
         staged_ct = ct;
       }
-      stage_halo(halo, src + (size_t)bi * ih * iw * k, ih, iw, k, oy0 * s - 1,
-                 ox0 * s - 1, hr, hc, hl);
+      if (kBf16 && first)
+        stage_halo_bf16(halo,
+                        static_cast<const __nv_bfloat16*>(d.x) +
+                            (size_t)bi * ih * iw * k,
+                        ih, iw, k, oy0 * s - 1, ox0 * s - 1, hr, hc, hl);
+      else
+        stage_halo(halo, src + (size_t)bi * ih * iw * k, ih, iw, k,
+                   oy0 * s - 1, ox0 * s - 1, hr, hc, hl);
       PHASE(1);
       cp_async_commit_wait();
       __syncthreads();
@@ -497,20 +576,24 @@ __device__ void run_block(const BlockDesc& d, int b, float* scratch,
           sum.y = fmaxf(sum.y + bv.y, 0.f);
           sum.z = fmaxf(sum.z + bv.z, 0.f);
           sum.w = fmaxf(sum.w + bv.w, 0.f);
-          *reinterpret_cast<float4*>(
-              dst + ((size_t)bi * npix + (size_t)oy * d.ow + ox) * d.cout +
-              c0 + c) = sum;
+          const size_t at =
+              ((size_t)bi * npix + (size_t)oy * d.ow + ox) * d.cout + c0 + c;
+          if (kBf16 && last)
+            store_bf16x4(static_cast<__nv_bfloat16*>(d.out) + at, sum);
+          else
+            *reinterpret_cast<float4*>(dst + at) = sum;
         }
       }
       __syncthreads();  // the buffers are refilled by the next tile
     }
     PHASE(5);
-    if (!(last_block && l == d.num_layers)) grid.sync();
+    if (!(last_block && last)) grid.sync();
     PHASE(6);  // through the barrier
     PHASE_NEXT_LAYER();
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 rpn_sep_chain_kernel(const __grid_constant__ Params prm) {
   extern __shared__ __align__(16) float smem[];
@@ -519,7 +602,7 @@ rpn_sep_chain_kernel(const __grid_constant__ Params prm) {
   for (int i = 0; i < prm.nblocks; ++i) {
     const BlockDesc& d = prm.blk[i];
     const bool last = i == prm.nblocks - 1;
-    run_block(d, prm.b, prm.scratch, last, smem, grid);
+    run_block<kBf16>(d, prm.b, prm.scratch, prm.scratch2, last, smem, grid);
   }
 }
 
@@ -566,21 +649,11 @@ long long block_tiles(const BlockDesc& d, int b) {
   return (long long)b * d.tiles_y * d.tiles_x * d.ctiles;
 }
 
-}  // namespace
-
-// A chain of ``nblocks`` (1..4) blocks in one launch: x [b, h, w, cin]; block
-// i maps [.., c_{i-1}] to outs[i] [b, oh_i, ow_i, couts[i]] with 1 +
-// num_layers[i] layers from weights[i] (per layer wd [3, 3, ci], wp [ci,
-// cout], bias [cout]; layer 0 has ci = the block's input channels, the
-// others ci = cout) at strides[i] (1 or 2; 2 needs even input sizes).
-// scratch holds as many floats as the largest output. All f32, contiguous,
-// 16-byte aligned, on the device; channels are multiples of 4. Launches on
-// ``stream`` and returns the launch's CUDA error code.
-extern "C" int rpn_sep_chain(const void* x, int b, int h, int w, int cin,
-                             int nblocks, const int* couts,
-                             const int* num_layers, const int* strides,
-                             void* const* outs, const void* const* weights,
-                             void* scratch, void* stream) {
+template <bool kBf16>
+int launch_chain(const void* x, int b, int h, int w, int cin, int nblocks,
+                 const int* couts, const int* num_layers, const int* strides,
+                 void* const* outs, const void* const* weights, void* scratch,
+                 void* scratch2, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin % 4 != 0 ||
       nblocks <= 0 || nblocks > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
@@ -595,6 +668,7 @@ extern "C" int rpn_sep_chain(const void* x, int b, int h, int w, int cin,
 
   Params prm{};
   prm.scratch = static_cast<float*>(scratch);
+  prm.scratch2 = static_cast<float*>(scratch2);
   prm.nblocks = nblocks;
   prm.b = b;
   size_t smem = 0;
@@ -606,8 +680,8 @@ extern "C" int rpn_sep_chain(const void* x, int b, int h, int w, int cin,
         (strides[i] != 1 && strides[i] != 2) ||
         (strides[i] == 2 && (h % 2 != 0 || w % 2 != 0)))
       return (int)cudaErrorInvalidValue;
-    d.x = static_cast<const float*>(in);
-    d.out = static_cast<float*>(outs[i]);
+    d.x = in;
+    d.out = outs[i];
     d.w = static_cast<const float*>(weights[i]);
     d.h = h;
     d.w_in = w;
@@ -640,22 +714,55 @@ extern "C" int rpn_sep_chain(const void* x, int b, int h, int w, int cin,
     cin = d.cout;
   }
 
-  err = cudaFuncSetAttribute(rpn_sep_chain_kernel,
+  const auto kernel = rpn_sep_chain_kernel<kBf16>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, rpn_sep_chain_kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   const long long capacity = (long long)sms * per_sm;
   const int grid = (int)(max_tiles < capacity ? max_tiles : capacity);
   void* args[] = {&prm};
-  err = cudaLaunchCooperativeKernel((const void*)rpn_sep_chain_kernel,
-                                    dim3(grid), dim3(kThreads), args, smem,
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                    dim3(kThreads), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// A chain of ``nblocks`` (1..4) blocks in one launch: x [b, h, w, cin]; block
+// i maps [.., c_{i-1}] to outs[i] [b, oh_i, ow_i, couts[i]] with 1 +
+// num_layers[i] layers from weights[i] (per layer wd [3, 3, ci], wp [ci,
+// cout], bias [cout]; layer 0 has ci = the block's input channels, the
+// others ci = cout) at strides[i] (1 or 2; 2 needs even input sizes).
+// scratch holds as many floats as the largest output. All f32, contiguous,
+// 16-byte aligned, on the device; channels are multiples of 4. Launches on
+// ``stream`` and returns the launch's CUDA error code.
+extern "C" int rpn_sep_chain(const void* x, int b, int h, int w, int cin,
+                             int nblocks, const int* couts,
+                             const int* num_layers, const int* strides,
+                             void* const* outs, const void* const* weights,
+                             void* scratch, void* stream) {
+  return launch_chain<false>(x, b, h, w, cin, nblocks, couts, num_layers,
+                             strides, outs, weights, scratch, nullptr, stream);
+}
+
+// rpn_sep_chain with x and every outs[i] bfloat16 (the weights f32): each
+// block computes in f32 and rounds its output once. scratch and scratch2 each
+// hold as many floats as the largest output.
+extern "C" int rpn_sep_chain_bf16(const void* x, int b, int h, int w, int cin,
+                                  int nblocks, const int* couts,
+                                  const int* num_layers, const int* strides,
+                                  void* const* outs,
+                                  const void* const* weights, void* scratch,
+                                  void* scratch2, void* stream) {
+  return launch_chain<true>(x, b, h, w, cin, nblocks, couts, num_layers,
+                            strides, outs, weights, scratch, scratch2, stream);
 }
 
 #ifdef RPN_PHASE_CLOCKS

@@ -19,6 +19,13 @@ convolutions default to TF32 (about 3 decimal digits). Every stage of these
 paths therefore turns TF32 off for convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``, process-wide flags).
+
+``runtime.compute_dtype=bfloat16`` (inference and evaluation): every
+network computes in bfloat16 at the JAX package's rounding points
+(models/layers.py), the fused blocks read and write bfloat16 and compute in
+float32 (ops/rpn_cuda.py), and the heads come out in bfloat16;
+``postprocess`` casts them to float32, so predictions stay float32.
+Training in bfloat16 is a later slice: ``apply(train=True)`` raises.
 """
 
 from __future__ import annotations
@@ -134,24 +141,27 @@ class Network(nn.Module):
     :class:`VoxelizedSample`; then the canvas scatter, or SECOND's sparse or
     dense middle (``middle.enabled``). The networks share parameter names,
     so one checkpoint loads into either. ``dense_cell`` defaults to
-    :func:`uses_dense_cell`."""
+    :func:`uses_dense_cell`; ``dtype`` is the compute dtype of every part
+    (None: float32)."""
 
-    def __init__(self, mcfg: ModelConfig, dense_cell: Optional[bool] = None):
+    def __init__(self, mcfg: ModelConfig, dense_cell: Optional[bool] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mcfg = mcfg
         pcfg = mcfg.pfn
         self.dense_cell = (uses_dense_cell(mcfg) if dense_cell is None
                            else dense_cell)
         if self.dense_cell:
-            self.pfn = DenseCellPFN(mcfg)
+            self.pfn = DenseCellPFN(mcfg, dtype)
             self.cell_voxelize = make_cell_voxelizer(mcfg.voxel)
         elif not pcfg.simple_mean:
-            self.pfn = (PointwisePFN(mcfg) if pcfg.pointwise
-                        else PillarFeatureNet(mcfg))
+            self.pfn = (PointwisePFN if pcfg.pointwise
+                        else PillarFeatureNet)(mcfg, dtype)
         if mcfg.middle.enabled and not self.dense_cell:
             self.middle = (SparseMiddleExtractor if mcfg.middle.sparse
-                           else MiddleExtractor3D)(mcfg, voxel_channels(mcfg))
-        self.rpn = RPN(mcfg, canvas_channels(mcfg))
+                           else MiddleExtractor3D)(mcfg, voxel_channels(mcfg),
+                                                   dtype)
+        self.rpn = RPN(mcfg, canvas_channels(mcfg), dtype)
 
     def voxel_features(self, v) -> torch.Tensor:
         """[B, P, C] per-voxel features of a voxelized batch."""
@@ -214,7 +224,8 @@ class Network(nn.Module):
             flat(cv.points), flat(cv.cell), flat(cell_global), flat(cv.kept),
             flat(cv.count), flat(cv.mean), b * n_cells)
         # cell id = (z*ny + y)*nx + x, so the canvas is a reshape; the
-        # z-layer SUM keeps the reference's scatter-ADD quirk
+        # z-layer SUM keeps the reference's scatter-ADD quirk (in the
+        # features' dtype, as the JAX package sums)
         canvas = cell_feats.reshape(b, nz, ny, nx, -1).sum(dim=1)
         dense_grid = (num_points > 0).reshape(b, nz, ny, nx).to(
             torch.float32).sum(dim=1)
@@ -233,25 +244,34 @@ def _sub_state(state: Dict[str, torch.Tensor], module: nn.Module,
     return {k: state[prefix + k] for k in module.state_dict()}
 
 
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 class PillarsDetector:
     """Binds the config, the anchor tables and the network on one device;
-    the state (weights) is passed to each call, as in the JAX package."""
+    the state (weights) is passed to each call, as in the JAX package.
+    ``dtype``: the networks' compute dtype from ``runtime.compute_dtype``
+    (None for float32)."""
 
     def __init__(self, config: Config, device=None):
         self.config = config
         self.mcfg = config.model
+        if config.runtime.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"runtime.compute_dtype {config.runtime.compute_dtype!r}: "
+                f"one of {sorted(COMPUTE_DTYPES)}")
+        self.dtype = COMPUTE_DTYPES[config.runtime.compute_dtype]
         self.device = resolve_device(device)
-        if config.runtime.compute_dtype != "float32":
-            raise NotImplementedError("only float32 compute is ported")
         self.dense_cell = uses_dense_cell(self.mcfg)
         # the network of apply and training, and of inference off the dense
         # cell; the dense-cell network reads the same state
-        self.network = Network(self.mcfg, dense_cell=False).to(
-            self.device).eval()
+        self.network = Network(self.mcfg, dense_cell=False,
+                               dtype=self.dtype).to(self.device).eval()
         self.voxelize = (make_point_voxelizer if self.mcfg.pfn.pointwise
                          else make_voxelizer)(self.mcfg.voxel)
-        self.dense_network = (Network(self.mcfg, dense_cell=True).to(
-            self.device).eval() if self.dense_cell else None)
+        self.dense_network = (Network(
+            self.mcfg, dense_cell=True, dtype=self.dtype).to(
+                self.device).eval() if self.dense_cell else None)
         rcfg = self.mcfg.rpn
         # the fused blocks: the CUDA kernel on the card, its twin on the CPU
         self.fast = (rcfg.use_pallas_blocks and rcfg.use_separable_conv
@@ -259,7 +279,8 @@ class PillarsDetector:
                      and not self.mcfg.pfn.simple_mean
                      and not self.mcfg.middle.enabled)
         if self.fast:
-            self.rpn_tail = RPNTail(self.mcfg).to(self.device).eval()
+            self.rpn_tail = RPNTail(self.mcfg, self.dtype).to(
+                self.device).eval()
             # the blocks' folded, packed weights, kept while the state
             # passed to the calls stays the same
             self.folded_blocks = FoldedBlocksCache()
@@ -357,6 +378,11 @@ class PillarsDetector:
         net = self.network
         if not train:
             return torch.func.functional_call(net, state, (voxelized,))
+        if self.dtype is not None:
+            raise NotImplementedError(
+                "a train-mode forward with runtime.compute_dtype=bfloat16 "
+                "(train-mode BN and the loss in bfloat16) comes with the bf16 "
+                "training slice of the port")
         collect_batch_stats(net)  # drop what a remat recomputation left
         net.train()
         try:
@@ -386,7 +412,9 @@ class PillarsDetector:
     def _forward_fast(self, state, voxelized: VoxelizedPoints
                       ) -> Dict[str, torch.Tensor]:
         """:meth:`apply` with the three downsample blocks as one fused
-        kernel launch (BN folded once per state), then :class:`RPNTail`."""
+        kernel launch (BN folded once per state; in bfloat16 the blocks
+        read and write bfloat16 and compute in float32), then
+        :class:`RPNTail`."""
         _full_f32()
         canvas = torch.func.functional_call(
             self.network, _front_state(state), (voxelized,),

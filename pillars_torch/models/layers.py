@@ -1,4 +1,14 @@
-"""Shared building blocks (pillars_tpu/models/layers.py)."""
+"""Shared building blocks (pillars_tpu/models/layers.py).
+
+Compute dtype. The JAX package's modules take flax's ``dtype``; the port's
+take ``dtype`` (None: float32 throughout, or ``torch.bfloat16``) and round
+where flax does. A Dense or a conv (:class:`Linear`, :class:`Conv2d`,
+:class:`ConvTranspose2d`, :class:`Conv3d`) casts its input AND its float32
+weight to the dtype, so the op runs and returns in it (flax's
+``promote_dtype``; float32 accumulation, one rounding of the output). A
+BatchNorm computes in float32 from the float32 statistics and rounds its
+output once. The parameters and statistics stay float32.
+"""
 
 from __future__ import annotations
 
@@ -6,25 +16,112 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+
+def promote(dtype: Optional[torch.dtype], *tensors):
+    """flax's ``promote_dtype``: ``tensors`` cast to ``dtype`` (None: as
+    they are)."""
+    if dtype is None:
+        return tensors
+    return tuple(t.to(dtype) for t in tensors)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (no bias) computing in ``dtype`` (flax
+    ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.linear(*promote(self.compute_dtype, x, self.weight))
+
+
+class _PromotedConv:
+    """A torch conv (no bias) computing in ``dtype``."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, bias=False, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return self._conv_forward(*promote(self.compute_dtype, x,
+                                           self.weight), None)
+
+
+class Conv2d(_PromotedConv, nn.Conv2d):
+    """``nn.Conv2d`` (no bias) computing in ``dtype``."""
+
+
+class Conv3d(_PromotedConv, nn.Conv3d):
+    """``nn.Conv3d`` (no bias) computing in ``dtype``."""
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no bias, kernel == stride) computing in
+    ``dtype``."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, bias=False, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        x, w = promote(self.compute_dtype, x, self.weight)
+        return F.conv_transpose2d(x, w, None, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def depthwise_shift_add(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                        padding: int) -> torch.Tensor:
+    """The JAX package's ``depthwise_shift_add``: a 3x3 depthwise conv as 9
+    shifted products summed in (dy, dx) order, each product and each sum in
+    ``x``'s dtype (in bfloat16 each rounds). x [B, C, H, W], weight
+    [C, 1, 3, 3]."""
+    xp = F.pad(x, (padding,) * 4)
+    oh = (xp.shape[2] - 3) // stride + 1
+    ow = (xp.shape[3] - 3) // stride + 1
+    out = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[:, :, dy:dy + (oh - 1) * stride + 1:stride,
+                     dx:dx + (ow - 1) * stride + 1:stride]
+            term = tap * weight[:, 0, dy, dx][None, :, None, None]
+            out = term if out is None else out + term
+    return out
 
 
 class SeparableConv(nn.Module):
     """Depthwise-separable 3x3 conv (keras SeparableConv2D, depth multiplier
-    1, no bias): a grouped 3x3 ``depthwise`` then a 1x1 ``pointwise``, NCHW.
+    1, no bias): a grouped 3x3 ``depthwise`` then a 1x1 ``pointwise``, NCHW,
+    each in ``dtype`` (the depthwise output rounds before the pointwise).
 
     ``padding`` is applied by the depthwise conv (the RPN pads explicitly
     where the JAX package does). The JAX package's ``depthwise_shift_add``
-    lowering is the same math, so this module serves both settings."""
+    lowering (``shift_add``) is the same math in float32, where this module
+    keeps the grouped conv; in bfloat16 it rounds after every tap, and the
+    module follows it there."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
-                 padding: int = 1):
+                 padding: int = 1, dtype: Optional[torch.dtype] = None,
+                 shift_add: bool = False):
         super().__init__()
-        self.depthwise = nn.Conv2d(in_ch, in_ch, 3, stride=stride,
-                                   padding=padding, groups=in_ch, bias=False)
-        self.pointwise = nn.Conv2d(in_ch, features, 1, bias=False)
+        self.depthwise = Conv2d(in_ch, in_ch, 3, stride=stride,
+                                padding=padding, groups=in_ch, dtype=dtype)
+        self.pointwise = Conv2d(in_ch, features, 1, dtype=dtype)
+        self.shift_add = shift_add and dtype is not None
 
     def forward(self, x):
-        return self.pointwise(self.depthwise(x))
+        if self.shift_add:
+            dw = self.depthwise
+            x = depthwise_shift_add(*promote(dw.compute_dtype, x, dw.weight),
+                                    dw.stride[0], dw.padding[0])
+        else:
+            x = self.depthwise(x)
+        return self.pointwise(x)
 
 
 class BatchNorm(nn.Module):
@@ -44,8 +141,10 @@ class BatchNorm(nn.Module):
     counterpart of flax's ``mutable=["batch_stats"]``."""
 
     def __init__(self, features: int, eps: float, momentum: float,
-                 count_batches: bool = True):
+                 count_batches: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.eps = eps
         self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
@@ -67,6 +166,14 @@ class BatchNorm(nn.Module):
                 self.new_stats += (self.num_batches_tracked + 1,)
 
     def forward(self, x):
+        if not self.training and self.compute_dtype is not None:
+            # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale)
+            # + bias in float32, rounded once
+            shape = [1, -1] + [1] * (x.ndim - 2)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = ((x.float() - self.running_mean.reshape(shape))
+                 * mul.reshape(shape) + self.bias.reshape(shape))
+            return y.to(self.compute_dtype)
         if not self.training:
             # one fused library kernel, as nn.BatchNorm2d in eval
             return nn.functional.batch_norm(
@@ -88,11 +195,13 @@ class MaskedBatchNorm(BatchNorm):
     padding pillars of the static [P, N, F] layout stay out of them, padded
     points of real pillars add their zeros, as in the reference's ragged
     layout. Train: mean and max(E[x^2] - E[x]^2, 0) over the selected rows;
-    eval: the running statistics. Keys as :class:`BatchNorm`'s, without a
-    batch count."""
+    eval: the running statistics. Computes in float32 and returns ``dtype``
+    (None: ``x``'s). Keys as :class:`BatchNorm`'s, without a batch count."""
 
-    def __init__(self, features: int, eps: float, momentum: float):
-        super().__init__(features, eps, momentum, count_batches=False)
+    def __init__(self, features: int, eps: float, momentum: float,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(features, eps, momentum, count_batches=False,
+                         dtype=dtype)
 
     def forward(self, x, mask):
         """x [..., F]; mask broadcastable to x[..., 0] (True = real)."""
@@ -106,8 +215,8 @@ class MaskedBatchNorm(BatchNorm):
             self._record(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
-            + self.bias
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(self.compute_dtype or x.dtype)
 
 
 def collect_batch_stats(module: nn.Module) -> Dict[str, torch.Tensor]:

@@ -8,14 +8,14 @@ grids a dense activation cannot hold.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from pillars_torch.config import ModelConfig
-from pillars_torch.models.layers import BatchNorm
+from pillars_torch.models.layers import BatchNorm, Conv3d
 
 STRIDE = (2, 1, 1)
 
@@ -60,18 +60,19 @@ def output_depth(mcfg: ModelConfig) -> int:
 class MiddleExtractor3D(nn.Module):
     """Dense 3D conv stack over the voxel grid; folds z into channels.
     Layers ``conv3d_{i}`` (no bias) and ``bn{i}``, as the JAX package
-    names them."""
+    names them; convs and BNs in ``dtype`` (models/layers.py)."""
 
-    def __init__(self, mcfg: ModelConfig, in_ch: int):
+    def __init__(self, mcfg: ModelConfig, in_ch: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         rcfg = mcfg.rpn
         self.n = len(mcfg.middle.num_filters)
         cin = in_ch
         for i, f in enumerate(mcfg.middle.num_filters):
-            self.add_module(f"conv3d_{i}", nn.Conv3d(cin, f, 3, stride=STRIDE,
-                                                     bias=False))
+            self.add_module(f"conv3d_{i}", Conv3d(cin, f, 3, stride=STRIDE,
+                                                  dtype=dtype))
             self.add_module(f"bn{i}", BatchNorm(f, rcfg.bn_eps,
-                                                rcfg.bn_momentum))
+                                                rcfg.bn_momentum, dtype=dtype))
             cin = f
 
     def forward(self, grid):

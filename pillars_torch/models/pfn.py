@@ -12,15 +12,22 @@ they load the same checkpoint (``PillarFeatureNet``'s only while
 norm, and only this PFN reads it, as in the JAX package). ``PointwisePFN``
 and ``PillarFeatureNet`` train (the batch statistics of the reference's
 dense layout); ``DenseCellPFN`` is the inference front end and eval-only.
+
+``dtype`` (``runtime.compute_dtype``): the Linear computes in it, the BN
+computes in float32 and rounds to it, and the scatter-max, its -inf fill,
+relu(bn(0)) and the count channel are in it (models/layers.py); the pillar
+features come out in it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from pillars_torch.config import ModelConfig
-from pillars_torch.models.layers import BatchNorm, MaskedBatchNorm
+from pillars_torch.models.layers import BatchNorm, Linear, MaskedBatchNorm
 
 
 class _PointwiseMaskedBN(BatchNorm):
@@ -30,10 +37,13 @@ class _PointwiseMaskedBN(BatchNorm):
     Train mode: sums over kept points only (the dense layout's zero rows add
     nothing to them), divided by ``count`` = real pillars x N, the dense
     layout's row count; biased variance E[x^2] - E[x]^2 clipped at 0; the
-    gradient flows through both."""
+    gradient flows through both. bn(x) is computed in float32 and returned
+    in ``dtype`` (None: ``x``'s), bn(0) in float32."""
 
-    def __init__(self, features: int, eps: float, momentum: float):
-        super().__init__(features, eps, momentum, count_batches=False)
+    def __init__(self, features: int, eps: float, momentum: float,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(features, eps, momentum, count_batches=False,
+                         dtype=dtype)
 
     def forward(self, x, kept, count):
         if self.training:
@@ -48,20 +58,21 @@ class _PointwiseMaskedBN(BatchNorm):
         inv = torch.rsqrt(var + self.eps)
         y = (x - mean) * inv * self.weight + self.bias
         zero_vec = (0.0 - mean) * inv * self.weight + self.bias
-        return y, zero_vec
+        return y.to(self.compute_dtype or x.dtype), zero_vec
 
 
 def _encode(pfn, points, mean, cx, cy, kept, count=None):
     """Per point: the 8 features (xyz, offset to the pillar's point mean
     ``mean`` [M, 3], offset to the pillar centre ``cx``/``cy``), zero where
-    not ``kept``, through Linear + BN + ReLU -> (x [M, F], relu(bn(0)) [F]).
-    ``count``: the dense layout's row count, for train-mode statistics."""
+    not ``kept``, through Linear + BN + ReLU -> (x [M, F], relu(bn(0)) [F]),
+    both in the PFN's dtype. ``count``: the dense layout's row count, for
+    train-mode statistics."""
     feats = torch.cat([points, points[:, :3] - mean,
                        (points[:, 0] - cx)[:, None],
                        (points[:, 1] - cy)[:, None]], dim=-1)
     feats = torch.where(kept[:, None], feats, torch.zeros_like(feats))
     x, zero_vec = pfn.bn(pfn.dense(feats), kept, count)
-    return torch.relu(x), torch.relu(zero_vec)
+    return torch.relu(x), torch.relu(zero_vec).to(x.dtype)
 
 
 class PointwisePFN(nn.Module):
@@ -70,15 +81,16 @@ class PointwisePFN(nn.Module):
 
     Returns pillar features [P, F]; rows of padding pillars are zero."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         pcfg = cfg.pfn
         # like the JAX package's, this PFN reads no ``with_distance``
-        self.dense = nn.Linear(cfg.num_point_features + 5, pcfg.num_filters,
-                               bias=False)
+        self.dense = Linear(cfg.num_point_features + 5, pcfg.num_filters,
+                            dtype=dtype)
         self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps,
-                                     pcfg.bn_momentum)
+                                     pcfg.bn_momentum, dtype=dtype)
 
     def forward(self, points, point_pillar, point_kept, point_mean,
                 point_zyx, num_points, pillar_mask):
@@ -118,15 +130,16 @@ class DenseCellPFN(nn.Module):
     Returns (cell_feats [BC, F], num_points [BC] int32) with BC = batch *
     n_cells; rows of empty cells are zero."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         pcfg = cfg.pfn
         # like the JAX package's, this PFN reads no ``with_distance``
-        self.dense = nn.Linear(cfg.num_point_features + 5, pcfg.num_filters,
-                               bias=False)
+        self.dense = Linear(cfg.num_point_features + 5, pcfg.num_filters,
+                            dtype=dtype)
         self.bn = _PointwiseMaskedBN(pcfg.num_filters, pcfg.bn_eps,
-                                     pcfg.bn_momentum)
+                                     pcfg.bn_momentum, dtype=dtype)
 
     def forward(self, points, cell_local, cell_global, kept, count, mean,
                 n_cells_total: int):
@@ -192,14 +205,15 @@ class PillarFeatureNet(nn.Module):
     of padded slots take part, as in the reference; rows of padding pillars
     are zero."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         pcfg = cfg.pfn
         in_features = cfg.num_point_features + 5 + int(pcfg.with_distance)
-        self.dense = nn.Linear(in_features, pcfg.num_filters, bias=False)
+        self.dense = Linear(in_features, pcfg.num_filters, dtype=dtype)
         self.bn = MaskedBatchNorm(pcfg.num_filters, pcfg.bn_eps,
-                                  pcfg.bn_momentum)
+                                  pcfg.bn_momentum, dtype=dtype)
 
     def forward(self, voxels, num_points, coords, pillar_mask):
         """voxels [P, N, D], num_points [P], coords [P, 3] (z, y, x),

@@ -12,7 +12,11 @@ mode (models/layers.py).
 (``torch.utils.checkpoint``); with ``rpn.remat_bf16`` the seven boundary
 tensors it keeps (the canvas, three block and three deconv outputs) are
 stored as bfloat16 and upcast where they are read, so every conv, BN and
-gradient still computes in f32.
+gradient still computes in f32. That applies only to a float32 network.
+
+``dtype`` (``runtime.compute_dtype``): every conv, deconv and head computes
+in it and every BN rounds to it, as flax's ``dtype`` does
+(models/layers.py); the heads come out in it.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pillars_torch.config import ModelConfig
-from pillars_torch.models.layers import BatchNorm, SeparableConv
+from pillars_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d,
+                                         SeparableConv, promote)
 
 
 def _upcast(x):
@@ -54,21 +59,32 @@ def _remat(module: nn.Module, x):
 
 class _SplitHead(nn.Module):
     """1x1 head over a list of branches: sum_i conv1x1(u_i, W[:, slice_i])
-    + bias. ``weight`` is the whole [Co, sum(Ci), 1, 1] kernel."""
+    + bias, summed in branch order in ``dtype`` (in bfloat16 each sum
+    rounds); with ``concat`` one conv over the branches' concat (the JAX
+    package's ``rpn.no_concat_heads`` off). ``weight`` is the whole
+    [Co, sum(Ci), 1, 1] kernel."""
 
-    def __init__(self, in_chs: List[int], features: int):
+    def __init__(self, in_chs: List[int], features: int,
+                 dtype: Optional[torch.dtype] = None, concat: bool = False):
         super().__init__()
-        self.in_chs = list(in_chs)
         self.weight = nn.Parameter(torch.empty(features, sum(in_chs), 1, 1))
         self.bias = nn.Parameter(torch.zeros(features))
         nn.init.kaiming_uniform_(self.weight)
+        self.dtype = dtype
+        self.concat = concat
 
     def forward(self, ups):
+        if self.dtype is None:
+            ups = [_upcast(u) for u in ups]
+        if self.concat:
+            ups = [torch.cat(ups, dim=1)]
+        ups = promote(self.dtype, *ups)
+        weight, bias = promote(self.dtype, self.weight, self.bias)
         acc = None
-        for u, w in zip(ups, self.weight.split(self.in_chs, dim=1)):
-            term = nn.functional.conv2d(_upcast(u), w)
+        for u, w in zip(ups, weight.split([u.shape[1] for u in ups], dim=1)):
+            term = nn.functional.conv2d(u, w)
             acc = term if acc is None else acc + term
-        return acc + self.bias[None, :, None, None]
+        return acc + bias[None, :, None, None]
 
 
 class _Block(nn.Module):
@@ -78,20 +94,26 @@ class _Block(nn.Module):
 
     def __init__(self, in_ch: int, features: int, num_layers: int,
                  stride: int, bn_eps: float, separable: bool,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99,
+                 dtype: Optional[torch.dtype] = None,
+                 shift_add: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.upcast = dtype is None  # rpn.remat_bf16's boundaries
         for i in range(num_layers + 1):
             cin = in_ch if i == 0 else features
             s = stride if i == 0 else 1
-            conv = (SeparableConv(cin, features, s, padding=1) if separable
-                    else nn.Conv2d(cin, features, 3, stride=s, padding=1,
-                                   bias=False))
+            conv = (SeparableConv(cin, features, s, padding=1, dtype=dtype,
+                                  shift_add=shift_add) if separable
+                    else Conv2d(cin, features, 3, stride=s, padding=1,
+                                dtype=dtype))
             self.add_module(f"conv{i}", conv)
-            self.add_module(f"bn{i}", BatchNorm(features, bn_eps, bn_momentum))
+            self.add_module(f"bn{i}", BatchNorm(features, bn_eps, bn_momentum,
+                                                dtype=dtype))
 
     def forward(self, x):
-        x = _upcast(x)
+        if self.upcast:
+            x = _upcast(x)
         for i in range(self.num_layers + 1):
             x = getattr(self, f"conv{i}")(x)
             x = torch.relu(getattr(self, f"bn{i}")(x))
@@ -102,14 +124,17 @@ class _Deconv(nn.Module):
     """Up-branch: ConvTranspose (kernel == stride) + BN + ReLU."""
 
     def __init__(self, in_ch: int, features: int, stride: int,
-                 bn_eps: float, bn_momentum: float = 0.99):
+                 bn_eps: float, bn_momentum: float = 0.99,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.deconv = nn.ConvTranspose2d(in_ch, features, stride,
-                                         stride=stride, bias=False)
-        self.bn = BatchNorm(features, bn_eps, bn_momentum)
+        self.deconv = ConvTranspose2d(in_ch, features, stride, stride=stride,
+                                      dtype=dtype)
+        self.bn = BatchNorm(features, bn_eps, bn_momentum, dtype=dtype)
+        self.upcast = dtype is None  # rpn.remat_bf16's boundaries
 
     def forward(self, x):
-        return torch.relu(self.bn(self.deconv(_upcast(x))))
+        return torch.relu(self.bn(self.deconv(_upcast(x) if self.upcast
+                                              else x)))
 
 
 class RPNTail(nn.Module):
@@ -119,23 +144,27 @@ class RPNTail(nn.Module):
     match :class:`RPN`'s, so the ``rpn.*`` entries of a state_dict load
     into it."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         rcfg = cfg.rpn
         for i in range(3):
             self.add_module(f"deconv{i + 1}", _Deconv(
                 rcfg.num_filters[i], rcfg.num_upsample_filters[i],
-                rcfg.upsample_strides[i], rcfg.bn_eps, rcfg.bn_momentum))
+                rcfg.upsample_strides[i], rcfg.bn_eps, rcfg.bn_momentum,
+                dtype=dtype))
         ups = list(rcfg.num_upsample_filters)
         n_anchor = cfg.num_anchors_per_loc
         num_cls = n_anchor * (cfg.num_class if cfg.encode_background_as_zeros
                               else cfg.num_class + 1)
-        self.conv_box = _SplitHead(ups, n_anchor * cfg.box_code_size)
-        self.conv_cls = _SplitHead(ups, num_cls)
+        head = dict(dtype=dtype, concat=not rcfg.no_concat_heads)
+        self.conv_box = _SplitHead(ups, n_anchor * cfg.box_code_size, **head)
+        self.conv_cls = _SplitHead(ups, num_cls, **head)
         self.use_dir = cfg.postprocess.use_direction_classifier
         if self.use_dir:
-            self.conv_dir_cls = _SplitHead(ups, n_anchor * 2)
+            self.conv_dir_cls = _SplitHead(ups, n_anchor * 2, **head)
 
     def forward(self, b1, b2, b3) -> Dict[str, torch.Tensor]:
         """NHWC block outputs -> head outputs, NHWC."""
@@ -161,24 +190,27 @@ class RPN(RPNTail):
     """The three downsample blocks, then :class:`RPNTail`. ``in_ch``: the
     canvas channels (default the PFN's filters)."""
 
-    def __init__(self, cfg: ModelConfig, in_ch: Optional[int] = None):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, in_ch: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(cfg, dtype)
         rcfg = cfg.rpn
         cin = cfg.pfn.num_filters if in_ch is None else in_ch
         for i in range(3):
             self.add_module(f"block{i + 1}", _Block(
                 cin, rcfg.num_filters[i], rcfg.layer_nums[i],
                 rcfg.layer_strides[i], rcfg.bn_eps,
-                rcfg.use_separable_conv, rcfg.bn_momentum))
+                rcfg.use_separable_conv, rcfg.bn_momentum, dtype=dtype,
+                shift_add=rcfg.depthwise_shift_add))
             cin = rcfg.num_filters[i]
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
         """x: [B, ny, nx, C] canvas -> head outputs, NHWC."""
         rcfg = self.cfg.rpn
         # as the JAX package: the boundaries are bf16 whenever both flags
-        # are set; recomputation matters only where a backward follows
+        # are set on a float32 network; recomputation matters only where a
+        # backward follows
         remat = rcfg.remat and torch.is_grad_enabled()
-        bf16 = rcfg.remat and rcfg.remat_bf16
+        bf16 = rcfg.remat and rcfg.remat_bf16 and self.dtype is None
 
         def cast(a):
             return a.to(torch.bfloat16) if bf16 else a

@@ -8,16 +8,20 @@ into channels to form the BEV canvas the RPN reads. The rulebooks of the
 whole batch are built at once (ops/sparse_conv.py takes a batch axis); the
 batch then folds into the row axis, so one gather and one matmul per layer
 serve the batch, and BN statistics span every active voxel in it.
+``dtype`` (``runtime.compute_dtype``): each layer's gather and matmul take
+its input and taps in it, and its BN rounds to it (models/layers.py).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from pillars_torch.config import ModelConfig
+from pillars_torch.models.layers import promote
 from pillars_torch.models.pfn import _PointwiseMaskedBN
 from pillars_torch.ops import sparse_conv as sp
 
@@ -50,16 +54,18 @@ class _SparseConvLayer(nn.Module):
     layout [K, Cin, Cout]."""
 
     def __init__(self, taps: int, in_ch: int, features: int, eps: float,
-                 momentum: float):
+                 momentum: float, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(taps, in_ch, features))
-        self.bn = _PointwiseMaskedBN(features, eps, momentum)
+        self.bn = _PointwiseMaskedBN(features, eps, momentum, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x, nbr_global, valid):
         """x [R, Cin] folded rows, nbr_global [Ro, K] global rows (sentinel
         R), valid [Ro] -> [Ro, Cout]; padding rows exactly zero, so they
         stay inert for the next gathers and the canvas scatter."""
-        y = sp.gather_conv(x, nbr_global, self.weight)
+        x, w = promote(self.dtype, x, self.weight)
+        y = sp.gather_conv(x, nbr_global, w)
         count = valid.sum() if self.training else None
         y, _ = self.bn(y, valid, count)
         return torch.where(valid[:, None], torch.relu(y), torch.zeros_like(y))
@@ -72,7 +78,8 @@ class SparseMiddleExtractor(nn.Module):
     stage's width. Layers are named as the JAX package's: ``subm{i}_{j}``,
     ``down{i}``."""
 
-    def __init__(self, mcfg: ModelConfig, in_ch: int):
+    def __init__(self, mcfg: ModelConfig, in_ch: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mcfg = mcfg
         m, rcfg = mcfg.middle, mcfg.rpn
@@ -81,12 +88,12 @@ class SparseMiddleExtractor(nn.Module):
         for i, f in enumerate(filters):
             for j in range(m.subm_per_stage + (1 if i == 0 else 0)):
                 self.add_module(f"subm{i}_{j}", _SparseConvLayer(
-                    27, cin, f, rcfg.bn_eps, rcfg.bn_momentum))
+                    27, cin, f, rcfg.bn_eps, rcfg.bn_momentum, dtype))
                 cin = f
             out_f = filters[min(i + 1, len(filters) - 1)]
             self.add_module(f"down{i}", _SparseConvLayer(
                 math.prod(kernels[i]), cin, out_f,
-                rcfg.bn_eps, rcfg.bn_momentum))
+                rcfg.bn_eps, rcfg.bn_momentum, dtype))
             cin = out_f
 
     def rulebooks(self, coords, mask):

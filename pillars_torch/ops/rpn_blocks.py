@@ -4,7 +4,10 @@
 Each block is 1 + ``num_layers`` separable layers; each layer is a SAME 3x3
 depthwise conv (stride 2: only the even centres), a 1x1 pointwise product
 with the eval-mode BatchNorm folded into its weights and bias, and ReLU.
-Activations are NHWC, as in the JAX package.
+Activations are NHWC, as in the JAX package. A block reads float32 or
+bfloat16 and writes its input's dtype; inside, every layer computes in
+float32 from float32 folded weights, so a bfloat16 block rounds once, at
+its output (the Pallas kernel under ``runtime.compute_dtype=bfloat16``).
 
 :func:`fused_sep_block_plain` is the plain PyTorch twin of the CUDA kernel
 ``csrc/rpn_sep_block.cu`` (wrappers :func:`pillars_torch.ops.rpn_cuda.
@@ -114,18 +117,19 @@ def _depthwise3x3(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
 def fused_sep_block_plain(x: torch.Tensor, layers: Sequence[FoldedLayer],
                           num_layers: int, stride: int) -> torch.Tensor:
     """One fused block, plain PyTorch. x [B, H, W, C_in] -> [B, H/s, W/s,
-    C_out]; at stride 2 the depthwise output keeps its even positions."""
+    C_out] in x's dtype, computed in float32; at stride 2 the depthwise
+    output keeps its even positions."""
     if len(layers) != num_layers + 1:
         raise ValueError(f"{len(layers)} layers for num_layers={num_layers}")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    y = x
+    y = x.float()
     for i, layer in enumerate(layers):
         z = _depthwise3x3(y, layer.wd)
         if i == 0 and stride == 2:
             z = z[:, ::2, ::2]
         y = torch.relu(torch.matmul(z, layer.wp) + layer.bias)
-    return y
+    return y.to(x.dtype)
 
 
 def fold_rpn_blocks(state: Dict[str, torch.Tensor],

@@ -3,9 +3,14 @@
 The port of pillars_tpu/ops/rpn_pallas.py::fused_sep_block. The kernel runs
 a chain of blocks in one launch: :func:`fused_sep_chain` gives it packed
 blocks (the RPN's three), :func:`fused_sep_block` one block as folded
-layers. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-the plain twin :func:`pillars_torch.ops.rpn_blocks.fused_sep_block_plain`.
-``fused_sep_block.launches`` counts kernel launches of either wrapper.
+layers. A float32 input runs the float32 kernel; a bfloat16 input the
+bfloat16 one (bfloat16 in and out, float32 inside each block, the Pallas
+kernel under ``runtime.compute_dtype=bfloat16``); any other dtype raises. A
+CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+twin :func:`pillars_torch.ops.rpn_blocks.fused_sep_block_plain`.
+``fused_sep_block.launches`` counts kernel launches of either wrapper and
+either dtype, ``fused_sep_block.launches_bf16`` those of the bfloat16
+kernel among them.
 """
 
 from __future__ import annotations
@@ -21,14 +26,17 @@ from pillars_torch.ops.rpn_blocks import (FoldedLayer, PackedBlock,
                                           fused_sep_block_plain, pack_block)
 
 MAX_BLOCKS = 4  # blocks per launch (kMaxBlocks in the source)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
-def _fn(defines: Tuple[str, ...] = ()):
-    fn = _build.load("rpn_sep_block", defines).rpn_sep_chain
+def _fn(defines: Tuple[str, ...] = (), bf16: bool = False):
+    lib = _build.load("rpn_sep_block", defines)
+    fn = lib.rpn_sep_chain_bf16 if bf16 else lib.rpn_sep_chain
     int_p, ptr_p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-        int_p, int_p, int_p, ptr_p, ptr_p, ctypes.c_void_p, ctypes.c_void_p]
+        int_p, int_p, int_p, ptr_p, ptr_p] + [ctypes.c_void_p] * (
+            3 if bf16 else 2)  # the scratch buffers and the stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,38 +64,48 @@ def _launch(x: torch.Tensor, blocks: Sequence[PackedBlock],
             defines: Tuple[str, ...]) -> List[torch.Tensor]:
     """One kernel launch for up to MAX_BLOCKS validated blocks."""
     b, h, w, cin = x.shape
+    bf16 = x.dtype == torch.bfloat16
     outs = []
     for block, cout in zip(blocks, couts):
         h, w = h // block.stride, w // block.stride
         outs.append(torch.empty((b, h, w, cout), dtype=x.dtype,
                                 device=x.device))
-    scratch = torch.empty(max(o.numel() for o in outs), dtype=x.dtype,
+    # the layers inside a block keep float32 activations: one scratch
+    # buffer beside a float32 output, two beside a bfloat16 one
+    size = max(o.numel() for o in outs)
+    scratch = torch.empty((2 if bf16 else 1) * size, dtype=torch.float32,
                           device=x.device)
+    scratch_ptrs = ([scratch.data_ptr(), scratch[size:].data_ptr()] if bf16
+                    else [scratch.data_ptr()])
     n = len(blocks)
     ints = lambda vals: (ctypes.c_int * n)(*vals)  # noqa: E731
     ptrs = lambda ts: (ctypes.c_void_p * n)(  # noqa: E731
         *(t.data_ptr() for t in ts))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _fn(defines)(x.data_ptr(), *x.shape, n, ints(couts),
-                    ints([blk.num_layers for blk in blocks]),
-                    ints([blk.stride for blk in blocks]), ptrs(outs),
-                    ptrs([blk.packed for blk in blocks]), scratch.data_ptr(),
-                    stream)
+        err = _fn(defines, bf16)(
+            x.data_ptr(), *x.shape, n, ints(couts),
+            ints([blk.num_layers for blk in blocks]),
+            ints([blk.stride for blk in blocks]), ptrs(outs),
+            ptrs([blk.packed for blk in blocks]), *scratch_ptrs, stream)
     if err != 0:
         raise RuntimeError(f"rpn_sep_block kernel launch failed: CUDA error "
                            f"{err} (1 also when a tile's buffers exceed the "
                            f"SM's shared memory: fewer channels fit)")
     fused_sep_block.launches += 1
+    fused_sep_block.launches_bf16 += bf16
     return outs
 
 
 def fused_sep_chain(x: torch.Tensor, blocks: Sequence[PackedBlock],
                     defines: Tuple[str, ...] = ()) -> List[torch.Tensor]:
-    """x [B, H, W, C_in] f32 NHWC through ``blocks`` one after the other ->
-    every block's output [B, H_i, W_i, C_i], in one launch per MAX_BLOCKS
-    blocks. ``defines`` builds and launches the kernel with these ``-D``
-    flags (its instrumentation, see utils/kernel_phases.py)."""
+    """x [B, H, W, C_in] NHWC, float32 or bfloat16, through ``blocks`` one
+    after the other -> every block's output [B, H_i, W_i, C_i] in x's dtype,
+    in one launch per MAX_BLOCKS blocks. ``defines`` builds and launches the
+    kernel with these ``-D`` flags (its instrumentation, see
+    utils/kernel_phases.py)."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
         outs = []
         for blk in blocks:
@@ -99,8 +117,6 @@ def fused_sep_chain(x: torch.Tensor, blocks: Sequence[PackedBlock],
         raise ValueError(f"unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous (NHWC) and 16-byte aligned")
     _, h, w, cin = x.shape
@@ -125,11 +141,14 @@ def fused_sep_chain(x: torch.Tensor, blocks: Sequence[PackedBlock],
 
 def fused_sep_block(x: torch.Tensor, layers: Sequence[FoldedLayer],
                     num_layers: int, stride: int) -> torch.Tensor:
-    """x [B, H, W, C_in] f32 NHWC + 1 + ``num_layers`` folded layers ->
-    [B, H/stride, W/stride, C_out]."""
+    """x [B, H, W, C_in] NHWC (float32 or bfloat16) + 1 + ``num_layers``
+    folded layers -> [B, H/stride, W/stride, C_out] in x's dtype."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
         return fused_sep_block_plain(x, layers, num_layers, stride)
     return fused_sep_chain(x, [pack_block(layers, num_layers, stride)])[0]
 
 
 fused_sep_block.launches = 0
+fused_sep_block.launches_bf16 = 0

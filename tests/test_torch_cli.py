@@ -245,3 +245,25 @@ def test_xla_flags_are_ignored_with_a_note(dataset):
               "runtime.xla_flags=--xla_foo=1")
     assert out.returncode == 0, out.stderr
     assert "runtime.xla_flags has no meaning" in out.stderr
+
+
+def test_evaluate_in_bfloat16(dataset, tmp_path):
+    """``runtime.compute_dtype=bfloat16`` from the command line: evaluate
+    runs the bfloat16 network (4 clouds, 4096-point pad) and saves its
+    annos; train refuses it and names the slice that brings it."""
+    import pickle
+
+    save = tmp_path / "result.pkl"
+    out = cli("evaluate", "--device", "cpu", "--checkpoint", WEIGHTS,
+              "--save-predictions", str(save), *dataset_overrides(dataset),
+              "model.voxel.max_points=4096", "runtime.compute_dtype=bfloat16")
+    assert out.returncode == 0, out.stderr
+    assert "aggregate score:" in out.stdout
+    with open(save, "rb") as f:
+        annos = pickle.load(f)
+    assert len(annos) == 4 and sum(len(a["score"]) for a in annos) > 0
+    out = cli("train", "--device", "cpu", "--epochs", "1",
+              "--set", "runtime.compute_dtype=bfloat16",
+              f"out_dir={tmp_path / 'runs'}")
+    assert out.returncode != 0
+    assert "bf16 training" in out.stderr

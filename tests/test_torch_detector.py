@@ -72,7 +72,10 @@ def test_inference_default_widths_trained_weights(batch):
 def test_unported_configs_raise():
     """The front ends that raised before SECOND's slice now run against the
     JAX package (the dense [P, N, D] layout, SimpleVoxel on either
-    voxelizer); only bf16 compute still raises."""
+    voxelizer), and bfloat16 compute builds for inference
+    (tests/test_torch_bf16.py); training in bfloat16 still raises, in the
+    Trainer and in a train-mode apply, and so does a compute dtype that is
+    neither float32 nor bfloat16."""
     for key, value, pointwise in (("model.pfn.pointwise", False, False),
                                   ("model.pfn.simple_mean", True, True),
                                   ("model.pfn.simple_mean", True, False)):
@@ -89,9 +92,20 @@ def test_unported_configs_raise():
                                    variables["batch_stats"], tcfg)
         want, got = _run_both(jcfg, tcfg, variables, state, 2, 1800, seed=6)
         compare_predictions(want, got)
+    from pillars_torch.train.trainer import Trainer
+
     cfg = TorchConfig.default().override("runtime.compute_dtype", "bfloat16")
-    with pytest.raises(NotImplementedError):
-        TorchDetector(cfg, device="cpu")
+    det = TorchDetector(cfg, device="cpu")
+    assert det.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        Trainer(cfg, device="cpu")
+    pts, num = d435i_clouds(3, 1, cfg.model.voxel.max_points, 500)
+    v = det.voxelize_batch(torch.from_numpy(pts), torch.from_numpy(num))
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        det.apply(det.init(torch.Generator().manual_seed(0)), v, train=True)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TorchDetector(cfg.override("runtime.compute_dtype", "float16"),
+                      device="cpu")
 
 
 def test_no_card_without_explicit_cpu_raises():

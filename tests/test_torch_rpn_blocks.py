@@ -314,3 +314,62 @@ def test_pack_block_rejects_bad_layers(fault):
         layers[0] = layers[0]._replace(bias=layers[0].bias.double())
         with pytest.raises(TypeError):
             pack_block(layers, 1, 1)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_sep_block_plain_bf16_matches_pallas(stride):
+    """runtime.compute_dtype=bfloat16: a bfloat16 x in, every layer in f32
+    from the f32 weights, the block's output rounded once to bfloat16, as
+    the Pallas kernel (interpret mode) does. Both round the same f32 sums
+    summed in another order: at most one bfloat16 step anywhere."""
+    from torch_parity import bf16_steps
+
+    b, h, w, cin, cout, n = 2, 10, 12, 8, 12, 2
+    r = np.random.RandomState(10 + stride)
+    x = jnp.asarray(np.maximum(r.randn(b, h, w, cin), 0).astype(
+        np.float32)).astype(jnp.bfloat16)
+    raw = _random_layers(10 + stride, cin, cout, n)
+    jlayers = tuple(rpn_pallas.FoldedLayer(*map(jnp.asarray, t)) for t in raw)
+    want = np.stack([np.asarray(rpn_pallas.fused_sep_block(
+        x[i], jlayers, n, stride, interpret=True)) for i in range(b)])
+    assert want.dtype.name == "bfloat16"
+    tlayers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
+    got = fused_sep_block_plain(
+        torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(
+            torch.bfloat16), tlayers, n, stride)
+    assert got.dtype == torch.bfloat16
+    assert got.shape == want.shape == (b, h // stride, w // stride, cout)
+    steps = bf16_steps(got, want)
+    print(f"stride {stride}: {(steps > 0).mean():.4f} of the elements differ")
+    assert steps.max() <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_wrappers_reject_other_dtypes_before_a_launch(dtype):
+    """float32 and bfloat16 only, on the CPU as on the card: the check
+    comes before the twin and before any launch."""
+    raw = _random_layers(5, 8, 8, 1)
+    layers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
+    x = torch.zeros(1, 6, 8, 8, dtype=dtype)
+    before = rpn_cuda.fused_sep_block.launches
+    with pytest.raises(TypeError):
+        rpn_cuda.fused_sep_block(x, layers, 1, 1)
+    with pytest.raises(TypeError):
+        rpn_cuda.fused_sep_chain(x, [pack_block(layers, 1, 1)])
+    assert rpn_cuda.fused_sep_block.launches == before
+
+
+def test_bf16_chain_takes_the_twin_on_the_cpu():
+    """A bfloat16 CPU canvas: the twin block by block, bfloat16 out, no
+    launch counted."""
+    raw = _random_layers(6, 8, 8, 1)
+    layers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
+    x = torch.from_numpy(np.random.RandomState(6).rand(1, 6, 8, 8).astype(
+        np.float32)).to(torch.bfloat16)
+    before = (rpn_cuda.fused_sep_block.launches,
+              rpn_cuda.fused_sep_block.launches_bf16)
+    got = rpn_cuda.fused_sep_chain(x, [pack_block(layers, 1, 2)] * 1)
+    assert (rpn_cuda.fused_sep_block.launches,
+            rpn_cuda.fused_sep_block.launches_bf16) == before
+    assert got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0], fused_sep_block_plain(x, layers, 1, 2))

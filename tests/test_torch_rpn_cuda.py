@@ -6,7 +6,10 @@ JAX run ``python -m pytest --noconftest tests/test_torch_rpn_cuda.py``
 (``tests/conftest.py`` imports JAX).
 
 Tolerance: max |kernel - twin| <= 1e-5 * max |twin|; the same f32 products
-summed in another order (the kernel's FMAs, the twin's matmul).
+summed in another order (the kernel's FMAs, the twin's matmul). bfloat16 in
+and out: each rounds its f32 result once, so an element is within one
+bfloat16 step of the twin's, or, near 0 where a step is finer than the f32
+sums' own difference, within the same 1e-5 * max |twin|.
 """
 
 import numpy as np
@@ -150,3 +153,94 @@ def test_kernel_rejects_bad_inputs(cuda_rpn):
     with pytest.raises(ValueError):  # channels not a multiple of 4
         cuda_rpn.fused_sep_block(torch.zeros(1, 6, 8, 6, device="cuda"),
                                  _layers(1, 6, 8, 0), 0, 1)
+
+
+# bfloat16 in and out, float32 inside each block: kernel and twin round
+# float32 results that agree within REL_TOL of their max once each
+@pytest.mark.parametrize("b,h,w,cin,cout,n,stride", SHAPES)
+def test_bf16_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride):
+    from pillars_torch.ops.rpn_blocks import fused_sep_block_plain
+    from torch_parity import bf16_rounded_close
+
+    layers = _layers(b * 100 + n, cin, cout, n)
+    x = torch.from_numpy(np.maximum(np.random.RandomState(b).randn(
+        b, h, w, cin), 0).astype(np.float32)).cuda().to(torch.bfloat16)
+    before = (cuda_rpn.fused_sep_block.launches,
+              cuda_rpn.fused_sep_block.launches_bf16)
+    got = cuda_rpn.fused_sep_block(x, layers, n, stride)
+    torch.cuda.synchronize()
+    assert (cuda_rpn.fused_sep_block.launches,
+            cuda_rpn.fused_sep_block.launches_bf16) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = fused_sep_block_plain(x, layers, n, stride)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (b, h // stride, w // stride, cout)
+    bf16_rounded_close(got, want, REL_TOL, f"bf16 {b}x{h}x{w}x{cin}->{cout}")
+
+
+def test_bf16_chain_matches_single_blocks(cuda_rpn):
+    """Three bfloat16 blocks in one launch give, bit for bit, what three
+    launches of one block give (each block reads the bfloat16 output of
+    the one before)."""
+    from pillars_torch.ops.rpn_blocks import pack_block
+
+    shapes = [(16, 8, 3, 1), (8, 16, 2, 2), (16, 32, 2, 2)]
+    blocks = [pack_block(_layers(i, cin, cout, n), n, s)
+              for i, (cin, cout, n, s) in enumerate(shapes)]
+    x = torch.from_numpy(np.maximum(np.random.RandomState(7).randn(
+        2, 12, 20, 16), 0).astype(np.float32)).cuda().to(torch.bfloat16)
+    got = cuda_rpn.fused_sep_chain(x, blocks)
+    y = x
+    for g, blk in zip(got, blocks):
+        y = cuda_rpn.fused_sep_block(y, blk.layers, blk.num_layers,
+                                     blk.stride)
+        assert g.dtype == torch.bfloat16 and torch.equal(g, y)
+
+
+def test_bf16_fused_rpn_blocks_against_the_cpu(cuda_rpn):
+    """The three blocks as the bfloat16 fast path runs them, the kernel on
+    a bfloat16 canvas in one launch against the twin on the CPU, each block
+    fed what the kernel's block before it wrote (a flipped rounding in one
+    block moves the next block's sums by more than a step where they are
+    near 0): each block within one bfloat16 step or 1e-5 of the max."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.rpn import RPN
+    from pillars_torch.ops.rpn_blocks import (fold_rpn_blocks,
+                                              fused_rpn_blocks,
+                                              fused_sep_block_plain)
+    from torch_parity import bf16_rounded_close
+
+    mcfg = Config.default().model
+    _, ny, nx = mcfg.feature_map_size
+    torch.manual_seed(1)
+    state = {f"rpn.{k}": v for k, v in RPN(mcfg).state_dict().items()}
+    for k in state:
+        if k.endswith("running_var"):
+            state[k] = torch.rand_like(state[k]) + 0.5
+        elif k.endswith("wise.weight"):  # activations of O(1) to the end
+            state[k] = state[k] * 2
+    canvas = torch.relu(torch.randn(2, ny, nx, mcfg.pfn.num_filters)).to(
+        torch.bfloat16)
+    before = cuda_rpn.fused_sep_block.launches_bf16
+    got = fused_rpn_blocks(canvas.cuda(),
+                           {k: v.cuda() for k, v in state.items()}, mcfg.rpn)
+    torch.cuda.synchronize()
+    assert cuda_rpn.fused_sep_block.launches_bf16 == before + 1
+    x = canvas
+    for g, blk in zip(got, fold_rpn_blocks(state, mcfg.rpn)):
+        w = fused_sep_block_plain(x, blk.layers, blk.num_layers, blk.stride)
+        assert g.dtype == w.dtype == torch.bfloat16
+        bf16_rounded_close(g, w, REL_TOL, f"block {tuple(g.shape)}")
+        x = g.cpu()
+
+
+def test_kernel_rejects_other_dtypes(cuda_rpn):
+    layers = _layers(0, 8, 8, 1)
+    for dtype in (torch.float16, torch.float64):
+        x = torch.zeros(1, 6, 8, 8, device="cuda", dtype=dtype)
+        before = cuda_rpn.fused_sep_block.launches
+        with pytest.raises(TypeError):
+            cuda_rpn.fused_sep_block(x, layers, 1, 1)
+        with pytest.raises(TypeError):
+            cuda_rpn.fused_sep_chain(x, [])
+        assert cuda_rpn.fused_sep_block.launches == before

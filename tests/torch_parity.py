@@ -181,3 +181,286 @@ def train_batches(seed, n_batches, b=2, maxpts=2048, max_gt=4, n=1500):
                         gt_classes=np.ones((b, max_gt), np.int32),
                         gt_valid=valid))
     return out
+
+
+# ----------------------------------------------------------------------
+# runtime.compute_dtype=bfloat16: the port against the JAX package, both in
+# bfloat16. Both round at the same points and differ only where an f32
+# accumulation in another order moves a value across a bfloat16 rounding
+# boundary: rare, and never more than one step of bfloat16 at one rounding
+# point. Where two or more rounding points follow each other, such flips
+# propagate (and grow through a BN), so whole networks are held relative to
+# the gap between the JAX package in bfloat16 and in float32.
+
+# The JAX side compiles with XLA's excess precision off, so that XLA keeps
+# every bfloat16 rounding the JAX package's code asks for. With it on (XLA's
+# default) XLA on the CPU drops the rounding of a conv's or Dense's output
+# where a BatchNorm upcasts it at once: a compiler choice that moves the JAX
+# package's own bfloat16 result by as much as the whole bfloat16-float32 gap
+# (a _Block: rms 1.03 x the gap).
+XLA_STRICT = {"xla_allow_excess_precision": False}
+
+
+def jit_strict(fn, **kwargs):
+    """``jax.jit(fn)`` compiled with :data:`XLA_STRICT`."""
+    import jax
+
+    return jax.jit(fn, compiler_options=XLA_STRICT, **kwargs)
+
+
+# module criterion (one rounding point at the output): every element within
+# one bfloat16 step of JAX's, at most this share of elements differing at all
+BF16_MAX_SHARE = 0.01
+# head criterion: rms(port - jax_bf16) <= BF16_RMS_FACTOR * rms(jax_bf16 -
+# jax_f32) per head, and max |port - jax_bf16| <= BF16_MAX_FACTOR * max
+# |jax_bf16 - jax_f32|
+BF16_RMS_FACTOR = 0.25
+BF16_MAX_FACTOR = 1.0
+# ... except through the whole network at full width and depth (16 conv
+# layers, 32 rounding points before the heads), where rare flips spread
+# through every later layer: two faithful variants of the port itself
+# (oneDNN's bfloat16 convs on and off, the same rounding points, another
+# accumulation order) differ by 0.44 x the gap on the dense cell's class
+# head, the port and the JAX package by 0.51, while dropping the rounding
+# of every conv output (XLA's default excess precision) moves the JAX
+# package by 0.87-1.03 x the gap. Whole full-width networks: 0.7.
+BF16_RMS_FACTOR_FULL = 0.7
+
+
+def _dtype_name(a):
+    if hasattr(a, "detach"):
+        return str(a.dtype).replace("torch.", "")
+    return np.asarray(a).dtype.name
+
+
+def _f64(a):
+    if hasattr(a, "detach"):
+        return a.detach().cpu().double().numpy()
+    return np.asarray(a).astype(np.float64)
+
+
+def _bf16_order(a):
+    """bfloat16 values as integers in value order: neighbours differ by 1
+    (+0 and -0 are both 0)."""
+    if hasattr(a, "detach"):
+        bits = a.detach().cpu().contiguous().view(
+            __import__("torch").int16).numpy()
+    else:
+        bits = np.asarray(a).view(np.int16)
+    b = bits.astype(np.int32)
+    return np.where(b < 0, -(b & 0x7FFF), b)
+
+
+def bf16_steps(got, want):
+    """|got - want| in steps of bfloat16 (tensors or arrays of bfloat16)."""
+    return np.abs(_bf16_order(got) - _bf16_order(want))
+
+
+def bf16_rounded_close(got, want, rtol, label=""):
+    """Two bfloat16 roundings of float32 results that agree within ``rtol``
+    of their max |value| (the same sums in another order): every element
+    within one bfloat16 step, or, near 0 where one step is finer than that
+    float32 tolerance, within ``rtol`` * max |want|. Returns (share of the
+    elements that differ, max steps apart)."""
+    steps = bf16_steps(got, want)
+    g, w = _f64(got), _f64(want)
+    scale = np.abs(w).max()
+    assert scale > 0, label
+    ok = (steps <= 1) | (np.abs(g - w) <= rtol * scale)
+    share = float((steps > 0).mean())
+    print(f"{label}: {share:.2e} of {steps.size} elements differ, at most "
+          f"{steps.max()} bf16 steps, max |diff| {np.abs(g - w).max():.3e} "
+          f"(max |want| {scale:.3e})")
+    assert ok.all(), f"{label}: {int((~ok).sum())} elements too far apart"
+    return share, int(steps.max())
+
+
+def module_criterion(got, want, label=""):
+    """One rounding point: ``got`` (the port, a tensor) and ``want`` (the
+    JAX package, an array) of the same dtype, every element within one
+    bfloat16 step, at most BF16_MAX_SHARE of them differing. Returns the
+    share."""
+    assert _dtype_name(got) == _dtype_name(want) == "bfloat16", (
+        label, _dtype_name(got), _dtype_name(want))
+    assert tuple(got.shape) == tuple(np.shape(want)), label
+    steps = bf16_steps(got, want)
+    share = float((steps > 0).mean())
+    print(f"{label}: {share:.5f} of {steps.size} elements differ, at most "
+          f"{steps.max()} bf16 step")
+    assert steps.max() <= 1, f"{label}: {steps.max()} bf16 steps apart"
+    assert share <= BF16_MAX_SHARE, f"{label}: {share} of elements differ"
+    return share
+
+
+def head_ratio(got, want, want_f32):
+    """rms(got - want) / rms(want - want_f32)."""
+    g, w, f = _f64(got), _f64(want), _f64(want_f32)
+    return np.sqrt(np.mean((g - w) ** 2)) / np.sqrt(np.mean((w - f) ** 2))
+
+
+def head_criterion(got, want, want_f32, label="",
+                   rms_factor=BF16_RMS_FACTOR):
+    """Two or more rounding points: ``got`` (the port) in ``want``'s dtype
+    (the JAX package in bfloat16), its rms distance to ``want`` within
+    ``rms_factor`` of the rms gap between ``want`` and ``want_f32`` (the
+    JAX package in float32), its max distance within BF16_MAX_FACTOR of the
+    max gap. Returns (rms ratio, max |got - want|)."""
+    assert _dtype_name(got) == _dtype_name(want), (
+        label, _dtype_name(got), _dtype_name(want))
+    g, w, f = _f64(got), _f64(want), _f64(want_f32)
+    assert g.shape == w.shape == f.shape, label
+    gap_rms = np.sqrt(np.mean((w - f) ** 2))
+    gap_max = np.abs(w - f).max()
+    rms = np.sqrt(np.mean((g - w) ** 2))
+    err = np.abs(g - w).max()
+    assert gap_rms > 0, f"{label}: bfloat16 and float32 agree exactly"
+    ratio = rms / gap_rms
+    print(f"{label}: rms diff {rms:.3e} = {ratio:.4f} x the bf16-f32 gap "
+          f"{gap_rms:.3e}; max diff {err:.3e} (gap max {gap_max:.3e})")
+    assert ratio <= rms_factor, f"{label}: rms ratio {ratio} > {rms_factor}"
+    assert err <= BF16_MAX_FACTOR * gap_max, f"{label}: max {err}"
+    return ratio, err
+
+
+def heads_criterion(got, want, want_f32, label="",
+                    rms_factor=BF16_RMS_FACTOR):
+    """:func:`head_criterion` over every head of a dict."""
+    assert set(got) == set(want) == set(want_f32)
+    return {k: head_criterion(got[k], want[k], want_f32[k], f"{label} {k}",
+                              rms_factor)
+            for k in sorted(want)}
+
+
+# predictions in bfloat16, matched as sets. bfloat16 heads make exact score
+# ties and near-tied boxes that trade slots, so valid slots are not compared
+# one by one: each JAX detection, in descending score order, takes the
+# unmatched port detection of its label with the nearest centre. A logit of
+# O(1-10) moves by a bfloat16 step of 2^-7-2^-4 where a rare flip reaches
+# it; sigmoid's slope is at most 1/4: scores within BF16_SCORE_ATOL. A box
+# regresses from bfloat16 deltas (8 significant bits): centres, sizes and
+# rotations within BF16_BOX_ATOL + BF16_BOX_RTOL * |value|. A detection is
+# borderline, and may go unmatched, where its score lies within
+# BF16_SCORE_ATOL of nms_score_threshold, where its +1-pixel IoU with a
+# higher kept box lies within BF16_IOU_TOL of nms_iou_threshold, or where
+# the set that lacks it kept a box of its label over it (IoU above
+# nms_iou_threshold - BF16_IOU_TOL) scoring at least its score -
+# BF16_SCORE_ATOL: NMS's order among near-tied scores chose the other box
+# of an overlapping pair (and what that box suppresses). The rotation is
+# compared modulo pi (the direction flip's) only where the JAX box's own
+# rotation lies within BF16_ROT_FLIP_TOL of a multiple of pi.
+BF16_SCORE_ATOL = 2e-2
+BF16_BOX_ATOL = 5e-2
+BF16_BOX_RTOL = 2e-2
+BF16_IOU_TOL = 2e-2
+BF16_ROT_FLIP_TOL = 5e-2
+
+
+def _standup_iou(boxes):
+    """[n, 7] lidar boxes -> [n, n] +1-pixel IoU of their standup BEV boxes
+    (the NMS's)."""
+    import torch
+
+    from pillars_torch.geometry import boxes as gb
+    from pillars_torch.ops.nms import _pixel_iou_matrix
+
+    b = torch.as_tensor(np.asarray(boxes, np.float32))[:, [0, 1, 3, 4, 6]]
+    corners = gb.center_to_corner_box2d(b[:, :2], b[:, 2:4], b[:, 4])
+    return _pixel_iou_matrix(gb.corner_to_standup(corners)).numpy()
+
+
+def _borderline(boxes, scores, i, score_thr, iou_thr):
+    """Why detection ``i`` of one sample's valid set (descending scores) is
+    borderline, or None."""
+    if abs(scores[i] - score_thr) <= BF16_SCORE_ATOL and score_thr > 0:
+        return f"score {scores[i]:.4f} at the threshold {score_thr}"
+    iou = _standup_iou(boxes)[i]
+    higher = [j for j in range(len(scores)) if scores[j] >= scores[i]
+              and j != i]
+    if higher and abs(iou[higher].max() - iou_thr) <= BF16_IOU_TOL:
+        return f"IoU {iou[higher].max():.4f} at the threshold {iou_thr}"
+    return None
+
+
+def _suppressed_by(other, box, score, lab, iou_thr):
+    """Why a detection (``box``, ``score``, label ``lab``) that the set
+    ``other`` lacks may be absent there: ``other`` kept a box of that label
+    over it with a near or higher score. None otherwise."""
+    same = np.flatnonzero((other["labels"] == lab)
+                          & (other["scores"] >= score - BF16_SCORE_ATOL))
+    if not len(same):
+        return None
+    iou = _standup_iou(np.concatenate(
+        [np.asarray(box)[None], other["boxes_lidar"][same]]))[0, 1:]
+    k = int(np.argmax(iou))
+    if iou[k] > iou_thr - BF16_IOU_TOL:
+        return (f"the other set kept a box of score "
+                f"{other['scores'][same[k]]:.4f} over it (IoU {iou[k]:.4f})")
+    return None
+
+
+def compare_predictions_bf16(want, got, score_thr, iou_thr, label=""):
+    """``want``: the JAX package's Predictions (NumPy leaves) in bfloat16
+    compute, ``got``: the port's. Matches each sample's valid detections
+    as sets (see above); prints every borderline exception and returns
+    their count."""
+    exceptions = 0
+    wv = np.asarray(want.valid)
+    gv = got.valid.numpy()
+    assert wv.any(), label
+    for s in range(wv.shape[0]):
+        sets = []
+        for p, v in ((want, wv[s]), (got, gv[s])):
+            order = np.argsort(-np.asarray(p.scores[s])[v], kind="stable")
+            sets.append({k: np.asarray(getattr(p, k)[s])[v][order]
+                         for k in ("boxes_lidar", "boxes_camera", "scores",
+                                   "labels")})
+        w, g = sets
+        free = np.ones(len(g["scores"]), bool)
+        missed = []
+        for i in range(len(w["scores"])):
+            cand = np.flatnonzero(free & (g["labels"] == w["labels"][i]))
+            if len(cand):
+                d = np.linalg.norm(g["boxes_lidar"][cand, :3]
+                                   - w["boxes_lidar"][i, :3], axis=1)
+                j = cand[np.argmin(d)]
+                box_w = w["boxes_lidar"][i]
+                tol = BF16_BOX_ATOL + BF16_BOX_RTOL * np.abs(box_w[:3])
+                if np.all(np.abs(g["boxes_lidar"][j, :3] - box_w[:3]) <= tol):
+                    free[j] = False
+                    _same_detection(w, i, g, j, f"{label} sample {s}")
+                    continue
+            missed.append(i)
+        for side, idx, p, other in (("JAX", missed, w, g),
+                                    ("port", np.flatnonzero(free), g, w)):
+            for i in idx:
+                why = (_borderline(p["boxes_lidar"], p["scores"], i,
+                                   score_thr, iou_thr)
+                       or _suppressed_by(other, p["boxes_lidar"][i],
+                                         p["scores"][i], p["labels"][i],
+                                         iou_thr))
+                assert why is not None, (
+                    f"{label} sample {s}: {side} detection {i} (score "
+                    f"{p['scores'][i]:.4f}, box {p['boxes_lidar'][i]}) "
+                    f"has no counterpart")
+                print(f"{label} sample {s}: {side} detection {i} unmatched, "
+                      f"borderline: {why}")
+                exceptions += 1
+    return exceptions
+
+
+def _same_detection(w, i, g, j, label):
+    assert abs(g["scores"][j] - w["scores"][i]) <= BF16_SCORE_ATOL, (
+        label, g["scores"][j], w["scores"][i])
+    # the flip adds pi where the lidar rotation's sign disagrees with the
+    # direction head: a boundary where that rotation is near 0 (mod pi)
+    near_flip = abs(np.sin(w["boxes_lidar"][i][6])) <= BF16_ROT_FLIP_TOL
+    for name in ("boxes_lidar", "boxes_camera"):
+        bw, bg = w[name][i].astype(np.float64), g[name][j].astype(np.float64)
+        rot_w, rot_g = bw[6], bg[6]
+        tol = BF16_BOX_ATOL + BF16_BOX_RTOL * np.abs(bw)
+        assert np.all(np.abs(bg[:6] - bw[:6]) <= tol[:6]), (label, name, bg,
+                                                            bw)
+        period = np.pi if near_flip else 2 * np.pi
+        d = (rot_g - rot_w + period / 2) % period - period / 2
+        assert abs(d) <= BF16_BOX_ATOL + BF16_BOX_RTOL * abs(rot_w), (
+            label, name, rot_g, rot_w)

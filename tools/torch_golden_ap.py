@@ -4,17 +4,27 @@ on the CPU.
 
     python tools/torch_golden_ap.py --package jax   --root DIR [--scenes N]
                                     [--config YAML --weights PKL]
+                                    [--set KEY=VALUE ...]
                                     [--write tests/golden/torch_hard_val_ap.json]
     python tools/torch_golden_ap.py --package torch --root DIR [--scenes N]
                                     [--config YAML --weights PKL]
+                                    [--set KEY=VALUE ...]
                                     [--against tests/golden/torch_hard_val_ap.json]
 
-Two goldens are kept: the d435i PointPillars model (``Config.default()``,
+Three goldens are kept: the d435i PointPillars model (``Config.default()``,
 benchmarks/hard_synth/weights_59.pkl, the defaults here) in
-tests/golden/torch_hard_val_ap.json, and the SECOND sparse model
-(``--config configs/second_sparse_d435i.yaml --weights
-benchmarks/second_sparse_synth/weights_33.pkl``) in
+tests/golden/torch_hard_val_ap.json, the same in bfloat16 (``--set
+runtime.compute_dtype=bfloat16``) in tests/golden/torch_hard_val_bf16_ap.json,
+and the SECOND sparse model (``--config configs/second_sparse_d435i.yaml
+--weights benchmarks/second_sparse_synth/weights_33.pkl``) in
 tests/golden/torch_second_sparse_val_ap.json.
+
+``--set`` overrides config values (as the CLI's ``--set``). The JAX package
+compiles with XLA's excess precision off, so that in bfloat16 XLA keeps
+every rounding the package's code asks for, as the port's tests hold it
+(tests/torch_parity.py); ``--xla-excess-precision`` keeps XLA's default,
+which drops the rounding of a conv's output that a BatchNorm upcasts at
+once. Neither matters in float32.
 
 Regenerates the dataset of benchmarks/hard_synth/README.md (600 train / 150
 val hard-profile scenes, seed 7) under ``--root`` with the chosen package's
@@ -40,8 +50,18 @@ sys.path.insert(0, str(ROOT))
 WEIGHTS = ROOT / "benchmarks" / "hard_synth" / "weights_59.pkl"
 
 
-def load_config(cls, path):
-    return cls.from_yaml(path) if path else cls.default()
+def load_config(cls, path, sets=()):
+    cfg = cls.from_yaml(path) if path else cls.default()
+    for item in sets:
+        key, value = item.split("=", 1)
+        cfg = cfg.override(key, _parse(value))
+    return cfg
+
+
+def _parse(value):
+    import yaml
+
+    return yaml.safe_load(value)
 
 
 def ensure_split(synthetic, root):
@@ -61,7 +81,12 @@ def with_dataset(cfg, root):
     return cfg
 
 
-def run_jax(root, scenes, config, weights):
+def run_jax(root, scenes, config, weights, sets, excess_precision):
+    import os
+
+    if not excess_precision:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_allow_excess_precision=false")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -72,14 +97,14 @@ def run_jax(root, scenes, config, weights):
     from pillars_tpu.train.trainer import Evaluator
 
     ensure_split(synthetic, root)
-    cfg = with_dataset(load_config(Config, config), root)
+    cfg = with_dataset(load_config(Config, config, sets), root)
     det = PillarsDetector(cfg)
     params, stats = ckpt.load_params(weights)
     variables = {"params": params, "batch_stats": stats or {}}
     return Evaluator(cfg, det).evaluate(variables, max_samples=scenes)
 
 
-def run_torch(root, scenes, config, weights):
+def run_torch(root, scenes, config, weights, sets, excess_precision):
     from pillars_torch.config import Config
     from pillars_torch.data import synthetic
     from pillars_torch.models.detector import PillarsDetector
@@ -87,7 +112,7 @@ def run_torch(root, scenes, config, weights):
     from pillars_torch.weights import from_jax_variables, load_params
 
     ensure_split(synthetic, root)
-    cfg = with_dataset(load_config(Config, config), root)
+    cfg = with_dataset(load_config(Config, config, sets), root)
     det = PillarsDetector(cfg, device="cpu")
     state = from_jax_variables(*load_params(weights), cfg)
     return Evaluator(cfg, det).evaluate(state, max_samples=scenes)
@@ -104,6 +129,11 @@ def main():
     ap.add_argument("--weights", default=str(WEIGHTS),
                     help="checkpoint (default: benchmarks/hard_synth/"
                          "weights_59.pkl)")
+    ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                    help="config overrides, e.g. runtime.compute_dtype="
+                         "bfloat16")
+    ap.add_argument("--xla-excess-precision", action="store_true",
+                    help="JAX: keep XLA's default excess precision")
     ap.add_argument("--write", default=None)
     ap.add_argument("--against", default=None)
     args = ap.parse_args()
@@ -113,14 +143,17 @@ def main():
     t0 = time.perf_counter()
     run = run_jax if args.package == "jax" else run_torch
     text, bev, d3, aos, score = run(args.root, args.scenes, args.config,
-                                    args.weights)
+                                    args.weights, args.set,
+                                    args.xla_excess_precision)
     weights = pathlib.Path(args.weights).resolve()
     if weights.is_relative_to(ROOT):
         weights = weights.relative_to(ROOT)
     out = {
         "what": f"KITTI AP of {weights} on the hard val split (synth-data "
                 f"--profile hard --num-train 600 --num-test 150 --seed 7), "
-                f"{args.config or 'Config.default()'}, CPU, f32",
+                f"{args.config or 'Config.default()'}"
+                f"{''.join(' ' + s for s in args.set)}, CPU"
+                f"{', XLA excess precision on' if args.xla_excess_precision and args.package == 'jax' else ''}",
         "package": args.package,
         "scenes": args.scenes or 150,
         "val_checksum": split_checksum(args.root),
