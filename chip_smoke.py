@@ -105,7 +105,20 @@ Phases, none of whose failures is caught:
    bfloat16 ``Evaluator`` over phase 9's 150 val clouds against
    tests/golden/torch_hard_val_bf16_ap.json (the JAX package on the CPU in
    bfloat16) within ``AP_TOL``; SECOND sparse in bfloat16 from
-   ``weights_33.pkl`` on four of phase 12's val clouds, card vs CPU.
+   ``weights_33.pkl`` on four of phase 12's val clouds, card vs CPU;
+16. ``runtime.compute_dtype=bfloat16`` training: the bf16 train step at
+   full width, B=2, from ``weights_59.pkl`` on phase 10's first batch, card
+   against CPU, both bf16, by the training criteria of tests/torch_parity.py
+   (labels equal; each loss part within 3 x the CPU's own bf16-f32 gap of
+   that part or 1e-2 relative; each gradient leaf's rms within 1.5 x the
+   larger of its gap and one bf16 step; each new BN statistic's rms within
+   1.5 x its gap); ms per step, host wall, launches, device ms, idle share and
+   peak MiB with ``rpn.remat`` off and on, f32 and bf16 in turns (f32,
+   bf16, bf16, f32); then a bfloat16 ``Trainer`` from
+   ``PillarsDetector.init`` for epoch 0 on phase 11's train clouds with its
+   bf16 eval: its NMS launches equal to the eval batches, the mean loss of
+   its last 50 steps below ``LOSS_GATE`` and within ``BF16_LOSS_GAP`` of
+   the f32 Trainer's epoch 0 in the same call.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -959,26 +972,17 @@ def run_train_step(state_cpu, smi, root):
     """The train step at full width, B=2, from the trained checkpoint: the
     card against the port on the CPU, then its times and memory."""
     from pillars_torch.config import Config
-    from pillars_torch.data.pipeline import PedestrianDataset, collate
-    from pillars_torch.data.sampler import DataBaseSampler
     from pillars_torch.models.detector import PillarsDetector
-    from pillars_torch.train.loop import (batch_to_device, forward_backward,
-                                          make_train_step)
-    from pillars_torch.utils.profiling import cuda_ms, device_busy
+    from pillars_torch.train.loop import batch_to_device, forward_backward
 
     cfg = _with_split(Config.default(), root)
     thr = cfg.train_input.anchor_area_threshold
-    sampler = DataBaseSampler(cfg.train_input.sampler.info_path,
-                              cfg.train_input.sampler,
-                              rng=np.random.RandomState(0))
-    ds = PedestrianDataset(cfg, cfg.train_input, training=True,
-                           sampler=sampler, rng=np.random.RandomState(0))
     t0 = time.perf_counter()
-    batches = [collate([ds[2 * i], ds[2 * i + 1]]) for i in range(20)]
+    batches = _train_batches(cfg, 20)
     loader_ms = (time.perf_counter() - t0) * 1e3 / 20
     batch = batches[0]
     det, det_cpu = PillarsDetector(cfg), PillarsDetector(cfg, device="cpu")
-    state, opt = _train_state(det, state_cpu)
+    state, _ = _train_state(det, state_cpu)
     state_h, _ = _train_state(det_cpu, state_cpu)
 
     fb = forward_backward(det, state, batch, thr)
@@ -1015,7 +1019,43 @@ def run_train_step(state_cpu, smi, root):
           f"statistics {stat_err:.3e} (tol {STAT_RTOL}); loss "
           f"{float(fb.loss.loss):.4f}")
 
-    on_card = batch_to_device(batch, det.device)
+    stats = {"loader_ms_per_batch": loader_ms,
+             **_time_train_step(cfg, state_cpu,
+                                batch_to_device(batch, det.device))}
+    print(f"train step B=2 full width: {_step_line(stats)}; the host makes "
+          f"one augmented batch (sampler, noise, global transforms) in "
+          f"{loader_ms:.1f} ms on one thread [{smi}]")
+    print("train step: " + json.dumps(stats))
+    return stats
+
+
+def _train_batches(cfg, n):
+    """The first ``n`` B=2 batches of the hard train split as training
+    reads it (``PedestrianDataset(training=True)`` with the GT-database
+    sampler, seed 0)."""
+    from pillars_torch.data.pipeline import PedestrianDataset, collate
+    from pillars_torch.data.sampler import DataBaseSampler
+
+    sampler = DataBaseSampler(cfg.train_input.sampler.info_path,
+                              cfg.train_input.sampler,
+                              rng=np.random.RandomState(0))
+    ds = PedestrianDataset(cfg, cfg.train_input, training=True,
+                           sampler=sampler, rng=np.random.RandomState(0))
+    return [collate([ds[2 * i], ds[2 * i + 1]]) for i in range(n)]
+
+
+def _time_train_step(cfg, state_cpu, on_card):
+    """ms per step (CUDA events over 20 warm steps), host wall ms per step,
+    launches, device ms and idle share per step (torch.profiler) and the
+    peak device memory of a step above the state with ``rpn.remat`` off
+    and on, for the train step of ``cfg`` from ``state_cpu`` on the batch
+    ``on_card``."""
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.loop import make_train_step
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
+
+    det = PillarsDetector(cfg)
+    state, opt = _train_state(det, state_cpu)
     step = make_train_step(det, opt)
     for _ in range(3):
         step(state, on_card)
@@ -1038,100 +1078,115 @@ def run_train_step(state_cpu, smi, root):
         s(state, on_card)
         torch.cuda.synchronize()
         peak[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    stats = {"loader_ms_per_batch": loader_ms,
-             "ms_per_step": ms, "host_wall_ms_per_step": wall_ms,
-             "launches_per_step": launches, "device_ms_per_step": device_ms,
-             "idle_share": 1 - device_ms / prof_wall,
-             "peak_mib_remat_off": peak[False],
-             "peak_mib_remat_on": peak[True]}
-    print(f"train step B=2 full width: {ms:.3f} ms per step (CUDA events, 20 "
-          f"warm steps), {wall_ms:.3f} ms host wall; {launches:g} launches "
-          f"and {device_ms:.3f} ms of device time per step, idle share "
-          f"{stats['idle_share']:.3f} (torch.profiler); peak device memory "
-          f"of a step above the state {peak[False]:.1f} MiB with rpn.remat "
-          f"off, {peak[True]:.1f} MiB on; the host makes one augmented "
-          f"batch (sampler, noise, global transforms) in {loader_ms:.1f} ms "
-          f"on one thread [{smi}]")
-    print("train step: " + json.dumps(stats))
-    return stats
+    return {"ms_per_step": ms, "host_wall_ms_per_step": wall_ms,
+            "launches_per_step": launches, "device_ms_per_step": device_ms,
+            "idle_share": 1 - device_ms / prof_wall,
+            "peak_mib_remat_off": peak[False],
+            "peak_mib_remat_on": peak[True]}
 
 
-def run_trainer(smi, root, out, n_clouds):
-    """Epoch 0 of a Trainer from ``PillarsDetector.init`` on the first
-    ``n_clouds`` train clouds, then epoch 1 in a new Trainer resumed from
-    the first's weights_temp.pkl; returns the NMS launches of the two
-    evals."""
+def _step_line(t):
+    return (f"{t['ms_per_step']:.3f} ms per step (CUDA events, 20 warm "
+            f"steps), {t['host_wall_ms_per_step']:.3f} ms host wall; "
+            f"{t['launches_per_step']:g} launches and "
+            f"{t['device_ms_per_step']:.3f} ms of device time per step, idle "
+            f"share {t['idle_share']:.3f} (torch.profiler); peak device "
+            f"memory of a step above the state "
+            f"{t['peak_mib_remat_off']:.1f} MiB with rpn.remat off, "
+            f"{t['peak_mib_remat_on']:.1f} MiB on")
+
+
+def _train_cfg(root, out, n_clouds):
+    """``Config.default()`` on the first ``n_clouds`` clouds of the hard
+    train split, writing its runs under ``out``."""
     import pickle
 
     from pillars_torch.config import Config
-    from pillars_torch.train.trainer import Trainer
 
     with open(f"{root}/kitti_infos_train.pkl", "rb") as f:
         infos = pickle.load(f)
     train_info = f"{out}_infos_train.pkl"
     with open(train_info, "wb") as f:
         pickle.dump(infos[:n_clouds], f, 2)
-    cfg = (_with_split(Config.default(), root).override("out_dir", out)
-           .override("train_input.info_path", train_info))
-    results = []
-    for epoch in (0, 1):
-        trainer = Trainer(cfg)
-        if epoch:
-            step = trainer.resume(os.path.join(
-                results[0]["dirs"]["checkpoints"], "weights_temp.pkl"))
-            if step != results[0]["steps"] or trainer._start_epoch != 1:
-                raise AssertionError(f"resume: step {step}, epoch "
-                                     f"{trainer._start_epoch}")
-        losses, evals = [], []
-        inner_step, inner_eval = trainer.step_fn, trainer.evaluator.evaluate
+    return (_with_split(Config.default(), root).override("out_dir", out)
+            .override("train_input.info_path", train_info))
 
-        def step_fn(state, batch):
-            state, metrics = inner_step(state, batch)
-            losses.append(metrics.loss)
-            return state, metrics
 
-        def evaluate(*args, **kwargs):
-            _reset_counts()
-            t0 = time.perf_counter()
-            out = inner_eval(*args, **kwargs)
-            evals.append((out[4], _read_counts()["nms_keep_mask"],
-                          time.perf_counter() - t0))
-            return out
+def _trainer_epoch(cfg, epoch, resume=None):
+    """Epoch ``epoch`` of a new ``Trainer(cfg)`` (from ``PillarsDetector.
+    init``, or resumed from ``resume``'s weights_temp.pkl) with its eval:
+    the losses of its steps, its NMS launches and its times. Gates: the
+    state on the card, the eval's NMS launches equal to its batches."""
+    from pillars_torch.train.trainer import Trainer
 
-        trainer.step_fn, trainer.evaluator.evaluate = step_fn, evaluate
+    trainer = Trainer(cfg)
+    if resume is not None:
+        step = trainer.resume(os.path.join(resume["dirs"]["checkpoints"],
+                                           "weights_temp.pkl"))
+        if step != resume["steps"] or trainer._start_epoch != epoch:
+            raise AssertionError(f"resume: step {step}, epoch "
+                                 f"{trainer._start_epoch}")
+    losses, evals = [], []
+    inner_step, inner_eval = trainer.step_fn, trainer.evaluator.evaluate
+
+    def step_fn(state, batch):
+        state, metrics = inner_step(state, batch)
+        losses.append(metrics.loss)
+        return state, metrics
+
+    def evaluate(*args, **kwargs):
+        _reset_counts()
         t0 = time.perf_counter()
-        trainer.train(epochs=epoch + 1)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0 - sum(e[2] for e in evals)
-        if trainer.device.type != CARD or any(
-                t.device.type != CARD
-                for t in (*trainer.state.params.values(),
-                          *trainer.state.batch_stats.values(),
-                          *trainer.state.opt_state.mu.values())):
-            raise AssertionError("the Trainer's state left the card")
-        n_eval = len(trainer.evaluator.dataset)
-        batches = -(-n_eval // cfg.eval_input.batch_size)
-        if len(evals) != 1 or evals[0][1] != batches:
-            raise AssertionError(f"epoch {epoch} eval: NMS launches "
-                                 f"{[e[1] for e in evals]} for {batches} "
-                                 f"batches")
-        loss = torch.stack(losses).float().cpu()
-        steps = trainer.state.step
-        results.append({"dirs": trainer.dirs, "steps": steps,
-                        "n_steps": len(losses), "seconds": seconds,
-                        "last50": float(loss[-50:].mean()),
-                        "ap": evals[0][0], "eval_seconds": evals[0][2],
-                        "nms_launches": evals[0][1]})
-        print(f"Trainer epoch {epoch}, {n_clouds} train clouds: "
-              f"{len(losses)} steps in {seconds:.2f} s "
-              f"({len(losses) / seconds:.2f} steps/s, B=2), loss first "
-              f"{float(loss[0]):.4f}, mean of the last 50 "
-              f"{results[-1]['last50']:.4f}; eval {evals[0][2]:.2f} s, NMS "
-              f"launches {evals[0][1]} = eval batches; aggregate AP "
-              f"{evals[0][0]:.4f} after {steps} steps (the JAX run after "
-              f"{steps} steps: {JAX_AP_AFTER_STEPS.get(steps, 'no eval')}) "
-              f"[{smi}]")
-    r0, r1 = results
+        out = inner_eval(*args, **kwargs)
+        evals.append((out[4], _read_counts()["nms_keep_mask"],
+                      time.perf_counter() - t0))
+        return out
+
+    trainer.step_fn, trainer.evaluator.evaluate = step_fn, evaluate
+    t0 = time.perf_counter()
+    trainer.train(epochs=epoch + 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0 - sum(e[2] for e in evals)
+    if trainer.device.type != CARD or any(
+            t.device.type != CARD
+            for t in (*trainer.state.params.values(),
+                      *trainer.state.batch_stats.values(),
+                      *trainer.state.opt_state.mu.values())):
+        raise AssertionError("the Trainer's state left the card")
+    n_eval = len(trainer.evaluator.dataset)
+    batches = -(-n_eval // cfg.eval_input.batch_size)
+    if len(evals) != 1 or evals[0][1] != batches:
+        raise AssertionError(f"epoch {epoch} eval: NMS launches "
+                             f"{[e[1] for e in evals]} for {batches} "
+                             f"batches")
+    loss = torch.stack(losses).float().cpu()
+    return {"dirs": trainer.dirs, "steps": trainer.state.step,
+            "n_steps": len(losses), "seconds": seconds,
+            "first_loss": float(loss[0]), "last50": float(loss[-50:].mean()),
+            "ap": evals[0][0], "eval_seconds": evals[0][2],
+            "nms_launches": evals[0][1]}
+
+
+def _epoch_line(r, epoch, n_clouds):
+    return (f"epoch {epoch}, {n_clouds} train clouds: {r['n_steps']} steps "
+            f"in {r['seconds']:.2f} s ({r['n_steps'] / r['seconds']:.2f} "
+            f"steps/s, B=2), loss first {r['first_loss']:.4f}, mean of the "
+            f"last 50 {r['last50']:.4f}; eval {r['eval_seconds']:.2f} s, NMS "
+            f"launches {r['nms_launches']} = eval batches; aggregate AP "
+            f"{r['ap']:.4f} after {r['steps']} steps")
+
+
+def run_trainer(smi, root, out, n_clouds):
+    """Epoch 0 of a Trainer from ``PillarsDetector.init`` on the first
+    ``n_clouds`` train clouds, then epoch 1 in a new Trainer resumed from
+    the first's weights_temp.pkl; returns both epochs' results."""
+    cfg = _train_cfg(root, out, n_clouds)
+    r0 = _trainer_epoch(cfg, 0)
+    r1 = _trainer_epoch(cfg, 1, resume=r0)
+    for epoch, r in enumerate((r0, r1)):
+        print(f"Trainer {_epoch_line(r, epoch, n_clouds)} (the JAX run after "
+              f"{r['steps']} steps: "
+              f"{JAX_AP_AFTER_STEPS.get(r['steps'], 'no eval')}) [{smi}]")
     if not r0["last50"] < LOSS_GATE:
         raise AssertionError(f"epoch 0: mean loss of the last 50 steps "
                              f"{r0['last50']} not below {LOSS_GATE}")
@@ -1145,13 +1200,13 @@ def run_trainer(smi, root, out, n_clouds):
                              f"{AP1_FLOOR}")
     summary = {"train_clouds": n_clouds,
                "epoch_seconds": [r0["seconds"], r1["seconds"]],
-               "steps_per_s": [r["n_steps"] / r["seconds"] for r in results],
+               "steps_per_s": [r["n_steps"] / r["seconds"] for r in (r0, r1)],
                "last50_loss_epoch0": r0["last50"],
                "ap": [r0["ap"], r1["ap"]], "steps": [r0["steps"], r1["steps"]],
                "eval_seconds": [r0["eval_seconds"], r1["eval_seconds"]],
                "jax_ap_after_steps": JAX_AP_AFTER_STEPS}
     print("trainer: " + json.dumps(summary))
-    return [r0["nms_launches"], r1["nms_launches"]]
+    return r0, r1
 
 
 def _rulebooks_equal(det, det_cpu, v, v_cpu, label):
@@ -1846,6 +1901,120 @@ def run_bf16_second(root):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: runtime.compute_dtype=bfloat16 training
+
+# the bfloat16 Trainer's last-50-step mean loss against the f32 Trainer's
+# epoch 0 in the same call
+BF16_LOSS_GAP = 0.3
+
+
+def run_bf16_train_step(state_cpu, smi, root):
+    """16.1: the bf16 train step at full width, B=2, from the trained
+    checkpoint on phase 10's first batch, the card against the port on the
+    CPU in bf16 relative to the CPU's own bf16-f32 gap (the training
+    criteria of tests/torch_parity.py); then bf16 and f32 step times in
+    turns (f32, bf16, bf16, f32)."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.loop import batch_to_device, forward_backward
+
+    tp = _parity()
+    cfg = _with_split(Config.default(), root)
+    cfg_bf = cfg.override("runtime.compute_dtype", "bfloat16")
+    thr = cfg.train_input.anchor_area_threshold
+    batch = _train_batches(cfg, 1)[0]
+    fbs = {}
+    for name, c, dev in (("card", cfg_bf, None), ("cpu", cfg_bf, "cpu"),
+                         ("cpu32", cfg, "cpu")):
+        det = PillarsDetector(c, device=dev)
+        fbs[name] = forward_backward(det, _train_state(det, state_cpu)[0],
+                                     batch, thr)
+    torch.cuda.synchronize()
+    fb, fb_h, fb32 = fbs["card"], fbs["cpu"], fbs["cpu32"]
+    if not torch.equal(fb.targets.labels.cpu(), fb_h.targets.labels):
+        raise AssertionError("bf16 train step: labels differ between card "
+                             "and CPU")
+    if not (fb_h.targets.labels > 0).any():
+        raise AssertionError("bf16 train step: no positive anchor")
+    if fb.cls_preds.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 train step: heads {fb.cls_preds.dtype}")
+    if any(g.dtype != torch.float32 or g.device.type != CARD
+           for g in fb.grads.values()):
+        raise AssertionError("bf16 train step: gradients not f32 on the card")
+    # every ratio first, then the gates: a failing run still prints them
+    loss = {}
+    for k, a, b, c in zip(fb.loss._fields, fb.loss, fb_h.loss, fb32.loss):
+        a, b, c = float(a), float(b), float(c)
+        loss[k] = (abs(a - b) / max(abs(b - c), 1e-30),
+                   abs(a - b) / max(abs(b), 1e-30))
+    grads = {k: tp.grad_ratios(fb.grads[k].cpu(), g, fb32.grads[k])
+             for k, g in fb_h.grads.items()}
+    stats = {k: (tp.head_ratio(fb.batch_stats[k], v, fb32.batch_stats[k]),
+                 float((fb.batch_stats[k].cpu() - v).abs().max()
+                       / (v - fb32.batch_stats[k]).abs().max()))
+             for k, v in fb_h.batch_stats.items() if v.is_floating_point()}
+
+    def worst(d, i):
+        k = max(d, key=lambda k: d[k][i])
+        return f"{d[k][i]:.4f} ({k})"
+
+    print(f"bf16 train step B=2 full width, card vs CPU (both bf16): labels "
+          f"equal; loss parts |card - CPU| over the CPU's bf16-f32 gap, and "
+          f"relative: " + ", ".join(f"{k} {g:.3f} / {r:.2e}"
+                                    for k, (g, r) in loss.items())
+          + f" (gate: {tp.BF16_LOSS_GAP_FACTOR} x the gap or "
+          f"{tp.BF16_LOSS_RTOL} relative); {len(grads)} gradient leaves, rms "
+          f"over the larger of the gap and one bf16 step: worst "
+          f"{worst(grads, 0)}, median "
+          f"{np.median([r for r, _ in grads.values()]):.4f} (gate "
+          f"{tp.BF16_GRAD_FACTOR}), max over its max: worst "
+          f"{worst(grads, 1)}; {len(stats)} new BN statistics, rms over the "
+          f"gap: worst {worst(stats, 0)}, median "
+          f"{np.median([r for r, _ in stats.values()]):.4f} (gate "
+          f"{tp.BF16_RMS_FACTOR_TRAIN}), max over its max: worst "
+          f"{worst(stats, 1)}; loss {float(fb.loss.loss):.4f} (f32 "
+          f"{float(fb32.loss.loss):.4f})")
+    bad = ([k for k, (g, r) in loss.items()
+            if g > tp.BF16_LOSS_GAP_FACTOR and r > tp.BF16_LOSS_RTOL]
+           + [k for k, (r, _) in grads.items() if r > tp.BF16_GRAD_FACTOR]
+           + [k for k, (r, _) in stats.items()
+              if r > tp.BF16_RMS_FACTOR_TRAIN])
+    if bad:
+        raise AssertionError(f"bf16 train step card vs CPU: {bad}")
+
+    on_card = batch_to_device(batch, CARD)
+    times = {"float32": [], "bfloat16": []}
+    for c in (cfg, cfg_bf, cfg_bf, cfg):
+        times[c.runtime.compute_dtype].append(
+            _time_train_step(c, state_cpu, on_card))
+    for dtype, runs in times.items():
+        for i, t in enumerate(runs):
+            print(f"train step {dtype} (turn {i + 1} of 2): {_step_line(t)}")
+    print(f"bf16 train step [{smi}]: " + json.dumps(times))
+    return times
+
+
+def run_bf16_trainer(smi, root, out, n_clouds, f32_epoch0):
+    """16.2: epoch 0 of a bfloat16 Trainer from ``PillarsDetector.init`` on
+    phase 11's train clouds, with its bfloat16 eval; returns its results."""
+    cfg = _train_cfg(root, out, n_clouds).override("runtime.compute_dtype",
+                                                   "bfloat16")
+    r = _trainer_epoch(cfg, 0)
+    print(f"bf16 Trainer {_epoch_line(r, 0, n_clouds)}; the f32 Trainer's "
+          f"epoch 0 in this call: last-50 mean {f32_epoch0['last50']:.4f}, "
+          f"{f32_epoch0['seconds']:.2f} s, AP {f32_epoch0['ap']:.4f} [{smi}]")
+    if not r["last50"] < LOSS_GATE:
+        raise AssertionError(f"bf16 epoch 0: mean loss of the last 50 steps "
+                             f"{r['last50']} not below {LOSS_GATE}")
+    if not abs(r["last50"] - f32_epoch0["last50"]) <= BF16_LOSS_GAP:
+        raise AssertionError(f"bf16 epoch 0: last-50 mean {r['last50']} "
+                             f"against f32 {f32_epoch0['last50']}")
+    print("bf16 trainer: " + json.dumps(
+        {k: v for k, v in r.items() if k != "dirs"}))
+    return r
+
+
 def main(argv=None):
     import argparse
 
@@ -1889,8 +2058,8 @@ def main(argv=None):
         make_hard_split(root)
         serving["evaluate"] = run_evaluate(state_cpu, smi, root)
         run_train_step(state_cpu, smi, root)
-        train_eval = run_trainer(smi, root, os.path.join(root, "runs"),
-                                 args.train_clouds)
+        trainer_runs = run_trainer(smi, root, os.path.join(root, "runs"),
+                                   args.train_clouds)
         second = run_second_sparse(smi, root)
         t15 = time.perf_counter()
         rpn_bf16 = check_rpn_kernel_bf16(cfg.model, rpn)
@@ -1899,6 +2068,12 @@ def main(argv=None):
         bf16["evaluate"] = run_bf16_evaluate(state_cpu, smi, root)
         bf16["second_sparse"] = run_bf16_second(root)
         print(f"phase 15 (bf16): {time.perf_counter() - t15:.1f} s")
+        t16 = time.perf_counter()
+        run_bf16_train_step(state_cpu, smi, root)
+        bf16_trainer = run_bf16_trainer(
+            smi, root, os.path.join(root, "runs_bf16"), args.train_clouds,
+            trainer_runs[0])
+        print(f"phase 16 (bf16 training): {time.perf_counter() - t16:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     second_dense = run_second_dense(smi)
@@ -1921,7 +2096,8 @@ def main(argv=None):
     nms["launches_by_path"] = {
         "dense": dense["nms_keep_mask"], "fast": fast["nms_keep_mask"],
         **{k: v["nms_keep_mask"] for k, v in serving.items()},
-        "train_eval": sum(train_eval),
+        "train_eval": sum(r["nms_launches"] for r in trainer_runs),
+        "train_eval_bf16": bf16_trainer["nms_launches"],
         **{k: sum(c["nms_keep_mask"] for c in v)
            for k, v in second_paths.items()},
         **{f"{k}_bf16": v["nms_keep_mask"] for k, v in bf16.items()}}

@@ -6,10 +6,11 @@
     pillars-torch create-data --root DATASET --num-train N [--num-test M]
     pillars-torch synth-data --root DIR ...
     pillars-torch sample-val-data --val-info INFOS.pkl ...
+    pillars-torch capture --root DIR [--mode predefined|unannotated|annotate]
+    pillars-torch visualize --root DATASET [--result result_<epoch>.pkl]
 
 Every command that runs the detector runs it on the card; ``--device cpu``
-asks for the CPU. ``capture``, ``visualize`` and ``bench`` are not ported
-yet and say so.
+asks for the CPU. ``bench`` is not ported yet and says so.
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ from typing import List, Optional
 
 # subcommands of the JAX package's CLI that a later slice of the port brings
 _NOT_PORTED = {
-    "capture": "the capture slice (data/capture.py)",
-    "visualize": "the visualization slice (viz/plot.py)",
     "bench": "the benchmark slice (bench_torch.py)",
 }
 
@@ -71,6 +70,93 @@ def cmd_train(args):
                          overfit_first_batch=args.overfit_first_batch,
                          replay_batch_file=args.replay_batch_file)
     print(f"best eval score: {best:.2f}")
+
+
+def cmd_capture(args):
+    """Dataset capture (reference scripts/realsense_make_dataset.py CLI:
+    ``live_mode_off DATASETPATH ROTATION START_IDX END_IDX train`` is
+    ``capture --mode predefined --rotation R --start S --end E``;
+    ``live_mode_on`` is ``--mode unannotated``). Headless sources:
+    synthetic | replay:<dataset_root>; ``ros`` subscribes the live
+    RealSense topic where rospy exists."""
+    import itertools
+
+    import numpy as np
+
+    from pillars_torch.data import capture as cap
+
+    if args.mode == "annotate":
+        # interactive keyboard annotation over already-captured clouds
+        # (reference realsense_make_dataset.py:622-801: enter save, m save
+        # empty, h skip, z back, x quit; wasd/qe/rf edit the box live)
+        from pillars_torch.viz.publisher import make_publisher
+
+        pub = make_publisher(args.publisher, out_dir=args.viz_dir)
+        stats = cap.annotate_dataset(
+            args.root, cap.stdin_key_source(), split=args.split,
+            publisher=pub, start_idx=args.start, verbose=True)
+        print(f"[capture] annotate done: {stats['annotated']} annotated, "
+              f"{stats['empty']} empty, {stats['skipped']} skipped "
+              f"(stopped at frame {stats['last_index']})")
+        return
+
+    def frame_iter():
+        if args.source == "synthetic":
+            from pillars_torch.data.synthetic import make_scene
+
+            rng = np.random.RandomState(args.seed)
+            while True:
+                points, _ = make_scene(rng)
+                yield points  # already lidar coords
+        elif args.source.startswith("replay:"):
+            import pickle
+
+            root = args.source.split(":", 1)[1]
+            sub = "training/velodyne"
+            d = os.path.join(root, sub)
+            for name in sorted(os.listdir(d)):
+                with open(os.path.join(d, name), "rb") as f:
+                    yield np.asarray(pickle.load(f), dtype=np.float32)
+        elif args.source == "ros":
+            from pillars_torch.data.stream import (LatestFrameMailbox,
+                                                   ros_source)
+
+            mailbox = LatestFrameMailbox()
+            ros_source(mailbox)
+            while True:
+                frame, _skipped = mailbox.take(timeout=5.0)
+                if frame is None:
+                    return
+                yield frame
+        else:
+            raise SystemExit(f"unknown capture source {args.source!r}")
+
+    # every source yields lidar-frame clouds: replay/synthetic natively,
+    # and ros_source applies d435i_to_lidar (+1::4 subsample) in its
+    # subscriber callback (data/stream.py) — transforming again here
+    # would double-rotate and double-subsample
+    already_lidar = True
+    frames = itertools.islice(frame_iter(), args.start, args.end)
+    if args.mode == "predefined":
+        rotations = ([args.rotation] if args.rotation is not None
+                     else cap.PREDEFINED_ROTATIONS)
+        n = cap.capture_predefined(frames, args.root,
+                                   every_nth=args.every_nth,
+                                   rotations=rotations,
+                                   already_lidar=already_lidar,
+                                   max_frames=args.max_frames)
+    else:
+        n = cap.capture_unannotated(frames, args.root,
+                                    already_lidar=already_lidar,
+                                    max_frames=args.max_frames)
+    if args.mode == "predefined":
+        print(f"[capture] saved {n} predefined clouds to "
+              f"{args.root}/training (next: pillars-torch create-data "
+              f"--root {args.root} --num-train {n})")
+    else:
+        print(f"[capture] saved {n} unannotated clouds to "
+              f"{args.root}/testing (next: pillars-torch create-data "
+              f"--root {args.root} --num-train 0 --num-test {n})")
 
 
 def cmd_sample_val_data(args):
@@ -194,6 +280,56 @@ def cmd_stream(args):
     print(json.dumps(stats))
 
 
+def cmd_visualize(args):
+    """Render dataset frames + optional predictions to BEV PNGs — the
+    headless analogue of the reference's rviz_show_predictions.py."""
+    import pickle
+
+    import numpy as np
+
+    from pillars_torch.viz import plot
+
+    cfg = _load_config(args)
+    with open(f"{args.root}/{args.info}", "rb") as f:
+        infos = pickle.load(f)
+    dt_annos = None
+    if args.result:
+        with open(args.result, "rb") as f:
+            dt_annos = pickle.load(f)
+    from pillars_torch.geometry import np_boxes as nb
+
+    os.makedirs(args.out, exist_ok=True)
+    count = 0
+    for i, info in enumerate(infos[: args.max_frames]):
+        path = f"{args.root}/{info['velodyne_path']}"
+        with open(path[:-3] + "pkl", "rb") as f:
+            points = pickle.load(f, encoding="latin1")
+        annos = info["annos"]
+        gt_cam = np.concatenate(
+            [annos["location"], annos["dimensions"],
+             annos["rotation_y"][..., None]], axis=1)
+        gt = nb.box_camera_to_lidar(gt_cam, info["calib/R0_rect"],
+                                    info["calib/Tr_velo_to_cam"])
+        pred, scores = None, None
+        if dt_annos is not None and i < len(dt_annos):
+            da = dt_annos[i]
+            if len(da["name"]):
+                cam = np.concatenate(
+                    [da["location"], da["dimensions"],
+                     da["rotation_y"][..., None]], axis=1)
+                pred = nb.box_camera_to_lidar(
+                    cam, info["calib/R0_rect"], info["calib/Tr_velo_to_cam"])
+                scores = da["score"]
+                keep = scores >= args.min_score
+                pred, scores = pred[keep], scores[keep]
+        plot.plot_bev(points=points, gt_boxes=gt, pred_boxes=pred,
+                      scores=scores,
+                      point_cloud_range=cfg.model.voxel.point_cloud_range,
+                      save_path=f"{args.out}/{i:06d}.png")
+        count += 1
+    print(f"rendered {count} frames to {args.out}")
+
+
 def cmd_not_ported(args):
     raise SystemExit(
         f"pillars-torch {args.cmd}: not ported yet; it comes with "
@@ -292,6 +428,53 @@ def main(argv: Optional[List[str]] = None):
                          "(debug_points + bb_pred_guess_1) per frame to "
                          "this directory via the OfflinePublisher")
     sp.set_defaults(fn=cmd_stream)
+
+    sp = sub.add_parser(
+        "capture",
+        help="dataset capture + few-annotation trick (the reference's "
+             "scripts/realsense_make_dataset.py)")
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--mode",
+                    choices=["predefined", "unannotated", "annotate"],
+                    default="predefined",
+                    help="predefined = live_mode_off (every Nth cloud gets "
+                         "the predefined box); unannotated = live_mode_on; "
+                         "annotate = interactive keyboard annotation over "
+                         "the saved clouds of --root (reference "
+                         "callback_real_annotation_anno)")
+    sp.add_argument("--split", default="training",
+                    choices=["training", "testing"],
+                    help="annotate mode: which split's clouds to annotate")
+    sp.add_argument("--publisher", default="auto",
+                    choices=["auto", "ros", "offline", "null"],
+                    help="annotate mode: where live feedback goes (ros = "
+                         "RVIZ topics debug_points/debug_load_data_bb; "
+                         "offline records to --viz-dir)")
+    sp.add_argument("--viz-dir", default=None,
+                    help="annotate mode: out dir for --publisher offline")
+    sp.add_argument("--source", default="synthetic",
+                    help="synthetic | replay:<dataset_root> | ros")
+    sp.add_argument("--rotation", type=float, default=None,
+                    help="fixed box rotation for this run (reference "
+                         "ROTATION arg); default cycles the 8 predefined")
+    sp.add_argument("--start", type=int, default=0)
+    sp.add_argument("--end", type=int, default=None)
+    sp.add_argument("--every-nth", type=int, default=4)
+    sp.add_argument("--max-frames", type=int, default=None)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_capture)
+
+    sp = sub.add_parser("visualize",
+                        help="render frames + predictions to BEV PNGs")
+    common(sp)
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--info", default="kitti_infos_val.pkl")
+    sp.add_argument("--result", default=None,
+                    help="result_<epoch>.pkl from an eval run")
+    sp.add_argument("--out", default="viz_out")
+    sp.add_argument("--max-frames", type=int, default=20)
+    sp.add_argument("--min-score", type=float, default=0.45)
+    sp.set_defaults(fn=cmd_visualize)
 
     for name, slice_ in _NOT_PORTED.items():
         sp = sub.add_parser(name, help=f"not ported yet ({slice_})")

@@ -184,8 +184,8 @@ def replay_source(mailbox: LatestFrameMailbox, hz: float, duration_s: float,
 
 def d435i_to_lidar(points_xyz: np.ndarray, subsample: int = 4,
                    z_lift: float = 1.0) -> np.ndarray:
-    """RealSense image coords -> lidar coords (the one function of
-    pillars_tpu/data/capture.py that the live source needs).
+    """RealSense image coords -> lidar coords (pillars_tpu/data/capture.py;
+    the live source and data/capture.py use it).
 
     reference load_data.py:2433-2444 / realsense_make_dataset.py:395-412:
     take every 4th point, rotate R_y(-90) then R_x(90), lift z by 1 m."""

@@ -20,12 +20,13 @@ paths therefore turns TF32 off for convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``, process-wide flags).
 
-``runtime.compute_dtype=bfloat16`` (inference and evaluation): every
-network computes in bfloat16 at the JAX package's rounding points
-(models/layers.py), the fused blocks read and write bfloat16 and compute in
-float32 (ops/rpn_cuda.py), and the heads come out in bfloat16;
-``postprocess`` casts them to float32, so predictions stay float32.
-Training in bfloat16 is a later slice: ``apply(train=True)`` raises.
+``runtime.compute_dtype=bfloat16``: every network computes in bfloat16 at
+the JAX package's rounding points (models/layers.py), the fused blocks read
+and write bfloat16 and compute in float32 (ops/rpn_cuda.py), and the heads
+come out in bfloat16; ``postprocess`` and the loss cast them to float32, so
+predictions and losses stay float32. In train mode (``apply(train=True)``)
+the BNs take their batch statistics in float32, the parameters stay
+float32 and receive float32 gradients through the casts.
 """
 
 from __future__ import annotations
@@ -222,7 +223,7 @@ class Network(nn.Module):
         cell_global = cv.cell + offset  # stays non-decreasing over the fold
         cell_feats, num_points = self.pfn(
             flat(cv.points), flat(cv.cell), flat(cell_global), flat(cv.kept),
-            flat(cv.count), flat(cv.mean), b * n_cells)
+            flat(cv.count), flat(cv.mean), b * n_cells, cv.num_pillars)
         # cell id = (z*ny + y)*nx + x, so the canvas is a reshape; the
         # z-layer SUM keeps the reference's scatter-ADD quirk (in the
         # features' dtype, as the JAX package sums)
@@ -378,11 +379,6 @@ class PillarsDetector:
         net = self.network
         if not train:
             return torch.func.functional_call(net, state, (voxelized,))
-        if self.dtype is not None:
-            raise NotImplementedError(
-                "a train-mode forward with runtime.compute_dtype=bfloat16 "
-                "(train-mode BN and the loss in bfloat16) comes with the bf16 "
-                "training slice of the port")
         collect_batch_stats(net)  # drop what a remat recomputation left
         net.train()
         try:

@@ -7,7 +7,9 @@ where flax does. A Dense or a conv (:class:`Linear`, :class:`Conv2d`,
 weight to the dtype, so the op runs and returns in it (flax's
 ``promote_dtype``; float32 accumulation, one rounding of the output). A
 BatchNorm computes in float32 from the float32 statistics and rounds its
-output once. The parameters and statistics stay float32.
+output once; in train mode it takes the batch statistics in float32 from
+the rounded activations (flax's ``force_float32_reductions``), and the
+gradient flows through them. The parameters and statistics stay float32.
 """
 
 from __future__ import annotations
@@ -25,6 +27,12 @@ def promote(dtype: Optional[torch.dtype], *tensors):
     if dtype is None:
         return tensors
     return tuple(t.to(dtype) for t in tensors)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own dtype where that is wider (the
+    dtype of train-mode BN statistics)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class Linear(nn.Linear):
@@ -179,14 +187,18 @@ class BatchNorm(nn.Module):
             return nn.functional.batch_norm(
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps)
+        # flax's force_float32_reductions: the statistics in at least
+        # float32 from the activations, the output rounded once
+        xf = at_least_f32(x)
         axes = [0] + list(range(2, x.ndim))
-        mean = x.mean(dim=axes)
-        var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+        mean = xf.mean(dim=axes)
+        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
         self._record(mean, var)
         shape = [1, -1] + [1] * (x.ndim - 2)
         inv = torch.rsqrt(var + self.eps)
-        return ((x - mean.reshape(shape)) * (inv * self.weight).reshape(shape)
-                + self.bias.reshape(shape))
+        y = ((x - mean.reshape(shape)) * (inv * self.weight).reshape(shape)
+             + self.bias.reshape(shape))
+        return y.to(self.compute_dtype or x.dtype)
 
 
 class MaskedBatchNorm(BatchNorm):
@@ -206,12 +218,13 @@ class MaskedBatchNorm(BatchNorm):
     def forward(self, x, mask):
         """x [..., F]; mask broadcastable to x[..., 0] (True = real)."""
         if self.training:
-            m = torch.broadcast_to(mask, x.shape[:-1]).to(x.dtype)[..., None]
+            xf = at_least_f32(x)
+            m = torch.broadcast_to(mask, x.shape[:-1]).to(xf.dtype)[..., None]
             axes = tuple(range(x.ndim - 1))
             count = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(dim=axes) / count
-            var = torch.clamp((x * x * m).sum(dim=axes) / count - mean * mean,
-                              min=0.0)
+            mean = (xf * m).sum(dim=axes) / count
+            var = torch.clamp((xf * xf * m).sum(dim=axes) / count
+                              - mean * mean, min=0.0)
             self._record(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -9,9 +9,8 @@ relu(bn(0)), the processed zero row of the reference's padded layout; empty
 pillars are zero. Every module names its parameters ``dense`` and ``bn``, so
 they load the same checkpoint (``PillarFeatureNet``'s only while
 ``pfn.with_distance`` is off: the flag widens its input by the point's
-norm, and only this PFN reads it, as in the JAX package). ``PointwisePFN``
-and ``PillarFeatureNet`` train (the batch statistics of the reference's
-dense layout); ``DenseCellPFN`` is the inference front end and eval-only.
+norm, and only this PFN reads it, as in the JAX package). Every PFN trains
+with the batch statistics of the reference's dense layout, taken in float32.
 
 ``dtype`` (``runtime.compute_dtype``): the Linear computes in it, the BN
 computes in float32 and rounds to it, and the scatter-max, its -inf fill,
@@ -27,18 +26,20 @@ import torch
 from torch import nn
 
 from pillars_torch.config import ModelConfig
-from pillars_torch.models.layers import BatchNorm, Linear, MaskedBatchNorm
+from pillars_torch.models.layers import (BatchNorm, Linear, MaskedBatchNorm,
+                                         at_least_f32)
 
 
 class _PointwiseMaskedBN(BatchNorm):
     """BatchNorm over point-major activations [M, F] with the statistics of
     the reference's dense [P, N, F] layout. Returns (bn(x), bn(0)).
 
-    Train mode: sums over kept points only (the dense layout's zero rows add
-    nothing to them), divided by ``count`` = real pillars x N, the dense
-    layout's row count; biased variance E[x^2] - E[x]^2 clipped at 0; the
-    gradient flows through both. bn(x) is computed in float32 and returned
-    in ``dtype`` (None: ``x``'s), bn(0) in float32."""
+    Train mode: sums in float32 (at least) over kept points only (the dense
+    layout's zero rows add nothing to them), divided by ``count`` = real
+    pillars x N, the dense layout's row count; biased variance E[x^2] -
+    E[x]^2 clipped at 0; the gradient flows through both. bn(x) is computed
+    in float32 and returned in ``dtype`` (None: ``x``'s), bn(0) in
+    float32."""
 
     def __init__(self, features: int, eps: float, momentum: float,
                  dtype: Optional[torch.dtype] = None):
@@ -47,10 +48,11 @@ class _PointwiseMaskedBN(BatchNorm):
 
     def forward(self, x, kept, count):
         if self.training:
-            k = kept[:, None].to(x.dtype)
-            count = torch.clamp(count.to(x.dtype), min=1.0)
-            mean = (x * k).sum(dim=0) / count
-            var = torch.clamp((x * x * k).sum(dim=0) / count - mean * mean,
+            xf = at_least_f32(x)
+            k = kept[:, None].to(xf.dtype)
+            count = torch.clamp(count.to(xf.dtype), min=1.0)
+            mean = (xf * k).sum(dim=0) / count
+            var = torch.clamp((xf * xf * k).sum(dim=0) / count - mean * mean,
                               min=0.0)
             self._record(mean, var)
         else:
@@ -142,14 +144,14 @@ class DenseCellPFN(nn.Module):
                                      pcfg.bn_momentum, dtype=dtype)
 
     def forward(self, points, cell_local, cell_global, kept, count, mean,
-                n_cells_total: int):
+                n_cells_total: int, num_pillars=None):
         """points [M, D] (cell-sorted, batch-folded), cell_local [M] (id in
         the per-sample grid; sentinel n_cells when invalid), cell_global [M]
-        (batch-offset), kept [M], count [M], mean [M, 3]."""
-        if self.training:
-            raise NotImplementedError(
-                "DenseCellPFN is the inference front end and eval-only; "
-                "training runs PointwisePFN")
+        (batch-offset), kept [M], count [M], mean [M, 3]; ``num_pillars``
+        [] (occupied cells across the fold) sets the train-mode BN's row
+        count ``num_pillars * N``, the dense layout's."""
+        if self.training and num_pillars is None:
+            raise ValueError("a train-mode DenseCellPFN needs num_pillars")
         vcfg = self.cfg.voxel
         vx, vy = vcfg.voxel_size[:2]
         pcr = vcfg.point_cloud_range
@@ -166,7 +168,8 @@ class DenseCellPFN(nn.Module):
         cx = cxi.to(points.dtype) * vx + x_offset
         cy = cyi.to(points.dtype) * vy + y_offset
 
-        x, zero_contrib = _encode(self, points, mean, cx, cy, kept)
+        rows = num_pillars * N if self.training else None
+        x, zero_contrib = _encode(self, points, mean, cx, cy, kept, rows)
 
         neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
         xm = torch.where(kept[:, None], x, neg)

@@ -255,12 +255,6 @@ class Trainer:
             raise NotImplementedError(
                 "runtime.num_devices > 1: data-parallel training over several "
                 "cards comes with the parallel/ slice of the port")
-        if cfg.runtime.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"runtime.compute_dtype={cfg.runtime.compute_dtype}: the port "
-                f"runs bfloat16 for inference and evaluation; bf16 training "
-                f"(the loss in the heads' dtype, train-mode BN in bfloat16) "
-                f"comes with the bf16 training slice of the port")
         self.cfg = cfg
         self.detector = PillarsDetector(cfg, device=device)
         self.device = self.detector.device

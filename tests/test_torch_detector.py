@@ -69,13 +69,13 @@ def test_inference_default_widths_trained_weights(batch):
     compare_predictions(want, got)
 
 
-def test_unported_configs_raise():
-    """The front ends that raised before SECOND's slice now run against the
+def test_other_front_ends_and_compute_dtypes(tmp_path):
+    """The front ends that raised before SECOND's slice run against the
     JAX package (the dense [P, N, D] layout, SimpleVoxel on either
-    voxelizer), and bfloat16 compute builds for inference
-    (tests/test_torch_bf16.py); training in bfloat16 still raises, in the
-    Trainer and in a train-mode apply, and so does a compute dtype that is
-    neither float32 nor bfloat16."""
+    voxelizer); bfloat16 builds a Trainer and a train-mode apply returns
+    bfloat16 heads and float32 statistics (held against the JAX package in
+    tests/test_torch_bf16_train.py); a compute dtype that is neither
+    float32 nor bfloat16 raises."""
     for key, value, pointwise in (("model.pfn.pointwise", False, False),
                                   ("model.pfn.simple_mean", True, True),
                                   ("model.pfn.simple_mean", True, False)):
@@ -97,12 +97,31 @@ def test_unported_configs_raise():
     cfg = TorchConfig.default().override("runtime.compute_dtype", "bfloat16")
     det = TorchDetector(cfg, device="cpu")
     assert det.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        Trainer(cfg, device="cpu")
+    from pillars_torch.data import synthetic
+
+    root = synthetic.generate_dataset(str(tmp_path / "data"), num_train=2,
+                                      num_test=1, seed=0)
+    tcfg = cfg
+    for key, value in (
+            ("train_input.dataset_root", root),
+            ("train_input.info_path", f"{root}/kitti_infos_train.pkl"),
+            ("train_input.sampler.info_path",
+             f"{root}/kitti_dbinfos_train.pkl"),
+            ("eval_input.dataset_root", root),
+            ("eval_input.info_path", f"{root}/kitti_infos_val.pkl"),
+            ("out_dir", str(tmp_path / "runs"))):
+        tcfg = tcfg.override(key, value)
+    trainer = Trainer(tcfg, device="cpu")
+    assert trainer.detector.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32
+               for p in trainer.state.params.values())
     pts, num = d435i_clouds(3, 1, cfg.model.voxel.max_points, 500)
     v = det.voxelize_batch(torch.from_numpy(pts), torch.from_numpy(num))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        det.apply(det.init(torch.Generator().manual_seed(0)), v, train=True)
+    preds, stats = det.apply(det.init(torch.Generator().manual_seed(0)), v,
+                             train=True)
+    assert all(t.dtype == torch.bfloat16 for t in preds.values())
+    assert all(t.dtype == torch.float32 for t in stats.values()
+               if t.is_floating_point())
     with pytest.raises(ValueError, match="compute_dtype"):
         TorchDetector(cfg.override("runtime.compute_dtype", "float16"),
                       device="cpu")

@@ -1,5 +1,6 @@
 """Port modules (DenseCellPFN, RPN, SeparableConv) against the flax modules
-on the same NumPy-seeded inputs and weights, eval mode.
+on the same NumPy-seeded inputs and weights, eval mode, and DenseCellPFN in
+train mode.
 
 Tolerances: the same f32 products summed in another order (oneDNN vs XLA
 CPU), relative to activations of O(1-10): PFN 1e-5, RPN heads 1e-4 after
@@ -15,6 +16,7 @@ import jax.numpy as jnp
 
 from pillars_torch.config import Config as TorchConfig
 from pillars_torch.models.layers import SeparableConv as TorchSepConv
+from pillars_torch.models.layers import collect_batch_stats
 from pillars_torch.models.pfn import DenseCellPFN as TorchPFN
 from pillars_torch.models.rpn import RPN as TorchRPN
 from pillars_torch.weights import convert_tree
@@ -36,8 +38,10 @@ def _load(module, variables):
     return module.eval()
 
 
-@pytest.mark.parametrize("b", [1, 2])
-def test_dense_cell_pfn(b):
+def _dense_cell_inputs(b):
+    """(jax config, torch config, PFN args as NumPy arrays, num_pillars,
+    n_cells_total) from the JAX package's cell voxelizer on b clouds with
+    one crowded cell."""
     jcfg = small_config(JaxConfig)
     tcfg = small_config(TorchConfig)
     vcfg = jcfg.model.voxel
@@ -56,29 +60,69 @@ def test_dense_cell_pfn(b):
     cell_global = np.asarray(cv.cell) + (np.arange(b) * n_cells)[:, None]
     args = (flat(cv.points), flat(cv.cell), flat(cell_global), flat(cv.kept),
             flat(cv.count), flat(cv.mean))
+    return jcfg, tcfg, args, np.asarray(cv.num_pillars), b * n_cells
 
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_dense_cell_pfn(b):
+    jcfg, tcfg, args, num_pillars, n_total = _dense_cell_inputs(b)
     pfn = JaxPFN(jcfg.model)
-    init = pfn.init(jax.random.PRNGKey(0), *args, jnp.sum(cv.num_pillars),
-                    b * n_cells, train=False)
+    init = pfn.init(jax.random.PRNGKey(0), *args, num_pillars, n_total,
+                    train=False)
     variables = randomize_variables(jax.device_get(init), seed=b)
-    want_f, want_n = pfn.apply(variables, *args, jnp.sum(cv.num_pillars),
-                               b * n_cells, train=False)
+    want_f, want_n = pfn.apply(variables, *args, num_pillars, n_total,
+                               train=False)
 
     tpfn = _load(TorchPFN(tcfg.model), variables)
     with torch.no_grad():
-        got_f, got_n = tpfn(*(torch.from_numpy(a) for a in args),
-                            b * n_cells)
+        got_f, got_n = tpfn(*(torch.from_numpy(a) for a in args), n_total)
     np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f),
                                rtol=1e-5, atol=1e-5)
     assert np.asarray(want_n).max() == 50  # the capped cell is exercised
 
 
-def test_pfn_train_mode_raises():
-    pfn = TorchPFN(small_config(TorchConfig).model).train()
-    z = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        pfn(torch.zeros(4, 3), z, z, z.bool(), z, torch.zeros(4, 3), 8)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pfn_train_mode(dtype):
+    """DenseCellPFN in train mode (B=2): the batch statistics over the kept
+    points with the dense layout's row count num_pillars x N, taken in
+    float32; the features within 1e-5 in float32 and by the module
+    criterion in bfloat16 (one rounding point, the BN's output), the new
+    statistics within 1e-5 of their max; the gradient reaches the Dense."""
+    from torch_parity import jit_strict, module_criterion
+
+    jcfg, tcfg, args, num_pillars, n_total = _dense_cell_inputs(2)
+    jdt = {"float32": None, "bfloat16": jnp.bfloat16}[dtype]
+    pfn = JaxPFN(jcfg.model, dtype=jdt)
+    init = pfn.init(jax.random.PRNGKey(0), *args, num_pillars, n_total,
+                    train=False)
+    variables = randomize_variables(jax.device_get(init), seed=4)
+    (want_f, want_n), mut = jax.device_get(jit_strict(
+        lambda v, *a: pfn.apply(v, *a, n_cells_total=n_total, train=True,
+                                mutable=["batch_stats"]))(
+        variables, *args, num_pillars))
+
+    tpfn = _load(TorchPFN(tcfg.model, dtype=getattr(torch, dtype)),
+                 variables).train()
+    got_f, got_n = tpfn(*(torch.from_numpy(a) for a in args), n_total,
+                        torch.tensor(int(num_pillars)))
+    np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
+    if dtype == "float32":
+        np.testing.assert_allclose(got_f.detach().numpy(), want_f,
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        module_criterion(got_f.detach(), want_f, "DenseCellPFN train")
+    got_stats = collect_batch_stats(tpfn)
+    want_stats = convert_tree({}, mut["batch_stats"])
+    assert set(got_stats) == set(want_stats)
+    for k, w in want_stats.items():
+        assert got_stats[k].dtype == torch.float32
+        np.testing.assert_allclose(got_stats[k].numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * w.abs().max().item(),
+                                   err_msg=k)
+    got_f.float().sum().backward()
+    assert tpfn.dense.weight.grad.dtype == torch.float32
+    assert tpfn.dense.weight.grad.abs().sum() > 0
 
 
 @pytest.mark.parametrize("separable", [True, False])

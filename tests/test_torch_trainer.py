@@ -8,7 +8,9 @@ one epoch of two steps at B=2 with the per-epoch eval and gating.
 - the same files: weights_temp.pkl, the gated weights_<epoch>.pkl when the
   score improved, result_<epoch>.pkl, model_result_<epoch>.txt, the CSV;
 - a NEW port Trainer resumed from the port's weights_temp.pkl continues the
-  epoch numbering and the step count.
+  epoch numbering and the step count;
+- the same epoch in bfloat16: the per-step losses by torch_parity's loss
+  criterion, the same files, float32 weights.
 """
 
 import csv
@@ -94,6 +96,52 @@ def test_first_epoch_losses_match_jax(runs):
                                        err_msg=f"step {w['step']} {key}")
         assert float(g["epochs"]) == float(w["epochs"]) == 0
     assert float(want[0]["loss"]) > 0
+
+
+@pytest.fixture(scope="module")
+def runs_bf16(runs):
+    """The same epoch with ``runtime.compute_dtype=bfloat16``, in both
+    packages."""
+    def cfg(config_cls, out):
+        return runs["cfg"](config_cls, out).override(
+            "runtime.compute_dtype", "bfloat16")
+
+    jt = JaxTrainer(cfg(JaxConfig, "jax_bf16"))
+    jt.train(epochs=1)
+    tt = TorchTrainer(cfg(TorchConfig, "torch_bf16"), device="cpu")
+    tt.train(epochs=1)
+    return dict(jax=jt, torch=tt)
+
+
+def test_first_epoch_losses_match_jax_in_bfloat16(runs, runs_bf16):
+    """Per-step losses of a bfloat16 epoch by torch_parity's loss criterion
+    (against the JAX package's bf16-f32 gap of the same step, or 1e-2
+    relative); learning rates equal; float32 weights in the checkpoint."""
+    from torch_parity import loss_criterion
+
+    want = [r for r in _rows(runs_bf16["jax"]) if r.get("loss")]
+    want32 = [r for r in _rows(runs["jax"]) if r.get("loss")]
+    got = [r for r in _rows(runs_bf16["torch"]) if r.get("loss")]
+    assert [r["step"] for r in got] == [r["step"] for r in want] == ["0", "1"]
+    for g, w, w32 in zip(got, want, want32):
+        for key in STEP_KEYS:
+            if key == "learning_rate":
+                np.testing.assert_allclose(float(g[key]), float(w[key]),
+                                           rtol=1e-6)
+            else:
+                loss_criterion(g[key], w[key], w32[key],
+                               f"step {w['step']} {key}")
+    assert _files(runs_bf16["torch"]) == _files(runs_bf16["jax"])
+    path = os.path.join(runs_bf16["torch"].dirs["checkpoints"],
+                        "weights_temp.pkl")
+    params, _ = jckpt.load_params(path)
+    leaves = [params]
+    while leaves:
+        leaf = leaves.pop()
+        if isinstance(leaf, dict):
+            leaves.extend(leaf.values())
+        else:
+            assert np.asarray(leaf).dtype == np.float32
 
 
 def test_the_same_files(runs):

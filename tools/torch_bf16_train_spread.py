@@ -1,0 +1,235 @@
+"""How far apart faithful bfloat16 training implementations land, on the
+CPU: the yardsticks behind the bf16 training criteria of tests/
+torch_parity.py and of chip_smoke.py phase 16.
+
+    python tools/torch_bf16_train_spread.py [--seeds 1 2 3 4]
+    python tools/torch_bf16_train_spread.py --full-width --root DIR
+    ONEDNN_MAX_CPU_ISA=AVX2 python tools/torch_bf16_train_spread.py \
+        --networks
+
+Default: the reduced ``torch_parity.train_config`` (B=2) with NumPy-seeded
+random weights, per seed: the train-mode heads of the port (A), of the port
+with oneDNN's bfloat16 convs off (B) and of the JAX package compiled with
+XLA's excess precision off (J), each pair's rms distance over the JAX
+package's bf16-f32 rms gap; for the first seed also one step's loss parts
+(|x - y| over the gap, and relative) and the worst gradient leaf. With
+``--full-width``: ``Config.default()`` from benchmarks/hard_synth/
+weights_59.pkl on the first B=2 batch of a hard-profile split generated
+under ``--root`` (8 train clouds, seed 7), A against B relative to the
+port's own bf16-f32 gap (no JAX), and the ATen ops of one f32 and one bf16
+train step (a CPU proxy of the card's launches). With ``--networks``: the
+train-mode forward of the four networks of tests/test_torch_bf16_train.py
+on its inputs (worst head and worst new statistic). oneDNN's instruction set
+is another faithful variant: run under ``ONEDNN_MAX_CPU_ISA=AVX512_CORE``
+or ``AVX2``. Prints one JSON object per measurement.
+"""
+
+import argparse
+import json
+import os
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+
+def _rms(a):
+    return float(np.sqrt(np.mean(np.square(np.asarray(a, np.float64)))))
+
+
+def _ratio(x, y, gap_a, gap_b):
+    return _rms(np.asarray(x, np.float64) - np.asarray(y, np.float64)) / _rms(
+        np.asarray(gap_a, np.float64) - np.asarray(gap_b, np.float64))
+
+
+def _np(t):
+    return t.detach().float().numpy() if hasattr(t, "detach") else np.asarray(
+        t, np.float32)
+
+
+def networks():
+    """The train-mode forward of the four networks of
+    tests/test_torch_bf16_train.py on its inputs: the worst head and the
+    worst new statistic, A-J and A-B over J's gap."""
+    import conftest  # noqa: F401  (JAX on the CPU)
+    import test_torch_bf16_train as T
+    from pillars_torch.weights import convert_tree
+
+    for name in sorted(T.NETWORKS):
+        s = T._setup(name, batch_seed=3 if name.startswith("second") else 1)
+        (w, ws), (w32, ws32) = (T._jax_forward(s["jcfg"], s["variables"],
+                                               s["jv"], d)
+                                for d in ("bfloat16", "float32"))
+        a, sa = s["tdet"].apply(s["state"], s["tv"], train=True)
+        with torch.backends.mkldnn.flags(enabled=False):
+            b, sb = s["tdet"].apply(s["state"], s["tv"], train=True)
+        ws, ws32 = (convert_tree({}, t["batch_stats"]) for t in (ws, ws32))
+        out = {"what": "train-mode forward, reduced", "network": name}
+        for pair, x, y, sx, sy in (("A-J", a, w, sa, ws), ("A-B", a, b, sa,
+                                                            sb)):
+            out[f"heads {pair}"] = max(_ratio(_np(x[k]), _np(y[k]), w[k],
+                                              w32[k]) for k in w)
+            out[f"statistics {pair}"] = max(
+                _ratio(sx[k].numpy(), _np(sy[k]), ws[k].numpy(),
+                       ws32[k].numpy()) for k in ws)
+        print(json.dumps(out))
+
+
+def reduced(seeds):
+    import conftest  # noqa: F401  (JAX on the CPU)
+    import test_torch_bf16_train as T
+
+    for seed in seeds:
+        s = T._setup("point_major", seed=seed, batch_seed=seed)
+        want = T._jax_forward(s["jcfg"], s["variables"], s["jv"],
+                              "bfloat16")[0]
+        want32 = T._jax_forward(s["jcfg"], s["variables"], s["jv"],
+                                "float32")[0]
+        a = s["tdet"].apply(s["state"], s["tv"], train=True)[0]
+        with torch.backends.mkldnn.flags(enabled=False):
+            b = s["tdet"].apply(s["state"], s["tv"], train=True)[0]
+        print(json.dumps({"what": "train-mode heads, reduced", "seed": seed,
+                          **{f"{k} {pair}": round(_ratio(
+                              _np(x[k]), _np(y[k]), want[k], want32[k]), 4)
+                             for k in sorted(want)
+                             for pair, x, y in (("A-J", a, want),
+                                                ("B-J", b, want),
+                                                ("A-B", a, b))}}))
+        if seed != seeds[0]:
+            continue
+        jl, jg = T._jax_loss_and_grads(s, "bfloat16")
+        jl32, jg32 = T._jax_loss_and_grads(s, "float32")
+        la, ga = T._port_loss_and_grads(s)
+        with torch.backends.mkldnn.flags(enabled=False):
+            lb, gb = T._port_loss_and_grads(s)
+        ga, gb = dict(T._leaves(ga)), dict(T._leaves(gb))
+        for field, x, y, w, w32 in zip(la._fields, la, lb, jl, jl32):
+            x, y, w, w32 = float(x), float(y), float(w), float(w32)
+            gap = abs(w - w32)
+            print(json.dumps({"what": "one-step loss part, reduced",
+                              "part": field, "A-J/gap": abs(x - w) / gap,
+                              "A-J rel": abs(x - w) / abs(w),
+                              "A-B/gap": abs(x - y) / gap,
+                              "A-B rel": abs(x - y) / abs(w)}))
+        worst = {pair: max((_ratio(x[k], y[k], jg[k], jg32[k]), k)
+                           for k in jg)
+                 for pair, x, y in (("A-J", ga, jg), ("A-B", ga, gb))}
+        print(json.dumps({"what": "one-step gradient leaves, reduced",
+                          "worst rms over the gap": worst}))
+    # three AdamW steps from one start (the test's), A and B against J
+    runs = T.three_step_runs()
+    with torch.backends.mkldnn.flags(enabled=False):
+        b_state, b_metrics = T.port_steps(runs["start"], runs["batches"])
+    a_state, a_metrics = runs["port"]
+    j_state, j_metrics = runs["bfloat16"]
+    j32_state, j32_metrics = runs["float32"]
+    for i, ms in enumerate(zip(a_metrics, b_metrics, j_metrics,
+                               j32_metrics)):
+        for field in ms[0]._fields[:6]:
+            x, y, w, w32 = (float(getattr(m, field)) for m in ms)
+            gap = abs(w - w32)
+            print(json.dumps({"what": "AdamW step loss part, reduced",
+                              "step": i, "part": field,
+                              "A-J/gap": abs(x - w) / gap,
+                              "A-J rel": abs(x - w) / abs(w),
+                              "A-B/gap": abs(x - y) / gap,
+                              "A-B rel": abs(x - y) / abs(w)}))
+    from pillars_torch.weights import params_to_jax_tree
+
+    pa, pb = (dict(T._leaves(params_to_jax_tree(st.params)))
+              for st in (a_state, b_state))
+    pj, pj32 = (dict(T._leaves(st.params)) for st in (j_state, j32_state))
+    lr = runs["lr"]
+    worst = {f"{pair} over {unit}": max(
+        (_rms(x[k].astype(np.float64) - y[k]) / max(
+            _rms(pj[k].astype(np.float64) - pj32[k]), floor), k)
+        for k in pj)
+        for pair, x, y in (("A-J", pa, pj), ("A-B", pa, pb))
+        for unit, floor in (("the gap", 0.0), ("max(gap, lr)", lr))}
+    print(json.dumps({"what": "parameters after three AdamW steps, reduced",
+                      "worst rms": worst}))
+
+
+def full_width(root):
+    from pillars_torch.config import Config
+    from pillars_torch.data import synthetic
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.loop import forward_backward
+    from pillars_torch.weights import from_jax_variables, load_params
+    import chip_smoke as cs
+
+    if not os.path.exists(f"{root}/kitti_infos_train.pkl"):
+        synthetic.generate_dataset(root, num_train=8, num_test=2, seed=7,
+                                   profile="hard")
+    cfg = cs._with_split(Config.default(), root)
+    batch = cs._train_batches(cfg, 1)[0]
+    state_cpu = from_jax_variables(*load_params(str(cs.WEIGHTS)), cfg)
+    thr = cfg.train_input.anchor_area_threshold
+    cfg_bf = cfg.override("runtime.compute_dtype", "bfloat16")
+    out = {}
+    for name, c, onednn in (("f32", cfg, True), ("A", cfg_bf, True),
+                            ("B", cfg_bf, False)):
+        det = PillarsDetector(c, device="cpu")
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            out[name] = forward_backward(det, cs._train_state(det,
+                                                              state_cpu)[0],
+                                         batch, thr)
+    f, a, b = out["f32"], out["A"], out["B"]
+    for field, x, y, z in zip(a.loss._fields, a.loss, b.loss, f.loss):
+        x, y, z = float(x), float(y), float(z)
+        print(json.dumps({"what": "one-step loss part, full width",
+                          "part": field, "A-B/gap": abs(x - y) / abs(x - z),
+                          "A-B rel": abs(x - y) / abs(x)}))
+    for what, da, db, df in (("gradient leaves", a.grads, b.grads, f.grads),
+                             ("new BN statistics", a.batch_stats,
+                              b.batch_stats, f.batch_stats)):
+        r = sorted((_ratio(da[k], db[k], da[k], df[k]), k) for k in da
+                   if da[k].is_floating_point())
+        print(json.dumps({"what": f"{what}, full width",
+                          "A-B rms over the gap, worst": r[-3:],
+                          "median": float(np.median([x for x, _ in r]))}))
+    # a CPU proxy of the step's kernel launches: ATen ops of one step
+    from torch.profiler import ProfilerActivity, profile
+
+    from pillars_torch.train.loop import make_train_step
+
+    ops = {}
+    for c in (cfg, cfg_bf):
+        det = PillarsDetector(c, device="cpu")
+        state, opt = cs._train_state(det, state_cpu)
+        step = make_train_step(det, opt)
+        step(state, batch)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, batch)
+        ops[c.runtime.compute_dtype] = sum(
+            e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+    print(json.dumps({"what": "ATen ops of one train step, full width, CPU",
+                      **ops}))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seeds", type=int, nargs="*", default=[1, 2, 3, 4])
+    p.add_argument("--full-width", action="store_true")
+    p.add_argument("--networks", action="store_true",
+                   help="the four networks' train-mode forward only")
+    p.add_argument("--root", default=None,
+                   help="--full-width: directory of the generated split")
+    args = p.parse_args(argv)
+    torch.set_num_threads(2)
+    if args.full_width:
+        if not args.root:
+            p.error("--full-width needs --root")
+        full_width(args.root)
+    elif args.networks:
+        networks()
+    else:
+        reduced(args.seeds)
+
+
+if __name__ == "__main__":
+    main()
