@@ -118,7 +118,27 @@ Phases, none of whose failures is caught:
    ``PillarsDetector.init`` for epoch 0 on phase 11's train clouds with its
    bf16 eval: its NMS launches equal to the eval batches, the mean loss of
    its last 50 steps below ``LOSS_GATE`` and within ``BF16_LOSS_GAP`` of
-   the f32 Trainer's epoch 0 in the same call.
+   the f32 Trainer's epoch 0 in the same call;
+17. ``pillars_torch/parallel/`` over process groups on the card
+   (``parallel.launch.spawn``; the ranks run ``_p17_rank`` of this script):
+   one NCCL rank (world size 1) takes the data-parallel train step through
+   the process group and the flat gradient all-reduce, from
+   ``weights_59.pkl`` on phase 10's first batch, held to the plain card
+   step (loss parts 1e-6 relative, gradients 1e-6 of each leaf's max); then
+   two gloo ranks sharing the one card with CUDA tensors (NCCL refuses two
+   ranks on one device): a data-parallel step at B=2 (one cloud per rank;
+   the CPU tests' criteria: loss parts 1e-6 relative, gradients 1e-5 of
+   each leaf's max, new BN statistics 1e-6), a 2-band spatial forward
+   (heads 1e-5 of their max) and train step (loss parts 1e-5 relative,
+   each gradient leaf's relative L2 1e-3) against the single-rank card
+   run, and the distributed ``Evaluator`` on the point-major fast config
+   over ``P17_CLOUDS`` hard val clouds at batch ``P17_EVAL_BATCH`` (two
+   batches split over the ranks, the remainder on rank 0) against a
+   single-rank card ``Evaluator`` (names equal, scores 1e-4 relative +
+   1e-5, locations 1e-4), each rank's NMS and fused-chain launches counted
+   around its run and equal to the batches it ran; times and launches of
+   the two-rank runs are those of two ranks sharing one card, not a
+   speed-up.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -2015,6 +2035,358 @@ def run_bf16_trainer(smi, root, out, n_clouds, f32_epoch0):
     return r
 
 
+# ----------------------------------------------------------------------
+# phase 17: pillars_torch/parallel/ over process groups on the card
+
+P17_CLOUDS = 5        # hard val clouds of the distributed Evaluator
+P17_EVAL_BATCH = 2    # two batches split over two ranks, one on rank 0
+DP_LOSS_RTOL = 1e-6   # tests/test_torch_parallel.py's criteria
+DP_GRAD_TOL = 1e-5    # of each gradient leaf's max |value|
+DP_STAT_TOL = 1e-6    # of each new BN statistic's max |value|
+NCCL1_GRAD_TOL = 1e-6
+SPATIAL_HEAD_TOL = 1e-5
+SPATIAL_LOSS_RTOL = 1e-5
+SPATIAL_GRAD_L2 = 1e-3
+
+
+def _p17_cfgs(root, tmp, world):
+    """(train config, distributed Evaluator config) of phase 17."""
+    import pickle
+
+    from pillars_torch.config import Config
+
+    with open(f"{root}/kitti_infos_val.pkl", "rb") as f:
+        infos = pickle.load(f)
+    val = os.path.join(tmp, "kitti_infos_val_p17.pkl")
+    if not os.path.exists(val):
+        with open(val, "wb") as f:
+            pickle.dump(infos[:P17_CLOUDS], f, 2)
+    ecfg = _with_split(_fast_config(), root)
+    for key, value in (("eval_input.info_path", val),
+                       ("eval_input.batch_size", P17_EVAL_BATCH),
+                       ("eval_input.num_workers", 1),
+                       ("runtime.num_devices", world)):
+        ecfg = ecfg.override(key, value)
+    return _with_split(Config.default(), root), ecfg
+
+
+def _p17_times(det, state, opt, on_card, group):
+    """Host wall ms per train step and per flat gradient all-reduce (each
+    over 5 calls, synchronized), launches and device ms per step
+    (torch.profiler), and the collectives' own cost in 3 steps: before each
+    ``torch.distributed`` collective the card is synchronized and the ranks
+    of its group meet at a barrier, so the timed call excludes the wait for
+    another rank; the barriers' time leaves the step's window too.
+    ``overlaps`` counts collectives timed while another was in flight."""
+    import torch.distributed as dist
+
+    from pillars_torch.parallel.collectives import all_reduce_flat
+    from pillars_torch.train.loop import make_train_step
+    from pillars_torch.utils.profiling import device_busy
+
+    step = make_train_step(det, opt)
+
+    def wall(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    grads = list(state.params.values())
+    step_ms = wall(lambda: step(state, on_card))
+    reduce_ms = wall(lambda: all_reduce_flat(grads, group))
+    _, device_ms, rows = device_busy(lambda: step(state, on_card), 3)
+    spent = {"s": 0.0, "wait": 0.0, "calls": 0, "active": 0, "overlaps": 0}
+    names = ("all_reduce", "all_gather", "broadcast")
+    inner = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.barrier(group=kwargs.get("group"))
+            t1 = time.perf_counter()
+            spent["overlaps"] += spent["active"] > 0
+            spent["active"] += 1
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent["active"] -= 1
+            spent["wait"] += t1 - t0
+            spent["s"] += time.perf_counter() - t1
+            spent["calls"] += 1
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(inner[n]))
+    try:
+        step(state, on_card)
+        torch.cuda.synchronize()
+        spent.update(s=0.0, wait=0.0, calls=0, overlaps=0)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, on_card)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0 - spent["wait"]
+    finally:
+        for n in names:
+            setattr(dist, n, inner[n])
+    return {"step_ms": step_ms, "allreduce_ms": reduce_ms,
+            "allreduce_mb": sum(g.numel() for g in grads) * 4 / 1e6,
+            "launches_per_step": sum(c for _, c, _ in rows),
+            "device_ms_per_step": device_ms,
+            "collectives_per_step": spent["calls"] / 3,
+            "collective_ms_per_step": spent["s"] * 1e3 / 3,
+            "window_ms_per_step": window * 1e3 / 3,
+            "wait_ms_per_step": spent["wait"] * 1e3 / 3,
+            "overlaps": spent["overlaps"],
+            "collective_share": spent["s"] / window}
+
+
+def _p17_rank(rank, device, spec_file):
+    """One rank of phase 17 (a module-level function: the spawned children
+    import this script). Writes its results to rank<r>.pt beside the
+    spec."""
+    import pickle
+
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.parallel.mesh import Mesh, shard_batch
+    from pillars_torch.train.loop import batch_to_device, forward_backward
+    from pillars_torch.train.trainer import Evaluator
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    # cuDNN's deterministic algorithms, as the reference in run_parallel:
+    # the comparison then holds the port, not the order of atomic adds
+    torch.backends.cudnn.deterministic = True
+    with open(spec_file, "rb") as f:
+        spec = pickle.load(f)
+    world, batch = spec["world"], spec["batch"]
+    cfg, ecfg = _p17_cfgs(spec["root"], os.path.dirname(spec_file), world)
+    state_cpu = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
+    thr = cfg.train_input.anchor_area_threshold
+    out = {}
+
+    def cpu(d):
+        return {k: v.detach().cpu() for k, v in d.items()}
+
+    if "dp" in spec["parts"]:
+        mesh = Mesh([("data", world)])
+        det = PillarsDetector(cfg, device=device, mesh=mesh)
+        state, opt = _train_state(det, state_cpu)
+        local = batch_to_device(shard_batch(batch, mesh), device)
+        fb = forward_backward(det, state, local, thr)
+        out["dp"] = {"loss": [float(t) for t in fb.loss],
+                     "grads": cpu(fb.grads), "stats": cpu(fb.batch_stats),
+                     "num_positives": int(fb.num_positives),
+                     **_p17_times(det, state, opt, local, mesh.group())}
+    if "spatial" in spec["parts"]:
+        mesh = Mesh([("spatial", world)])
+        det = PillarsDetector(cfg.override("runtime.spatial_axis",
+                                           "spatial"), device=device,
+                              mesh=mesh)
+        state, opt = _train_state(det, state_cpu)
+        on_card = batch_to_device(batch, device)
+        with torch.inference_mode():
+            vox = det.voxelize_batch(on_card["points"],
+                                     on_card["num_points"])
+            heads = det.apply({**state.params, **state.batch_stats}, vox)
+        fb = forward_backward(det, state, on_card, thr)
+        out["spatial"] = {"heads": cpu(heads),
+                          "loss": [float(t) for t in fb.loss],
+                          "grads": cpu(fb.grads),
+                          "num_positives": int(fb.num_positives),
+                          **_p17_times(det, state, opt, on_card,
+                                       mesh.group())}
+    if "eval" in spec["parts"]:
+        det = PillarsDetector(ecfg, device=device)
+        ev = Evaluator(ecfg, det)
+        state = det.state_to_device(state_cpu)
+        _reset_counts()
+        t0 = time.perf_counter()
+        annos, _ = ev.run(state, progress=False)
+        torch.cuda.synchronize()
+        out["eval"] = {"annos": annos, "launches": _read_counts(),
+                       "s": time.perf_counter() - t0}
+    torch.save(out, os.path.join(os.path.dirname(spec_file),
+                                 f"rank{rank}.pt"))
+
+
+def _p17_spawn(tmp, name, world, backend, spec):
+    import pickle
+
+    from pillars_torch.parallel.launch import spawn
+
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    path = os.path.join(d, "spec.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({**spec, "world": world}, f)
+    t0 = time.perf_counter()
+    spawn(_p17_rank, world, args=(path,), device="cuda", backend=backend)
+    seconds = time.perf_counter() - t0
+    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], seconds
+
+
+def _p17_loss_grads(got, fb, loss_rtol, grad_tol, label):
+    """Loss parts within ``loss_rtol`` relative and each gradient leaf
+    within ``grad_tol`` of its max against the plain card step ``fb``;
+    returns (loss error, gradient error)."""
+    if got["num_positives"] != int(fb.num_positives):
+        raise AssertionError(f"{label}: num_positives {got['num_positives']}"
+                             f" vs {int(fb.num_positives)}")
+    loss_err = max(abs(g - float(w)) / max(abs(float(w)), 1e-6)
+                   for g, w in zip(got["loss"], fb.loss))
+    if loss_err > loss_rtol:
+        raise AssertionError(f"{label}: loss parts {loss_err} relative")
+    grad_err = max(_max_rel(got["grads"][k], g.cpu())
+                   for k, g in fb.grads.items())
+    if grad_err > grad_tol:
+        raise AssertionError(f"{label}: gradients {grad_err} of their max")
+    return loss_err, grad_err
+
+
+def _p17_annos_close(got, want, label):
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} annos vs {len(want)}")
+    n = 0
+    for a, b in zip(got, want):
+        if list(a["name"]) != list(b["name"]):
+            raise AssertionError(f"{label}: names differ")
+        np.testing.assert_allclose(a["score"], b["score"], rtol=1e-4,
+                                   atol=1e-5, err_msg=label)
+        np.testing.assert_allclose(a["location"], b["location"], rtol=1e-4,
+                                   atol=1e-4, err_msg=label)
+        n += len(a["name"])
+    return n
+
+
+def _p17_line(t):
+    return (f"{t['step_ms']:.3f} ms per step (host wall, synchronized), "
+            f"{t['launches_per_step']:g} launches and "
+            f"{t['device_ms_per_step']:.3f} ms of device time per step; the "
+            f"flat gradient all-reduce ({t['allreduce_mb']:.2f} MB) "
+            f"{t['allreduce_ms']:.3f} ms, "
+            f"{t['allreduce_ms'] / t['step_ms']:.3f} of the step; "
+            f"{t['collectives_per_step']:g} collectives per step, their own "
+            f"{t['collective_ms_per_step']:.3f} ms of a "
+            f"{t['window_ms_per_step']:.3f} ms step timed with them "
+            f"({t['collective_share']:.3f}; {t['wait_ms_per_step']:.3f} ms "
+            f"per step waiting for the other ranks left out; "
+            f"{t['overlaps']} timed while another was in flight)")
+
+
+def run_parallel(state_cpu, smi, root):
+    """Phase 17 with cuDNN's deterministic algorithms (in the ranks too);
+    returns the kernels' launches by path."""
+    t17 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _run_parallel(state_cpu, smi, root, t17)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _run_parallel(state_cpu, smi, root, t17):
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.loop import batch_to_device, forward_backward
+    from pillars_torch.train.trainer import Evaluator
+
+    tmp = tempfile.mkdtemp(prefix="p17_", dir=root)
+    cfg, ecfg = _p17_cfgs(root, tmp, 1)
+    thr = cfg.train_input.anchor_area_threshold
+    batch = _train_batches(cfg, 1)[0]
+    spec = {"root": root, "batch": batch}
+    # the plain single-rank references on the card
+    det = PillarsDetector(cfg)
+    state, _ = _train_state(det, state_cpu)
+    on_card = batch_to_device(batch, det.device)
+    fb = forward_backward(det, state, on_card, thr)
+    again = forward_backward(det, state, on_card, thr)
+    noise = max(_max_rel(again.grads[k], g.cpu()) for k, g in fb.grads.items())
+    print(f"parallel: the plain card step against itself, gradients "
+          f"{noise:.3e} of their max")
+    with torch.inference_mode():
+        vox = det.voxelize_batch(on_card["points"], on_card["num_points"])
+        heads = det.apply({**state.params, **state.batch_stats}, vox)
+    edet = PillarsDetector(ecfg)
+    single, _ = Evaluator(ecfg, edet).run(edet.state_to_device(state_cpu),
+                                          progress=False)
+
+    (r,), s1 = _p17_spawn(tmp, "nccl1", 1, "nccl", {**spec, "parts": ["dp"]})
+    errs = _p17_loss_grads(r["dp"], fb, DP_LOSS_RTOL, NCCL1_GRAD_TOL,
+                           "NCCL world 1")
+    print(f"parallel, one NCCL rank (world size 1), B=2 full width from "
+          f"weights_59.pkl: loss parts {errs[0]:.3e} relative (tol "
+          f"{DP_LOSS_RTOL}), gradients {errs[1]:.3e} of their max (tol "
+          f"{NCCL1_GRAD_TOL}) against the plain card step; "
+          f"{_p17_line(r['dp'])}; {s1:.1f} s with the rank's start [{smi}]")
+
+    ranks, s2 = _p17_spawn(tmp, "gloo2", 2, "gloo",
+                           {**spec, "parts": ["dp", "spatial", "eval"]})
+    for i, r in enumerate(ranks):
+        errs = _p17_loss_grads(r["dp"], fb, DP_LOSS_RTOL, DP_GRAD_TOL,
+                               f"data-parallel rank {i}")
+        stat_err = max(_max_rel(r["dp"]["stats"][k], v.cpu())
+                       for k, v in fb.batch_stats.items()
+                       if v.is_floating_point())
+        if stat_err > DP_STAT_TOL:
+            raise AssertionError(f"data-parallel rank {i}: new BN statistics "
+                                 f"{stat_err} of their max")
+        print(f"parallel, two gloo ranks sharing one card, data-parallel "
+              f"B=2 (one cloud per rank), rank {i}: loss parts "
+              f"{errs[0]:.3e} relative (tol {DP_LOSS_RTOL}), gradients "
+              f"{errs[1]:.3e} (tol {DP_GRAD_TOL}), new BN statistics "
+              f"{stat_err:.3e} (tol {DP_STAT_TOL}) of their max against the "
+              f"single-rank card step; {_p17_line(r['dp'])}")
+        sp = r["spatial"]
+        head_err = max(_max_rel(sp["heads"][k], v.cpu())
+                       for k, v in heads.items())
+        if head_err > SPATIAL_HEAD_TOL:
+            raise AssertionError(f"2 bands, rank {i}: heads {head_err}")
+        loss_err, _ = _p17_loss_grads(sp, fb, SPATIAL_LOSS_RTOL, np.inf,
+                                      f"2 bands, rank {i}")
+        l2 = max(float((sp["grads"][k].double() - g.cpu().double()).norm()
+                       / max(float(g.double().norm()), 1e-12))
+                 for k, g in fb.grads.items())
+        if l2 > SPATIAL_GRAD_L2:
+            raise AssertionError(f"2 bands, rank {i}: gradients {l2}")
+        print(f"parallel, two gloo ranks sharing one card, 2 bands of 64 "
+              f"rows, rank {i}: heads {head_err:.3e} of their max (tol "
+              f"{SPATIAL_HEAD_TOL}), train step loss parts {loss_err:.3e} "
+              f"relative (tol {SPATIAL_LOSS_RTOL}), gradients' relative L2 "
+              f"{l2:.3e} (tol {SPATIAL_GRAD_L2}) against the single-rank "
+              f"card run; {_p17_line(sp)}")
+    n_batches = -(-P17_CLOUDS // P17_EVAL_BATCH)
+    split = P17_CLOUDS // P17_EVAL_BATCH  # full batches, split
+    launches = {}
+    for i, r in enumerate(ranks):
+        n_det = _p17_annos_close(r["eval"]["annos"], single,
+                                 f"distributed Evaluator rank {i}")
+        want = split + (n_batches - split if i == 0 else 0)
+        got = r["eval"]["launches"]
+        if (got["nms_keep_mask"] != want or got["rpn_sep_block"] != want
+                or got["rpn_sep_block_bf16"]):
+            raise AssertionError(f"distributed Evaluator rank {i}: launches "
+                                 f"{got}, {want} batches ran there")
+        launches[f"parallel_eval_rank{i}"] = got
+        print(f"parallel, distributed Evaluator on the fast config, two gloo "
+              f"ranks sharing one card, rank {i}: {P17_CLOUDS} hard val "
+              f"clouds at batch {P17_EVAL_BATCH} ({split} batches split, the "
+              f"remainder on rank 0), {n_det} detections equal to the "
+              f"single-rank card Evaluator's; kernel launches {got} for the "
+              f"{want} batches this rank ran; {r['eval']['s']:.2f} s")
+    print(f"phase 17 (parallel): {time.perf_counter() - t17:.1f} s, the "
+          f"two-rank spawn {s2:.1f} s [{smi}]")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+
 def main(argv=None):
     import argparse
 
@@ -2074,6 +2446,7 @@ def main(argv=None):
             smi, root, os.path.join(root, "runs_bf16"), args.train_clouds,
             trainer_runs[0])
         print(f"phase 16 (bf16 training): {time.perf_counter() - t16:.1f} s")
+        parallel = run_parallel(state_cpu, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     second_dense = run_second_dense(smi)
@@ -2100,13 +2473,15 @@ def main(argv=None):
         "train_eval_bf16": bf16_trainer["nms_launches"],
         **{k: sum(c["nms_keep_mask"] for c in v)
            for k, v in second_paths.items()},
-        **{f"{k}_bf16": v["nms_keep_mask"] for k, v in bf16.items()}}
+        **{f"{k}_bf16": v["nms_keep_mask"] for k, v in bf16.items()},
+        **{k: v["nms_keep_mask"] for k, v in parallel.items()}}
     rpn["launches_by_path"] = {
         "fast": fast["rpn_sep_block"],
         **{k: v["rpn_sep_block"] for k, v in serving.items()},
         **{k: sum(c["rpn_sep_block"] for c in v)
            for k, v in second_paths.items()},
-        **{f"{k}_bf16": v["rpn_sep_block_bf16"] for k, v in bf16.items()}}
+        **{f"{k}_bf16": v["rpn_sep_block_bf16"] for k, v in bf16.items()},
+        **{k: v["rpn_sep_block"] for k, v in parallel.items()}}
     print(json.dumps({"kernels": [nms, rpn]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

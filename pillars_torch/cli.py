@@ -11,6 +11,11 @@
 
 Every command that runs the detector runs it on the card; ``--device cpu``
 asks for the CPU. ``bench`` is not ported yet and says so.
+
+``train`` and ``evaluate`` with ``--set runtime.num_devices=N`` (N > 1)
+start N ranks (pillars_torch/parallel/launch.py): N NCCL ranks on N cards
+(fewer cards raise), or with ``--device cpu`` N gloo ranks on the CPU. Rank
+0 prints and writes; the others print nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +44,33 @@ def _load_config(args):
     return cfg
 
 
+def _in_ranks(args, cfg, cmd) -> bool:
+    """Start ``runtime.num_devices`` ranks that each run ``cmd(args)`` on
+    their device and wait for them; False (nothing started) for one device
+    or inside a rank."""
+    import torch.distributed as dist
+
+    from pillars_torch import resolve_device
+    from pillars_torch.parallel import launch
+
+    if dist.is_initialized():
+        return False
+    n = (cfg.runtime.num_devices
+         or launch.visible_devices(resolve_device(args.device)))
+    if n <= 1:
+        return False
+    launch.spawn(_rank_main, n, args=(cmd.__name__, args),
+                 device=args.device or "cuda")
+    return True
+
+
+def _rank_main(rank, device, cmd_name, args):
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    globals()[cmd_name](argparse.Namespace(**dict(vars(args),
+                                                  device=str(device))))
+
+
 def _detector_and_state(args, cfg, who):
     """The detector on ``--device`` and its state: the checkpoint's, or a
     seeded random one."""
@@ -61,6 +93,8 @@ def cmd_train(args):
     from pillars_torch.train.trainer import Trainer
 
     cfg = _load_config(args)
+    if _in_ranks(args, cfg, cmd_train):
+        return
     trainer = Trainer(cfg, use_wandb=args.wandb, device=args.device)
     if args.resume:
         step = trainer.resume(args.resume)
@@ -172,6 +206,8 @@ def cmd_evaluate(args):
     from pillars_torch.train.trainer import Evaluator
 
     cfg = _load_config(args)
+    if _in_ranks(args, cfg, cmd_evaluate):
+        return
     det, state = _detector_and_state(args, cfg, "evaluate")
     buckets = parse_bucket_arg(
         getattr(args, "buckets", None) or cfg.eval_input.buckets,

@@ -3,9 +3,10 @@
 Re-implements the algorithm of the reference numba-CUDA kernel
 (reference second/core/non_max_suppression/nms_gpu.py:180-415:
 rbbox_to_corners -> quadrilateral_intersection -> vertex sort -> shoelace)
-as a fully vectorized, branchless computation on the host (NumPy): the copy
-of the NumPy half of pillars_tpu/geometry/rotated_iou.py that the evaluator
-needs. The array namespace stays a parameter, as there.
+as a fully vectorized, branchless computation: on the host (NumPy,
+``rotated_iou_np``, what the evaluator needs) and on tensors
+(``rotated_iou_torch``, the counterpart of the JAX package's
+``rotated_iou_jax``). The array namespace is a parameter, as there.
 
 Box format here matches the reference kernel: [cx, cy, x_d, y_d, angle],
 with the reference's CLOCKWISE corner rotation (nms_gpu.py:371-394).
@@ -17,8 +18,14 @@ intersection area (used by d3_box_overlap, reference eval.py:159-163).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _MAX_CANDIDATES = 24  # 8 contained corners + 16 edge intersections
+
+
+def _cast(x, dtype):
+    """``x`` in ``dtype``: a tensor's ``to``, an array's ``astype``."""
+    return x.to(dtype) if isinstance(x, torch.Tensor) else x.astype(dtype)
 
 
 def _rbbox_to_corners(xp, rbbox):
@@ -103,9 +110,9 @@ def _intersection_area(xp, corners1, corners2):
     valid = xp.concatenate([in2, in1, evalid], axis=-1)          # [..., 24]
 
     count = xp.sum(valid, axis=-1)[..., None]                    # [..., 1]
-    validf = valid.astype(pts.dtype)
+    validf = _cast(valid, pts.dtype)
     centroid = xp.sum(pts * validf[..., None], axis=-2) / xp.maximum(
-        count.astype(pts.dtype), 1.0)
+        _cast(count, pts.dtype), 1.0)
     rel = pts - centroid[..., None, :]
     ang = xp.arctan2(rel[..., 1], rel[..., 0])
     big = xp.asarray(1e9, dtype=ang.dtype)
@@ -152,3 +159,59 @@ def rotated_iou_np(rbboxes1: np.ndarray, rbboxes2: np.ndarray,
         _rotated_overlap(np, rbboxes1.astype(np.float64),
                          rbboxes2.astype(np.float64), criterion),
         dtype=np.float32)
+
+
+class _TorchNamespace:
+    """The NumPy names the helpers above use, over torch tensors."""
+
+    cos = staticmethod(torch.cos)
+    sin = staticmethod(torch.sin)
+    abs = staticmethod(torch.abs)
+    arctan2 = staticmethod(torch.atan2)
+    where = staticmethod(torch.where)
+    zeros_like = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def maximum(t, other):
+        return torch.clamp(t, min=other)
+
+    @staticmethod
+    def stack(ts, axis=0):
+        return torch.stack(ts, dim=axis)
+
+    @staticmethod
+    def concatenate(ts, axis=0):
+        return torch.cat(ts, dim=axis)
+
+    @staticmethod
+    def roll(t, shift, axis):
+        return torch.roll(t, shift, dims=axis)
+
+    @staticmethod
+    def sum(t, axis=None):
+        return t.sum() if axis is None else t.sum(dim=axis)
+
+    @staticmethod
+    def broadcast_to(t, shape):
+        return torch.broadcast_to(t, shape)
+
+    @staticmethod
+    def argsort(t, axis=-1):
+        # stable, as NumPy's and XLA's sorts of the equal invalid keys
+        return torch.argsort(t, dim=axis, stable=True)
+
+    @staticmethod
+    def take_along_axis(t, idx, axis):
+        return torch.take_along_dim(t, idx, dim=axis)
+
+    @staticmethod
+    def asarray(value, dtype=None):
+        return torch.tensor(value, dtype=dtype)
+
+
+def rotated_iou_torch(rbboxes1: torch.Tensor, rbboxes2: torch.Tensor,
+                      criterion: int = -1) -> torch.Tensor:
+    """Pairwise rotated overlap of two tensors of boxes [N, 5] x [K, 5] ->
+    [N, K] in their dtype and on their device (the JAX package's
+    ``rotated_iou_jax``)."""
+    return _rotated_overlap(_TorchNamespace, rbboxes1, rbboxes2, criterion)

@@ -40,7 +40,7 @@ from torch import nn
 from pillars_torch import resolve_device
 from pillars_torch.config import Config, ModelConfig
 from pillars_torch.geometry import boxes as gb
-from pillars_torch.models.layers import collect_batch_stats
+from pillars_torch.models.layers import BatchNorm, collect_batch_stats
 from pillars_torch.models.losses import LossOutput, detection_loss
 from pillars_torch.models.middle import (MiddleExtractor3D, output_depth,
                                          scatter_to_grid3d)
@@ -58,6 +58,8 @@ from pillars_torch.ops.scatter import scatter_to_canvas_batched
 from pillars_torch.ops.targets import TargetAssignment, assign_targets_batched
 from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
                                         make_point_voxelizer, make_voxelizer)
+from pillars_torch.parallel.spatial import (gather_canvas, halo_exchange,
+                                            shard_canvas)
 
 
 class Predictions(NamedTuple):
@@ -163,6 +165,9 @@ class Network(nn.Module):
                            else MiddleExtractor3D)(mcfg, voxel_channels(mcfg),
                                                    dtype)
         self.rpn = RPN(mcfg, canvas_channels(mcfg), dtype)
+        # (axis name, mesh) of BEV-grid spatial parallelism, set by the
+        # detector: the RPN then runs on this rank's band of canvas rows
+        self.spatial = None
 
     def voxel_features(self, v) -> torch.Tensor:
         """[B, P, C] per-voxel features of a voxelized batch."""
@@ -211,7 +216,11 @@ class Network(nn.Module):
         cell)."""
         if not self.dense_cell:
             canvas = self.canvas(*inputs)
-            return canvas if canvas_only else self.rpn(canvas)
+            if canvas_only:
+                return canvas
+            if self.spatial is None:
+                return self.rpn(canvas)
+            return self.banded_rpn(canvas)
         points, num_valid = inputs
         b = points.shape[0]
         nx, ny, nz = self.mcfg.voxel.grid_size
@@ -232,6 +241,20 @@ class Network(nn.Module):
             torch.float32).sum(dim=1)
         return self.rpn(canvas), dense_grid
 
+    def banded_rpn(self, canvas):
+        """The RPN over this rank's band of the canvas rows, halos
+        exchanged with the neighbour bands, the heads gathered whole on
+        every rank of the spatial group (parallel/spatial.py)."""
+        axis, mesh = self.spatial
+        multiple = math.prod(self.mcfg.rpn.layer_strides)
+        rows = canvas.shape[1]
+        band = shard_canvas(canvas, axis, mesh, multiple)
+        heads = self.rpn(band, halo=lambda t: halo_exchange(t, axis, mesh))
+        return {k: gather_canvas(v, axis, mesh,
+                                 rows * v.shape[1] // band.shape[1],
+                                 multiple * v.shape[1] // band.shape[1])
+                for k, v in heads.items()}
+
 
 def _front_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The entries of ``state`` that the canvas reads (all but the RPN's):
@@ -248,13 +271,30 @@ def _sub_state(state: Dict[str, torch.Tensor], module: nn.Module,
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
+def _reducing(group):
+    """``group``, or None where it has one rank and nothing to reduce."""
+    if group is None or torch.distributed.get_world_size(group) == 1:
+        return None
+    return group
+
+
 class PillarsDetector:
     """Binds the config, the anchor tables and the network on one device;
     the state (weights) is passed to each call, as in the JAX package.
     ``dtype``: the networks' compute dtype from ``runtime.compute_dtype``
-    (None for float32)."""
+    (None for float32).
 
-    def __init__(self, config: Config, device=None):
+    ``mesh`` (pillars_torch/parallel/): this rank's place among several.
+    Its ``runtime.data_axis`` splits the batch: the train-mode BNs of
+    ``apply`` take the statistics of the global batch (the front end's over
+    the data axis, the RPN's over every rank). With ``runtime.spatial_axis``
+    set, ``apply`` runs the RPN on this rank's band of BEV rows
+    (``Network.banded_rpn``); the front end stays replicated within the
+    spatial axis. ``apply`` raises when ``runtime.spatial_axis`` names an
+    axis the mesh lacks, as the JAX package does; the dense-cell and fused
+    inference paths never shard, as there."""
+
+    def __init__(self, config: Config, device=None, mesh=None):
         self.config = config
         self.mcfg = config.model
         if config.runtime.compute_dtype not in COMPUTE_DTYPES:
@@ -297,6 +337,33 @@ class PillarsDetector:
             self.anchor_set.matched_thresholds, device=dev)
         self.unmatched_thresholds = torch.as_tensor(
             self.anchor_set.unmatched_thresholds, device=dev)
+        self.mesh = mesh
+        self.spatial_axis = config.runtime.spatial_axis or None
+        self.grad_scale = 1.0
+        if mesh is not None:
+            self._bind_mesh(mesh)
+
+    def _bind_mesh(self, mesh):
+        rt = self.config.runtime
+        extra = set(mesh.axis_names) - {rt.data_axis, rt.spatial_axis}
+        if extra:
+            raise ValueError(f"mesh axes {sorted(extra)} are neither "
+                             f"runtime.data_axis nor runtime.spatial_axis")
+        banded = (self.spatial_axis is not None
+                  and mesh.group(self.spatial_axis) is not None)
+        if banded:
+            self.network.spatial = (self.spatial_axis, mesh)
+        # the front end is replicated within a spatial axis: its statistics
+        # reduce over the data axis only; each RPN band over every rank
+        front = _reducing(mesh.group(rt.data_axis))
+        rpn = _reducing(mesh.group()) if banded else front
+        for name, m in self.network.named_modules():
+            if isinstance(m, BatchNorm):
+                m.group = rpn if name.startswith("rpn.") else front
+        # the ranks along the spatial axis each hold a part of the
+        # gradient (sum); the data ranks each a whole one (mean)
+        self.grad_scale = (mesh.axis_size(self.spatial_axis) if banded
+                           else 1) / mesh.size
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator, batch_size: int = 1
@@ -375,6 +442,11 @@ class PillarsDetector:
         from the batch statistics, the counterpart of flax's
         ``mutable=["batch_stats"]``. The tensors of ``state`` are left as
         they were."""
+        if self.spatial_axis and self.network.spatial is None:
+            raise ValueError(
+                f"runtime.spatial_axis={self.spatial_axis!r} needs a mesh "
+                f"that defines that axis: PillarsDetector(..., "
+                f"mesh=spatial_mesh(n)) in each of n ranks")
         _full_f32()
         net = self.network
         if not train:
@@ -489,6 +561,45 @@ class PillarsDetector:
 
         cam = gb.box_lidar_to_camera(out_boxes, rect, trv2c)
         return Predictions(out_boxes, cam, out_scores, out_label, keep_valid)
+
+    # ------------------------------------------------------------------
+    def profile_stages(self, state, points, num_valid, rect, trv2c,
+                       iters: int = 20) -> Dict[str, float]:
+        """The reference's measure_time_extended tier (voxelnet.py:753-903)
+        with the JAX package's stage names: ms per call of the point-major
+        voxelizer (``t_voxel_features``), of :meth:`apply` in eval mode
+        (``t_spatial_features_plus_rpn``) and of the anchors mask +
+        :meth:`postprocess` (``t_nms_func``), each timed alone with CUDA
+        events over ``iters`` warm calls on the outputs of the stage
+        before. Stage boundaries prevent overlap, so the sum exceeds the
+        whole path. The card's clock only: raises on the CPU."""
+        from pillars_torch.utils.profiling import cuda_ms
+
+        if self.device.type != "cuda":
+            raise RuntimeError("profile_stages times stages with CUDA "
+                               "events; this detector is on the CPU")
+        thr = self.config.eval_input.anchor_area_threshold
+        dev = self.device
+        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        num_valid = torch.as_tensor(num_valid, device=dev)
+        rect = torch.as_tensor(rect, dtype=torch.float32, device=dev)
+        trv2c = torch.as_tensor(trv2c, dtype=torch.float32, device=dev)
+        with torch.inference_mode():
+            vox = self.voxelize_batch(points, num_valid)
+            preds = self.apply(state, vox)
+
+            def nms_func():
+                amask = self.anchors_mask_batch(vox.coords, vox.pillar_mask,
+                                                thr)
+                return self.postprocess(preds, amask, rect, trv2c)
+
+            return {
+                "t_voxel_features": cuda_ms(
+                    lambda: self.voxelize_batch(points, num_valid), iters),
+                "t_spatial_features_plus_rpn": cuda_ms(
+                    lambda: self.apply(state, vox), iters),
+                "t_nms_func": cuda_ms(nms_func, iters),
+            }
 
     # ------------------------------------------------------------------
     def make_inference_fn(self, anchor_area_threshold: Optional[float] = None):

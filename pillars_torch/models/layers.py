@@ -10,6 +10,12 @@ BatchNorm computes in float32 from the float32 statistics and rounds its
 output once; in train mode it takes the batch statistics in float32 from
 the rounded activations (flax's ``force_float32_reductions``), and the
 gradient flows through them. The parameters and statistics stay float32.
+
+Over several ranks (pillars_torch/parallel/), a BatchNorm whose ``group``
+is set takes its train-mode statistics over the ranks of that process
+group: each rank's sums of x, x^2 and its row count go through one
+all-reduce before the mean and variance (SyncBatchNorm's semantics, the
+statistics of the global batch), and the gradient flows back through it.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from pillars_torch.parallel.collectives import all_reduce_sum
 
 
 def promote(dtype: Optional[torch.dtype], *tensors):
@@ -61,7 +69,15 @@ class _PromotedConv:
 
 
 class Conv2d(_PromotedConv, nn.Conv2d):
-    """``nn.Conv2d`` (no bias) computing in ``dtype``."""
+    """``nn.Conv2d`` (no bias) computing in ``dtype``; ``padding`` given to
+    a call replaces the module's (the spatial RPN pads only x)."""
+
+    def forward(self, x, padding=None):
+        if padding is None:
+            return super().forward(x)
+        x, w = promote(self.compute_dtype, x, self.weight)
+        return F.conv2d(x, w, None, self.stride, padding, self.dilation,
+                        self.groups)
 
 
 class Conv3d(_PromotedConv, nn.Conv3d):
@@ -88,8 +104,9 @@ def depthwise_shift_add(x: torch.Tensor, weight: torch.Tensor, stride: int,
     """The JAX package's ``depthwise_shift_add``: a 3x3 depthwise conv as 9
     shifted products summed in (dy, dx) order, each product and each sum in
     ``x``'s dtype (in bfloat16 each rounds). x [B, C, H, W], weight
-    [C, 1, 3, 3]."""
-    xp = F.pad(x, (padding,) * 4)
+    [C, 1, 3, 3]; ``padding`` an int or (along y, along x)."""
+    py, px = (padding, padding) if isinstance(padding, int) else padding
+    xp = F.pad(x, (px, px, py, py))
     oh = (xp.shape[2] - 3) // stride + 1
     ow = (xp.shape[3] - 3) // stride + 1
     out = None
@@ -122,13 +139,17 @@ class SeparableConv(nn.Module):
         self.pointwise = Conv2d(in_ch, features, 1, dtype=dtype)
         self.shift_add = shift_add and dtype is not None
 
-    def forward(self, x):
+    def forward(self, x, padding=None):
+        """``padding``: an int or (along y, along x) that replaces the
+        depthwise conv's."""
+        dw = self.depthwise
         if self.shift_add:
-            dw = self.depthwise
             x = depthwise_shift_add(*promote(dw.compute_dtype, x, dw.weight),
-                                    dw.stride[0], dw.padding[0])
+                                    dw.stride[0],
+                                    dw.padding[0] if padding is None
+                                    else padding)
         else:
-            x = self.depthwise(x)
+            x = dw(x, padding)
         return self.pointwise(x)
 
 
@@ -146,13 +167,17 @@ class BatchNorm(nn.Module):
 
     Train mode does not touch the buffers: the updated statistics are left
     in :attr:`new_stats` (detached) for the caller to collect, the
-    counterpart of flax's ``mutable=["batch_stats"]``."""
+    counterpart of flax's ``mutable=["batch_stats"]``.
+
+    ``group``: the process group whose ranks share the train-mode
+    statistics (None: this process's batch alone)."""
 
     def __init__(self, features: int, eps: float, momentum: float,
                  count_batches: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = dtype
+        self.group = None
         self.eps = eps
         self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
@@ -173,6 +198,21 @@ class BatchNorm(nn.Module):
             if self.count_batches:
                 self.new_stats += (self.num_batches_tracked + 1,)
 
+    def _moments(self, s1, s2, count):
+        """Mean and biased variance from this rank's sums of x and x^2 and
+        its row count, summed over :attr:`group` in one collective when
+        it is set."""
+        if self.group is not None:
+            f = s1.shape[0]
+            packed = all_reduce_sum(
+                torch.cat([s1, s2, count.reshape(1).to(s1.dtype)]),
+                self.group)
+            s1, s2, count = packed[:f], packed[f:2 * f], packed[2 * f]
+        count = torch.clamp(count.to(s1.dtype), min=1.0)
+        mean = s1 / count
+        var = torch.clamp(s2 / count - mean * mean, min=0.0)
+        return mean, var
+
     def forward(self, x):
         if not self.training and self.compute_dtype is not None:
             # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale)
@@ -191,8 +231,14 @@ class BatchNorm(nn.Module):
         # float32 from the activations, the output rounded once
         xf = at_least_f32(x)
         axes = [0] + list(range(2, x.ndim))
-        mean = xf.mean(dim=axes)
-        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        if self.group is None:  # mean() launches fewer kernels than sums
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                              min=0.0)
+        else:
+            mean, var = self._moments(
+                xf.sum(dim=axes), (xf * xf).sum(dim=axes),
+                xf.new_tensor(float(x.numel() // x.shape[1])))
         self._record(mean, var)
         shape = [1, -1] + [1] * (x.ndim - 2)
         inv = torch.rsqrt(var + self.eps)
@@ -221,10 +267,8 @@ class MaskedBatchNorm(BatchNorm):
             xf = at_least_f32(x)
             m = torch.broadcast_to(mask, x.shape[:-1]).to(xf.dtype)[..., None]
             axes = tuple(range(x.ndim - 1))
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dim=axes) / count
-            var = torch.clamp((xf * xf * m).sum(dim=axes) / count
-                              - mean * mean, min=0.0)
+            mean, var = self._moments(
+                (xf * m).sum(dim=axes), (xf * xf * m).sum(dim=axes), m.sum())
             self._record(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -50,10 +50,9 @@ class _PointwiseMaskedBN(BatchNorm):
         if self.training:
             xf = at_least_f32(x)
             k = kept[:, None].to(xf.dtype)
-            count = torch.clamp(count.to(xf.dtype), min=1.0)
-            mean = (xf * k).sum(dim=0) / count
-            var = torch.clamp((xf * xf * k).sum(dim=0) / count - mean * mean,
-                              min=0.0)
+            # under a group the row counts of every rank's pillars add up
+            mean, var = self._moments(
+                (xf * k).sum(dim=0), (xf * xf * k).sum(dim=0), count)
             self._record(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -36,11 +36,12 @@ def _upcast(x):
     return x.float() if x.dtype == torch.bfloat16 else x
 
 
-def _remat(module: nn.Module, x):
-    """``module(x)``, recomputed in the backward instead of stored. The
-    module's tensors go in as explicit inputs and its mode is restored for
-    the recomputation, so that reads what the forward read (also under
-    ``torch.func.functional_call``, which has returned by then)."""
+def _remat(module: nn.Module, x, kwargs=None):
+    """``module(x, **kwargs)``, recomputed in the backward instead of
+    stored. The module's tensors go in as explicit inputs and its mode is
+    restored for the recomputation, so that reads what the forward read
+    (also under ``torch.func.functional_call``, which has returned by
+    then)."""
     names, tensors = zip(*(list(module.named_parameters())
                            + list(module.named_buffers())))
     training = module.training
@@ -50,7 +51,7 @@ def _remat(module: nn.Module, x):
         module.train(training)
         try:
             return torch.func.functional_call(module, dict(zip(names, ts)),
-                                              (x,))
+                                              (x,), kwargs or {})
         finally:
             module.train(was)
 
@@ -111,11 +112,15 @@ class _Block(nn.Module):
             self.add_module(f"bn{i}", BatchNorm(features, bn_eps, bn_momentum,
                                                 dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, halo=None):
+        """``halo``: for a band of rows (parallel/spatial.py), the function
+        that adds one neighbour row on each side; each conv then pads only
+        along x."""
         if self.upcast:
             x = _upcast(x)
         for i in range(self.num_layers + 1):
-            x = getattr(self, f"conv{i}")(x)
+            conv = getattr(self, f"conv{i}")
+            x = conv(x) if halo is None else conv(halo(x), padding=(0, 1))
             x = torch.relu(getattr(self, f"bn{i}")(x))
         return x
 
@@ -203,8 +208,11 @@ class RPN(RPNTail):
                 shift_add=rcfg.depthwise_shift_add))
             cin = rcfg.num_filters[i]
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        """x: [B, ny, nx, C] canvas -> head outputs, NHWC."""
+    def forward(self, x, halo=None) -> Dict[str, torch.Tensor]:
+        """x: [B, ny, nx, C] canvas -> head outputs, NHWC. With ``halo``
+        (parallel/spatial.py), ``x`` is a band of the canvas's rows and the
+        heads come out for that band: every 3x3 conv of the blocks reads
+        one row of each neighbour band through ``halo``."""
         rcfg = self.cfg.rpn
         # as the JAX package: the boundaries are bf16 whenever both flags
         # are set on a float32 network; recomputation matters only where a
@@ -215,14 +223,17 @@ class RPN(RPNTail):
         def cast(a):
             return a.to(torch.bfloat16) if bf16 else a
 
-        def call(module, a):
-            return _remat(module, a) if remat else module(a)
+        def call(module, a, kwargs=None):
+            if remat:
+                return _remat(module, a, kwargs)
+            return module(a, **(kwargs or {}))
 
         # one bf16 copy of each boundary feeds both the deconv and the next
         # block, so each is stored once
         x = cast(x.permute(0, 3, 1, 2).contiguous())
         ups = []
+        block_kwargs = None if halo is None else {"halo": halo}
         for i in range(3):
-            x = cast(call(getattr(self, f"block{i + 1}"), x))
+            x = cast(call(getattr(self, f"block{i + 1}"), x, block_kwargs))
             ups.append(cast(call(getattr(self, f"deconv{i + 1}"), x)))
         return self.apply_heads(ups)

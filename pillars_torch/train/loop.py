@@ -5,6 +5,15 @@ anchors mask, target assignment, forward in train mode, loss, backward,
 optimizer update. The state is passed in and a new one returned; the step
 changes none of the tensors it was handed.
 
+Over several ranks (the detector's ``mesh``, pillars_torch/parallel/), each
+rank passes its block of the global batch (``parallel.shard_batch``); the
+train-mode BNs reduce their statistics over the ranks, and after the
+backward ONE all-reduce over a flat buffer of every gradient leaf sums them
+over the spatial ranks and averages them over the data ranks. AdamW then
+runs alike on every rank, so the parameters stay identical. Loss parts
+(each rank's divided by its own batch) are averaged and ``num_positives``
+summed over the data ranks: the global batch's values.
+
 Batch layout (dense, padded; NumPy arrays or tensors):
     points      [B, MAXPTS, D] float32
     num_points  [B]            int32
@@ -22,6 +31,8 @@ import torch
 from pillars_torch.models.detector import PillarsDetector
 from pillars_torch.models.losses import LossOutput
 from pillars_torch.ops.targets import TargetAssignment
+from pillars_torch.parallel.collectives import (all_gather_cat,
+                                                all_reduce_flat)
 from pillars_torch.train import metrics as tm
 from pillars_torch.train.optim import AdamState, AdamW
 
@@ -95,6 +106,15 @@ class Gradients(NamedTuple):
     batch_stats: Dict[str, torch.Tensor]  # the new BN statistics
     targets: TargetAssignment
     cls_preds: torch.Tensor
+    num_positives: torch.Tensor  # int32, over the global batch
+
+
+def _data_group(detector: PillarsDetector):
+    mesh = detector.mesh
+    if mesh is None:
+        return None, 1
+    axis = detector.config.runtime.data_axis
+    return mesh.group(axis), mesh.axis_size(axis)
 
 
 def forward_backward(detector: PillarsDetector, state: TrainState, batch,
@@ -119,8 +139,18 @@ def forward_backward(detector: PillarsDetector, state: TrainState, batch,
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(state.params.items(), grads)}
     out = LossOutput(*(t.detach() for t in out))
+    n_pos = (targets.labels > 0).sum(dtype=torch.int32)
+    if detector.mesh is not None:
+        grads = dict(zip(grads, all_reduce_flat(
+            grads.values(), detector.mesh.group(), detector.grad_scale)))
+        group, n_data = _data_group(detector)
+        if group is not None:
+            *parts, n_pos = all_reduce_flat(
+                list(out) + [n_pos.to(out.loss.dtype)], group)
+            out = LossOutput(*(p / n_data for p in parts))
+            n_pos = n_pos.round().to(torch.int32)
     return Gradients(out, grads, new_stats, targets,
-                     preds["cls_preds"].detach())
+                     preds["cls_preds"].detach(), n_pos)
 
 
 def make_train_step(detector: PillarsDetector, opt: AdamW,
@@ -147,7 +177,7 @@ def make_train_step(detector: PillarsDetector, opt: AdamW,
             *fb.loss,
             learning_rate=torch.tensor(opt.schedule(state.step),
                                        dtype=torch.float32),
-            num_positives=(fb.targets.labels > 0).sum(dtype=torch.int32))
+            num_positives=fb.num_positives)
         return new_state, metrics, fb
 
     if not with_metrics:
@@ -159,9 +189,14 @@ def make_train_step(detector: PillarsDetector, opt: AdamW,
 
     def step_m(state: TrainState, tm_state: tm.TrainMetricsState, batch):
         new_state, metrics, fb = _core(state, batch)
+        cls_preds, labels = fb.cls_preds, fb.targets.labels
+        group, n_data = _data_group(detector)
+        if n_data > 1:  # the streaming metrics of the global batch
+            cls_preds = all_gather_cat(cls_preds, group)
+            labels = all_gather_cat(labels, group)
         new_tm, values = tm.update_metrics(
             tm_state, fb.loss.cls_loss_reduced, fb.loss.loc_loss_reduced,
-            fb.cls_preds, fb.targets.labels, num_class)
+            cls_preds, labels, num_class)
         return new_state, new_tm, metrics, values
 
     return step_m

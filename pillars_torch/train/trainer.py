@@ -2,6 +2,17 @@
 train.py:126-460, train, and :480-932, evaluate): epochs of train steps on
 the card, a full KITTI eval after each epoch, weights kept iff the aggregate
 score improves.
+
+Over several ranks (``runtime.num_devices`` > 1; one process per device,
+started by ``pillars_torch.parallel.launch``), every rank reads the same
+global batches from the same seeded loader and trains on its block of each
+(train/loop.py reduces the statistics and gradients); the ``Evaluator``
+splits full eval batches over the ranks, runs a batch that does not split
+on rank 0 alone, and gathers the predictions in batch order. Only rank 0
+writes checkpoints, ``metrics.csv``, result files and the archived
+``train.yaml``. With ``train_input.num_workers`` > 1 the loader's threads
+interleave the augmentation draws, as in the JAX package, so the ranks'
+copies of a batch agree only with one worker.
 """
 
 from __future__ import annotations
@@ -21,7 +32,12 @@ from pillars_torch.eval import kitti_ap
 from pillars_torch.eval.predict_to_anno import (infos_to_gt_annos,
                                                 predictions_to_annos)
 from pillars_torch.eval.proxies import detection_quality_proxies
-from pillars_torch.models.detector import HostFetch, PillarsDetector
+from pillars_torch.models.detector import (HostFetch, PillarsDetector,
+                                           Predictions)
+from pillars_torch.parallel.collectives import (all_gather_cat, broadcast_,
+                                                broadcast_object)
+from pillars_torch.parallel.launch import is_main, resolve_num_devices
+from pillars_torch.parallel.mesh import make_mesh, shard_batch
 from pillars_torch.train import checkpoint as ckpt
 from pillars_torch.train.loop import (batch_to_device, create_train_state,
                                       make_train_step, split_state, variables)
@@ -42,7 +58,13 @@ class Evaluator:
     ``eval_input.bn_recal_batches`` > 0 refreshes its BN statistics first
     (train/bn_recal.py).
 
-    Not ported yet: the data-parallel mesh over several cards."""
+    Data-parallel over ``runtime.num_devices`` ranks (0: every rank of the
+    process group, one device outside any group): each full batch that splits
+    over the ranks is split, each rank infers its block (its postprocess
+    launching the NMS kernel) and the blocks are gathered in batch order;
+    a batch that does not split runs on rank 0 and its predictions are
+    broadcast. Every rank returns the same annos; the AP is computed on
+    rank 0 and broadcast."""
 
     def __init__(self, cfg: Config, detector: PillarsDetector,
                  measure_time: bool = False, buckets=None):
@@ -72,6 +94,47 @@ class Evaluator:
         else:
             self.infer = detector.make_inference_fn(
                 cfg.eval_input.anchor_area_threshold)
+        self.mesh = None
+        n_dev = resolve_num_devices(cfg.runtime.num_devices)
+        if n_dev > 1:
+            axis = cfg.runtime.data_axis
+            mesh = detector.mesh
+            self.mesh = (mesh if mesh is not None and mesh.group(axis)
+                         is not None else make_mesh(n_dev, axis))
+
+    def _split(self, b: int) -> bool:
+        """Whether a batch of ``b`` clouds splits over the data ranks."""
+        return (self.mesh is not None
+                and b % self.mesh.axis_size(self.cfg.runtime.data_axis) == 0)
+
+    def _data_rank(self) -> int:
+        return self.mesh.axis_index(self.cfg.runtime.data_axis)
+
+    def _infer_batch(self, variables, batch) -> Predictions:
+        """The predictions of the whole batch, on every rank."""
+        args = [batch[k] for k in ("points", "num_points", "rect", "trv2c")]
+        if self.mesh is None:
+            return self.infer(variables, *args)
+        group = self.mesh.group(self.cfg.runtime.data_axis)
+        with torch.inference_mode():
+            if batch["split"]:
+                local = self.infer(variables, *args)
+                return Predictions(*(_from_wire(all_gather_cat(
+                    _to_wire(t), group), t.dtype) for t in local))
+            if self._data_rank() == 0:
+                preds = self.infer(variables, *args)
+            else:  # receives rank 0's predictions of the batch
+                b = len(batch["image_idx"])
+                k = self.cfg.model.postprocess.nms_post_max_size
+                dev = self.device
+                preds = Predictions(
+                    torch.empty((b, k, 7), device=dev),
+                    torch.empty((b, k, 7), device=dev),
+                    torch.empty((b, k), device=dev),
+                    torch.empty((b, k), dtype=torch.int32, device=dev),
+                    torch.empty((b, k), dtype=torch.bool, device=dev))
+            return Predictions(*(_from_wire(broadcast_(
+                _to_wire(t), 0, group), t.dtype) for t in preds))
 
     def _bucketed_infer(self, variables, points, num_points, rect, trv2c):
         # points was pre-sliced to an exact bucket width in _device_put
@@ -97,6 +160,20 @@ class Evaluator:
                              points=np.concatenate([pts, pad], axis=1))
         return {**batch, **batch_to_device(
             batch, self.device, [k for k in _DEVICE_KEYS if k in batch])}
+
+    def _device_put_ranks(self, batch):
+        """:meth:`_device_put` over the data ranks: this rank's block of a
+        batch that splits over them, else the whole batch on rank 0 and
+        nothing on the others."""
+        split = self._split(len(batch["points"]))
+        if split:
+            batch = {**batch, **shard_batch(
+                {k: batch[k] for k in _DEVICE_KEYS if k in batch},
+                self.mesh, self.cfg.runtime.data_axis)}
+        batch = dict(batch, split=split)
+        if not split and self._data_rank() != 0:
+            return batch  # rank 0 runs it
+        return self._device_put(batch)
 
     def _drain(self, entry, dt_annos, timer):
         """Read back one in-flight batch and convert it to annos."""
@@ -155,7 +232,8 @@ class Evaluator:
         it = BatchIterator(self.dataset, batch_size, shuffle=False,
                            num_workers=self.cfg.eval_input.num_workers,
                            drop_remainder=False,
-                           device_put_fn=self._device_put)
+                           device_put_fn=(self._device_put_ranks if self.mesh
+                                          else self._device_put))
         total = (min(len(self.dataset), max_samples) if max_samples
                  else len(self.dataset))
         timer = StageTimer(enabled=self.measure_time)
@@ -188,19 +266,16 @@ class Evaluator:
             if batch is None:
                 break
             with timer.stage("t_network"):
-                preds = self.infer(
-                    variables, batch["points"], batch["num_points"],
-                    batch["rect"], batch["trv2c"])
-                fetch = HostFetch(preds)
+                fetch = HostFetch(self._infer_batch(variables, batch))
             pending.append((fetch, batch["image_idx"]))
             if len(pending) > window:
                 self._drain(pending.pop(0), dt_annos, timer)
-            count += batch["points"].shape[0]
+            count += len(batch["image_idx"])
             timer.add("t_full_sample",
                       (time.perf_counter() - t_sample) * 1e3)
             t_sample = time.perf_counter()
             bi += 1
-            if progress and bi % report_every == 0:
+            if progress and is_main() and bi % report_every == 0:
                 pct = min(100, 100 * count // max(total, 1))
                 msg = f"[eval] {count}/{total} clouds ({pct}%)"
                 if self.measure_time:
@@ -218,7 +293,7 @@ class Evaluator:
             print("per-cloud: " + ", ".join(
                 f"{k} {v / batch_size:.2f} ms"
                 for k, v in sorted(avgs.items())) + f" ({count} clouds)")
-        if save_path:
+        if save_path and is_main():
             with open(save_path, "wb") as f:
                 pickle.dump(dt_annos, f, 2)
         if self.cfg.eval_input.no_annos_mode:
@@ -237,36 +312,61 @@ class Evaluator:
             # gating/logging still works (train.py:879-880)
             self.last_proxies = {}
             return "no evaluation (no_annos_mode)", 0.0, 0.0, 0.0, 0.0
-        # detection-quality proxies: visible per-epoch movement long
-        # before AP lifts off (eval/proxies.py)
-        self.last_proxies = detection_quality_proxies(dt_annos, gt_annos)
-        result, _, mAPbev, mAP3d, mAPaos = kitti_ap.get_official_eval_result(
-            gt_annos, dt_annos, self.class_names, compute_bbox=False)
-        score = kitti_ap.aggregate_eval_score(mAP3d, mAPaos, mAPbev)
-        return result, mAPbev, mAP3d, mAPaos, score
+        out = None
+        if self.mesh is None or self._data_rank() == 0:
+            # detection-quality proxies: visible per-epoch movement long
+            # before AP lifts off (eval/proxies.py)
+            proxies = detection_quality_proxies(dt_annos, gt_annos)
+            result, _, mAPbev, mAP3d, mAPaos = (
+                kitti_ap.get_official_eval_result(
+                    gt_annos, dt_annos, self.class_names,
+                    compute_bbox=False))
+            score = kitti_ap.aggregate_eval_score(mAP3d, mAPaos, mAPbev)
+            out = (proxies, (result, mAPbev, mAP3d, mAPaos, score))
+        if self.mesh is not None:
+            out = broadcast_object(
+                out, 0, self.mesh.group(self.cfg.runtime.data_axis))
+        self.last_proxies, result = out
+        return result
 
 
 class Trainer:
     """Epoch loop, per-epoch eval and score-gated checkpoints on one device
-    (the card unless ``device`` says otherwise)."""
+    (the card unless ``device`` says otherwise), or data-parallel over the
+    ranks of a process group when ``runtime.num_devices`` > 1 (0: every
+    rank of the group, one device outside any group): each rank builds its
+    own Trainer on its device; the global batch size must split over the
+    ranks."""
 
     def __init__(self, cfg: Config, use_wandb: bool = False, device=None):
-        if (cfg.runtime.num_devices or 1) > 1:
-            raise NotImplementedError(
-                "runtime.num_devices > 1: data-parallel training over several "
-                "cards comes with the parallel/ slice of the port")
         self.cfg = cfg
-        self.detector = PillarsDetector(cfg, device=device)
+        n_dev = resolve_num_devices(cfg.runtime.num_devices)
+        self.mesh = None
+        if n_dev > 1:
+            if cfg.train_input.batch_size % n_dev:
+                raise ValueError(
+                    f"batch_size {cfg.train_input.batch_size} not divisible "
+                    f"by {n_dev} devices")
+            self.mesh = make_mesh(n_dev, cfg.runtime.data_axis)
+        self.is_main = is_main()
+        self.detector = PillarsDetector(cfg, device=device, mesh=self.mesh)
         self.device = self.detector.device
-        self.dirs = ckpt.create_out_dirs(cfg.out_dir, cfg.model_id)
-        # archive the resolved config into the run dir (reference copies
-        # configs/train.yaml, train.py:158)
-        try:
-            cfg.to_yaml(os.path.join(self.dirs["model_dir"], "train.yaml"))
-        except RuntimeError:
-            pass  # no yaml module: the run goes on, unarchived
-        self.logger = MetricLogger(self.dirs["logs"], use_wandb=use_wandb,
-                                   run_name=f"model_{self.dirs['model_id']}")
+        self.dirs = (ckpt.create_out_dirs(cfg.out_dir, cfg.model_id)
+                     if self.is_main else None)
+        if self.mesh is not None:
+            self.dirs = broadcast_object(self.dirs, 0, self.mesh.group())
+        if self.is_main:
+            # archive the resolved config into the run dir (reference
+            # copies configs/train.yaml, train.py:158)
+            try:
+                cfg.to_yaml(os.path.join(self.dirs["model_dir"],
+                                         "train.yaml"))
+            except RuntimeError:
+                pass  # no yaml module: the run goes on, unarchived
+        self.logger = MetricLogger(
+            self.dirs["logs"] if self.is_main else None,
+            use_wandb=use_wandb and self.is_main,
+            run_name=f"model_{self.dirs['model_id']}")
 
         sampler = None
         if cfg.train_input.sampler.info_path:
@@ -350,10 +450,15 @@ class Trainer:
         batch_size = cfg.train_input.batch_size
         best_score = self._best_score
         step_count = self.state.step
-        # H2D prefetch: the loader's thread copies each batch to the card
-        # through pinned memory, overlapping the previous step
+        # H2D prefetch: the loader's thread copies each batch (this rank's
+        # block of it) to the card through pinned memory, overlapping the
+        # previous step
         def put(batch):
-            return {**batch, **batch_to_device(batch, self.device)}
+            if self.mesh is None:
+                return {**batch, **batch_to_device(batch, self.device)}
+            local = shard_batch(batch, self.mesh, cfg.runtime.data_axis)
+            return {**local, **batch_to_device(local, self.device),
+                    "global_batch": batch}
 
         if self._pending_eval_epoch is not None and self.evaluator is not None:
             best_score = self._eval_and_gate(
@@ -380,11 +485,12 @@ class Trainer:
                     device_put_fn=put, seed=cfg.train.seed + epoch)
             t_epoch = time.time()
             for batch in it:
-                if save_batch_file and step_count == 0:
+                if save_batch_file and step_count == 0 and self.is_main:
+                    whole = batch.get("global_batch", batch)
                     with open(save_batch_file, "wb") as f:
                         pickle.dump({k: (v.cpu().numpy()
                                          if isinstance(v, torch.Tensor)
-                                         else v) for k, v in batch.items()},
+                                         else v) for k, v in whole.items()},
                                     f, 2)
                 if self.tm_state is not None:
                     self.state, self.tm_state, metrics, tm_values = \
@@ -392,15 +498,19 @@ class Trainer:
                 else:
                     self.state, metrics = self.step_fn(self.state, batch)
                     tm_values = None
-                if step_count % cfg.train.log_every_steps == 0:
+                if (self.is_main
+                        and step_count % cfg.train.log_every_steps == 0):
                     self.logger.log_train_step(step_count, epoch, metrics,
                                                extra=tm_values)
-                if step_count % cfg.train.print_every_steps == 0:
+                if (self.is_main
+                        and step_count % cfg.train.print_every_steps == 0):
                     print(f"[train] epoch {epoch} step {step_count} "
                           f"loss {float(metrics.loss):.4f} "
                           f"lr {float(metrics.learning_rate):.6f}")
                 step_count += 1
-            print(f"[train] epoch {epoch} done in {time.time()-t_epoch:.1f}s")
+            if self.is_main:
+                print(f"[train] epoch {epoch} done in "
+                      f"{time.time()-t_epoch:.1f}s")
 
             if self.evaluator is not None:
                 best_score = self._eval_and_gate(epoch, best_score,
@@ -417,12 +527,16 @@ class Trainer:
         after gating the temp is rewritten with evaluated=True."""
         step_count = self.state.step
         temp = os.path.join(self.dirs["checkpoints"], "weights_temp.pkl")
-        ckpt.save_checkpoint(temp, self.state, extra={
-            "epoch": epoch, "best_score": best_score, "evaluated": False})
+        if self.is_main:
+            ckpt.save_checkpoint(temp, self.state, extra={
+                "epoch": epoch, "best_score": best_score,
+                "evaluated": False})
         result, bev, d3, aos, score = self.evaluator.evaluate(
             self.variables(), max_samples=eval_max_samples,
             save_path=os.path.join(self.dirs["results"],
                                    f"result_{epoch}.pkl"))
+        if not self.is_main:  # the same score: the same gating
+            return max(best_score, score)
         self.logger.log_eval(step_count, d3, aos, bev, score,
                              extra=self.evaluator.last_proxies)
         print(f"[eval] epoch {epoch} score {score:.2f} "
@@ -440,3 +554,12 @@ class Trainer:
         ckpt.save_checkpoint(temp, self.state, extra={
             "epoch": epoch, "best_score": best_score, "evaluated": True})
         return best_score
+
+
+def _to_wire(t: torch.Tensor) -> torch.Tensor:
+    """Bool tensors cross the collectives as uint8."""
+    return t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+
+
+def _from_wire(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t.to(dtype) if t.dtype != dtype else t

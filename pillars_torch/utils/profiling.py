@@ -1,6 +1,7 @@
-"""Timing: the host-side stage timer with the reference's stage names, and on
-the card CUDA-event timers, a per-stage breakdown of the d435i inference
-paths and a torch.profiler pass for the device's busy share.
+"""Timing: the host-side stage timer with the reference's stage names, a
+Chrome trace of a block (``profiler_trace``), and on the card CUDA-event
+timers, a per-stage breakdown of the d435i inference paths and a
+torch.profiler pass for the device's busy share.
 
     python -m pillars_torch.utils.profiling [--path dense|fast] [--iters 50]
                                             [--out FILE]
@@ -68,6 +69,24 @@ class StageTimer:
         msg = ", ".join(f"{k}: {v:.2f}" for k, v in self.averages().items())
         print(msg)
         return msg
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """Trace the block under ``torch.profiler`` (the CPU, and the card's
+    kernels where there is one) and write it to ``log_dir`` as a Chrome
+    trace, ``trace.json`` (chrome://tracing, Perfetto); the counterpart of
+    the JAX package's ``jax.profiler`` trace. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    path = pathlib.Path(log_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(path / "trace.json"))
 
 
 def cuda_ms(fn: Callable[[], object], iters: int) -> float:

@@ -162,6 +162,8 @@ def test_resume_restores_epoch_and_gate(tmp_path):
 
 
 def test_trainer_on_several_cards_says_which_slice():
+    """Data-parallel training needs its ranks (``parallel.launch``); one
+    process asked for two devices raises and says how to start them."""
     cfg = small_config(TorchConfig).override("runtime.num_devices", 2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(ValueError, match="pillars_torch.parallel.launch"):
         Trainer(cfg, device="cpu")

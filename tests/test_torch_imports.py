@@ -1,6 +1,7 @@
 """The port stands alone: no file of pillars_torch/ (the serving, data,
-eval, training, capture, plotting and CLI modules included) or chip_smoke.py
-imports JAX, flax, optax or the JAX package, the package imports (without
+eval, training, capture, plotting, CLI and parallel modules included),
+chip_smoke.py or tests/torch_parallel_ranks.py (the module that spawned
+test ranks import) imports JAX, flax, optax or the JAX package, the package imports (without
 matplotlib or h5py, which only the functions that need them import) and
 reads the trained checkpoints into the dense-cell, the point-major and the
 SECOND network in a process where those cannot be imported, and its config
@@ -22,7 +23,7 @@ WEIGHTS = ROOT / "benchmarks" / "hard_synth" / "weights_59.pkl"
 
 def _port_files():
     return sorted((ROOT / "pillars_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_ranks.py"]
 
 
 def _imported_roots(path):
@@ -68,6 +69,10 @@ import pillars_torch.models.middle, pillars_torch.models.sparse_middle
 import pillars_torch.ops.sparse_conv
 import pillars_torch.data.capture, pillars_torch.viz.plot
 import pillars_torch.ops.nms_variants
+import pillars_torch.parallel, pillars_torch.parallel.launch
+import pillars_torch.parallel.spatial, pillars_torch.parallel.collectives
+sys.path.insert(0, "tests")
+import torch_parallel_ranks
 # the card's machine has neither: imported inside the functions that use them
 lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("matplotlib",
                                                            "h5py"))
@@ -120,7 +125,13 @@ def test_every_port_module_is_checked():
                  "pillars_torch/models/sparse_middle.py",
                  "pillars_torch/models/middle.py",
                  "pillars_torch/data/capture.py", "pillars_torch/viz/plot.py",
-                 "pillars_torch/ops/nms_variants.py", "chip_smoke.py"):
+                 "pillars_torch/ops/nms_variants.py",
+                 "pillars_torch/parallel/__init__.py",
+                 "pillars_torch/parallel/mesh.py",
+                 "pillars_torch/parallel/spatial.py",
+                 "pillars_torch/parallel/launch.py",
+                 "pillars_torch/parallel/collectives.py",
+                 "tests/torch_parallel_ranks.py", "chip_smoke.py"):
         assert must in names, must
 
 
