@@ -138,7 +138,26 @@ Phases, none of whose failures is caught:
    1e-5, locations 1e-4), each rank's NMS and fused-chain launches counted
    around its run and equal to the batches it ran; times and launches of
    the two-rank runs are those of two ranks sharing one card, not a
-   speed-up.
+   speed-up;
+18. the captured inference (pillars_torch/cuda_graph.py) against the eager
+   function it captures, on the card: the dense-cell and fast paths at B=1
+   and B=2 in float32 and bfloat16, both rungs of the default bucket ladder
+   and one ``second_sparse_d435i`` cloud from ``weights_33.pkl``; valid
+   and labels equal, scores, boxes and the head tensors (a graph of the
+   network alone) within ``CAPTURE_RTOL`` of each tensor's max; launch
+   counts of replays equal to the calls; call n's predictions unchanged
+   after call n+1; the state swapped (a new dict, the same tensors scaled
+   in place, inference tensors, the first state again), each call equal to
+   eager on the same state; then eager and captured in turns at B=1 on the
+   dense and fast paths: ms per cloud (CUDA events), host wall, graph and
+   kernel launches, device ms and idle share, the capture seconds per
+   shape, the graph pool's MiB and the path's analytic bound
+   (utils/roofline.py).
+
+Every inference phase runs what ``make_inference_fn`` returns on the card,
+a captured CUDA graph per input shape: the launch counts read around a
+phase add each replay's launches (cuda_graph.py); the first call at a shape
+runs eagerly and counts its own.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -405,10 +424,10 @@ def check_rpn_kernel(mcfg):
                for name, f, xin, must in (
                    ("kernel", kernel, xs, "rpn_sep_chain_kernel"),
                    ("cudnn", cudnn, nchw, ""))}
-        _, dev_ms, rows = device_busy(
+        _, dev_ms, rows, _ = device_busy(
             lambda: rpn_cuda.fused_sep_chain(xs[0], packed), 50,
             "rpn_sep_chain_kernel")
-        _, cudnn_dev_ms, cudnn_rows = device_busy(
+        _, cudnn_dev_ms, cudnn_rows, _ = device_busy(
             lambda: chain(cudnn, nchw[0]), 50)
     work = [_block_work(1, *sh) for sh in shapes]
     flops = sum(f for f, _ in work)
@@ -501,14 +520,15 @@ def _warm_ms(fn, state, p, n, eye, label):
     wall_ms = (time.perf_counter() - t0) * 1e3 / 50
     print(f"{label} B=1: {ms:.3f} ms/cloud (CUDA events, warm), "
           f"{wall_ms:.3f} ms/cloud host wall")
-    prof_wall, device, rows = device_busy(
+    prof_wall, device, rows, graphs = device_busy(
         lambda: fn(state, p, n, eye, eye), 20, "nms_keep_mask_kernel")
     launches = sum(c for _, c, _ in rows)
-    print(f"{label} B=1: {launches:g} kernel launches and "
-          f"{device:.4f} ms of device time per cloud, idle share "
-          f"{1 - device / prof_wall:.3f} (torch.profiler)")
+    print(f"{label} B=1: {graphs:g} graph launches, {launches:g} kernel "
+          f"launches and {device:.4f} ms of device time per cloud, idle "
+          f"share {1 - device / prof_wall:.3f} (torch.profiler)")
     return {"ms": ms, "host_wall_ms": wall_ms, "launches": launches,
-            "device_ms": device, "idle_share": 1 - device / prof_wall}
+            "graph_launches": graphs, "device_ms": device,
+            "idle_share": 1 - device / prof_wall}
 
 
 def run_main_path(state_cpu):
@@ -1085,7 +1105,8 @@ def _time_train_step(cfg, state_cpu, on_card):
         step(state, on_card)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 20
-    prof_wall, device_ms, rows = device_busy(lambda: step(state, on_card), 5)
+    prof_wall, device_ms, rows, _ = device_busy(
+        lambda: step(state, on_card), 5)
     launches = sum(c for _, c, _ in rows)
     peak = {}
     for remat in (False, True):
@@ -1301,8 +1322,8 @@ def _counted(fn, state, batches):
 
 
 def _cloud_times(call, iters=50):
-    """Warm ms per call (CUDA events), host wall ms, and launches, device
-    ms and idle share per call (torch.profiler)."""
+    """Warm ms per call (CUDA events), host wall ms, and kernel and graph
+    launches, device ms and idle share per call (torch.profiler)."""
     from pillars_torch.utils.profiling import cuda_ms, device_busy
 
     ms = cuda_ms(call, iters)
@@ -1311,11 +1332,12 @@ def _cloud_times(call, iters=50):
         call()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / iters
-    prof_wall, device, rows = device_busy(call, 20, "nms_keep_mask_kernel")
+    prof_wall, device, rows, graphs = device_busy(call, 20,
+                                                  "nms_keep_mask_kernel")
     top = sorted(rows, key=lambda r: -r[2])[:6]
     return {"ms": ms, "host_wall_ms": wall,
-            "launches": sum(c for _, c, _ in rows), "device_ms": device,
-            "idle_share": 1 - device / prof_wall,
+            "launches": sum(c for _, c, _ in rows), "graph_launches": graphs,
+            "device_ms": device, "idle_share": 1 - device / prof_wall,
             "top_kernels": [[n[:60], c, t] for n, c, t in top]}
 
 
@@ -1386,17 +1408,19 @@ def run_second_sparse(smi, root):
     with torch.inference_mode():
         v = det.voxelize_batch(b0["points"], b0["num_points"])
         mid = det.network.middle
-        _, rulebook_ms, rows = device_busy(
+        _, rulebook_ms, rows, _ = device_busy(
             lambda: mid.rulebooks(v.coords, v.pillar_mask), 20)
         rulebook_launches = sum(c for _, c, _ in rows)
+        # the eager function runs the Python a replay skips
         calls, inner = [], sparse_conv.gather_conv
         sparse_conv.gather_conv = lambda *a: (calls.append(a), inner(*a))[1]
         try:
-            fn(state, b0["points"], b0["num_points"], b0["rect"], b0["trv2c"])
+            fn.eager(state, b0["points"], b0["num_points"], b0["rect"],
+                     b0["trv2c"])
         finally:
             sparse_conv.gather_conv = inner
-        _, gather_ms, rows = device_busy(lambda: [inner(*a) for a in calls],
-                                         20)
+        _, gather_ms, rows, _ = device_busy(
+            lambda: [inner(*a) for a in calls], 20)
     times.update(rulebooks_launches=rulebook_launches,
                  gather_conv_launches=sum(c for _, c, _ in rows),
                  rulebooks_device_ms=rulebook_ms,
@@ -1534,6 +1558,7 @@ def _kitti_cloud(n=120000, seed=0):
 def run_kitti_second(smi):
     """Phase 14; returns the launches."""
     from pillars_torch.config import Config
+    from pillars_torch.cuda_graph import pool_mib
     from pillars_torch.models.detector import PillarsDetector
 
     cfg = Config.from_yaml(str(CONFIGS / "kitti_second.yaml"))
@@ -1561,13 +1586,18 @@ def run_kitti_second(smi):
     call = lambda: fn(state, bc["points"], bc["num_points"], bc["rect"],  # noqa: E731
                       bc["trv2c"])
     times = _cloud_times(call, iters=10)
-    call()
+    # the eager body's peak: a replay allocates from the graph pool, held
+    # since its capture
+    eager = lambda: fn.eager(state, bc["points"], bc["num_points"],  # noqa: E731
+                             bc["rect"], bc["trv2c"])
+    eager()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    call()
+    eager()
     torch.cuda.synchronize()
     times["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    times["graph_pool_mib"] = pool_mib()
     print(f"kitti_second full scale (grid 1408x1600x40), one cloud of "
           f"{len(cloud)} points, seeded init: launches {launches}; active "
           f"rows per stage (input, stage 1, stage 2, stage 3 out) {active}, "
@@ -1576,8 +1606,9 @@ def run_kitti_second(smi):
           f"{times['ms']:.3f} ms/cloud (CUDA events), "
           f"{times['host_wall_ms']:.3f} ms host wall, {times['launches']:g} "
           f"launches, {times['device_ms']:.4f} ms device, idle share "
-          f"{times['idle_share']:.3f}; peak device memory of a call "
-          f"{times['peak_mib']:.1f} MiB above the state [{smi}]")
+          f"{times['idle_share']:.3f}; peak device memory of an eager call "
+          f"{times['peak_mib']:.1f} MiB above the state, graph pool "
+          f"{times['graph_pool_mib']:.1f} MiB [{smi}]")
     print("kitti second: " + json.dumps(times))
     return launches
 
@@ -1684,7 +1715,7 @@ def check_rpn_kernel_bf16(mcfg, f32):
 
         plain_ms = cuda_ms(twin_chain, 20)
         cudnn_ms = cuda_ms(cudnn_chain, 200)
-        _, cudnn_dev_ms, cudnn_rows = device_busy(cudnn_chain, 50)
+        _, cudnn_dev_ms, cudnn_rows, _ = device_busy(cudnn_chain, 50)
         # the chain kernel in both dtypes, in turns, on the same inputs:
         # warm events per call, and the device time per launch from the
         # kernel's own profiler rows (a trace may miss a launch)
@@ -1695,7 +1726,7 @@ def check_rpn_kernel_bf16(mcfg, f32):
                 xd = x.to(dt)
                 ms = cuda_ms(lambda: rpn_cuda.fused_sep_chain(xd, packed),
                              200)
-                _, _, rows = device_busy(
+                _, _, rows, _ = device_busy(
                     lambda: rpn_cuda.fused_sep_chain(xd, packed), 50,
                     "rpn_sep_chain_kernel")
                 mine = [(c, t) for name, c, t in rows
@@ -2098,7 +2129,7 @@ def _p17_times(det, state, opt, on_card, group):
     grads = list(state.params.values())
     step_ms = wall(lambda: step(state, on_card))
     reduce_ms = wall(lambda: all_reduce_flat(grads, group))
-    _, device_ms, rows = device_busy(lambda: step(state, on_card), 3)
+    _, device_ms, rows, _ = device_busy(lambda: step(state, on_card), 3)
     spent = {"s": 0.0, "wait": 0.0, "calls": 0, "active": 0, "overlaps": 0}
     names = ("all_reduce", "all_gather", "broadcast")
     inner = {n: getattr(dist, n) for n in names}
@@ -2387,6 +2418,268 @@ def _run_parallel(state_cpu, smi, root, t17):
 
 
 
+# --------------------------------------------------------------------------
+# phase 18: the captured inference (pillars_torch/cuda_graph.py)
+# replay against eager on the card: the same kernels in the same order, so
+# bit-equality is expected; 1e-6 of each tensor's max |value|
+CAPTURE_RTOL = 1e-6
+
+
+def _replay_close(got, want, label):
+    """Every field of two NamedTuples of tensors: integer and bool fields
+    equal, float fields within ``CAPTURE_RTOL`` of the eager field's max
+    |value|; returns the largest |difference|."""
+    worst = 0.0
+    for name, g, w in zip(want._fields, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {name}: {tuple(g.shape)} "
+                                 f"{g.dtype} against {tuple(w.shape)} "
+                                 f"{w.dtype}")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label} {name}: replay differs from "
+                                     f"eager")
+            continue
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        worst = max(worst, err)
+        if not err <= CAPTURE_RTOL * w.abs().max().item():
+            raise AssertionError(f"{label} {name}: replay against eager "
+                                 f"max |diff| {err}")
+    return worst
+
+
+def _captured_heads(det, thr):
+    """(captured, eager) head-tensor functions of ``det``'s inference
+    path, ``fn(state, points, num_valid, rect, trv2c)`` -> a NamedTuple of
+    the heads, the captured one reading the detector's static state."""
+    import collections
+    import functools
+
+    from pillars_torch.cuda_graph import CapturedInference
+
+    fields = []
+
+    def body(state, points, num_valid, rect, trv2c, folded=None):
+        if det.dense_cell:
+            heads = det._forward_dense(state, points, num_valid, thr)[0]
+        else:
+            v = det.voxelize_batch(points, num_valid)
+            heads = (det._forward_fast(state, v, folded) if det.fast
+                     else det.apply(state, v))
+        if not fields:
+            fields.append(collections.namedtuple("Heads", sorted(heads)))
+        return fields[0](*(heads[k] for k in fields[0]._fields))
+
+    def eager(state, points, num_valid, rect, trv2c):
+        with torch.inference_mode():
+            return body(state, points, num_valid, rect, trv2c)
+
+    captured = CapturedInference(
+        functools.partial(body, folded=det.graph_state), eager,
+        det.graph_state, det.device, lambda *t: fields[0](*t))
+    return captured, eager
+
+
+def _replay_path(label, det, state, inputs, launches_per_call):
+    """Captured against eager at one input shape: the predictions (the
+    first call, which captures, and replays), the heads, the launch counts
+    of replays and the outputs of call n after call n+1. ``inputs`` holds
+    two batches of one shape. Returns the largest |difference|."""
+    fn = det.make_inference_fn()
+    thr = det.config.eval_input.anchor_area_threshold
+    heads, heads_eager = _captured_heads(det, thr)
+    a, b = inputs
+    first = fn(state, *a)
+    want = fn.eager(state, *a)
+    worst = _replay_close(first, want, f"{label} first call")
+    _reset_counts()
+    got = [fn(state, *a) for _ in range(3)]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    expect = {k: 3 * v for k, v in launches_per_call.items()}
+    if counts != expect:
+        raise AssertionError(f"{label}: 3 replays counted {counts}, "
+                             f"expected {expect}")
+    for g in got:
+        worst = max(worst, _replay_close(g, want, f"{label} replay"))
+    heads(state, *a)
+    worst = max(worst, _replay_close(heads(state, *a),
+                                     heads_eager(state, *a),
+                                     f"{label} heads"))
+    # call n's predictions after call n+1 on another batch
+    kept = type(got[0])(*(t.clone() for t in got[0]))
+    after = fn(state, *b)
+    torch.cuda.synchronize()
+    _replay_close(got[0], kept, f"{label} call n after call n+1")
+    worst = max(worst, _replay_close(after, fn.eager(state, *b),
+                                     f"{label} second batch"))
+    if not want.valid.any():
+        raise AssertionError(f"{label}: no valid detection to compare")
+    return fn, worst
+
+
+def _state_swap(label, fn, state, inputs):
+    """The captured function against eager as the state changes: a new
+    dict of new tensors, its tensors scaled in place by 1.01, a dict of
+    inference tensors (also written in place), then ``state`` again.
+    Returns the copies into the static state over these calls."""
+    copies = fn.state.copies
+    base = fn(state, *inputs)
+    _replay_close(base, fn.eager(state, *inputs), f"{label}: first state")
+    other = {k: v.clone() for k, v in state.items()}
+    _replay_close(fn(other, *inputs), fn.eager(other, *inputs),
+                  f"{label}: a new dict")
+    with torch.no_grad():
+        for t in other.values():
+            if t.is_floating_point():
+                t.mul_(1.01)
+    scaled = fn(other, *inputs)
+    _replay_close(scaled, fn.eager(other, *inputs),
+                  f"{label}: scaled in place")
+    if torch.equal(scaled.scores, base.scores):
+        raise AssertionError(f"{label}: scaling the state by 1.01 left the "
+                             f"scores as they were")
+    with torch.inference_mode():
+        frozen = {k: v.clone() for k, v in state.items()}
+        _replay_close(fn(frozen, *inputs), fn.eager(frozen, *inputs),
+                      f"{label}: inference tensors")
+        for t in frozen.values():
+            if t.is_floating_point():
+                t.mul_(1.01)
+        _replay_close(fn(frozen, *inputs), fn.eager(frozen, *inputs),
+                      f"{label}: inference tensors written in place")
+    _replay_close(fn(state, *inputs), base, f"{label}: the first state again")
+    return fn.state.copies - copies
+
+
+def run_captured(state_cpu, smi):
+    """Phase 18; returns its numbers."""
+    from pillars_torch.config import Config
+    from pillars_torch.cuda_graph import CapturedInference, pool_mib
+    from pillars_torch.infer import BucketedInference
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.utils.profiling import device_busy
+    from pillars_torch.utils.roofline import roofline_report
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    t18 = time.perf_counter()
+    bf16 = lambda c: c.override("runtime.compute_dtype", "bfloat16")  # noqa: E731
+    paths = (("dense", Config.default()), ("fast", _fast_config()),
+             ("dense_bf16", bf16(Config.default())),
+             ("fast_bf16", bf16(_fast_config())))
+    result, fns = {"max_abs_diff": {}}, {}
+    for name, cfg in paths:
+        det = PillarsDetector(cfg)
+        state = det.state_to_device(state_cpu)
+        per_call = {"nms_keep_mask": 1,
+                    "rpn_sep_block": int(det.fast),
+                    "rpn_sep_block_bf16": int(det.fast and name.endswith(
+                        "bf16"))}
+        for b in (1, 2):
+            pts, num = _clouds(cfg.model.voxel.max_points, b, 2)
+            eye = torch.eye(4).expand(b, 4, 4).contiguous().cuda()
+            inputs = [(torch.from_numpy(pts[c]).cuda(),
+                       torch.from_numpy(num).cuda(), eye, eye)
+                      for c in range(2)]
+            fn, worst = _replay_path(f"{name} B={b}", det, state, inputs,
+                                     per_call)
+            result["max_abs_diff"][f"{name}_B{b}"] = worst
+            if not isinstance(fn, CapturedInference):
+                raise AssertionError(f"{name}: make_inference_fn did not "
+                                     f"capture on the card")
+            if b == 1:
+                fns[name] = (det, fn, state, inputs[0])
+        print(f"captured {name}: replay against eager at B=1 and B=2, "
+              f"valid/labels equal, max |diff| "
+              f"{max(result['max_abs_diff'][f'{name}_B{b}'] for b in (1, 2)):.3e}"
+              f" (tol {CAPTURE_RTOL} of each tensor's max); heads likewise; "
+              f"launch counts of replays = calls; call n's predictions "
+              f"unchanged after call n+1")
+
+    for name in ("dense", "fast"):
+        _, fn, state, inputs = fns[name]
+        copies = _state_swap(f"captured {name} state swap", fn, state,
+                             inputs)
+        print(f"captured {name} state swap: a new dict, in-place x1.01, "
+              f"inference tensors (copied on every call) and back, each "
+              f"equal to eager; {copies} copies into the static state")
+
+    cfg = Config.default()
+    bi = BucketedInference(cfg)
+    state = bi.state_to_device(state_cpu)
+    bi.warmup(state)
+    eye = torch.eye(4)[None].cuda()
+    for n, rung in ((3000, 9984), (19200, 19968)):
+        pts, num = _padded(_scenes(1, n, seed=n), rung)
+        fn = bi._fn(rung)
+        if len(fn.graphs) != 1:
+            raise AssertionError(f"rung {rung}: warmup captured "
+                                 f"{len(fn.graphs)} graphs")
+        worst = _replay_close(fn(state, pts, num, eye, eye),
+                              fn.eager(state, pts, num, eye, eye),
+                              f"rung {rung}")
+        result["max_abs_diff"][f"rung_{rung}"] = worst
+        print(f"captured ladder rung {rung} ({n} points, "
+              f"{'dense cell' if bi._dets[rung].dense_cell else 'point-major'}"
+              f"): replay against eager max |diff| {worst:.3e}")
+
+    scfg = Config.from_yaml(str(CONFIGS / "second_sparse_d435i.yaml"))
+    det = PillarsDetector(scfg)
+    state = det.state_to_device(
+        from_jax_variables(*load_params(str(SECOND_WEIGHTS)), scfg))
+    pts, num = _padded(_scenes(2, 19200, seed=5),
+                       scfg.model.voxel.max_points)
+    inputs = [(torch.from_numpy(pts[i:i + 1]).cuda(),
+               torch.from_numpy(num[i:i + 1]).cuda(), eye, eye)
+              for i in range(2)]
+    _, worst = _replay_path("second_sparse B=1", det, state, inputs,
+                            {"nms_keep_mask": 1, "rpn_sep_block": 0,
+                             "rpn_sep_block_bf16": 0})
+    result["max_abs_diff"]["second_sparse_B1"] = worst
+    print(f"captured second_sparse_d435i B=1: replay against eager max "
+          f"|diff| {worst:.3e}, heads likewise")
+
+    # times in turns: eager, captured, eager, captured
+    result["times"] = {}
+    for name in ("dense", "fast"):
+        det, fn, state, (p, n, eye, _) = fns[name]
+        turns = []
+        for variant in ("eager", "captured", "eager", "captured"):
+            call = fn.eager if variant == "eager" else fn
+            turns.append((variant, _warm_ms(call, state, p, n, eye,
+                                            f"{name} {variant}")))
+        counts = []
+        for call in (fn.eager, fn):
+            rows = device_busy(lambda: call(state, p, n, eye, eye), 10)[2]
+            counts.append({k: c for k, c, _ in rows})
+        moved = {k[:60]: [c.get(k, 0) for c in counts]
+                 for k in set(counts[0]) | set(counts[1])
+                 if counts[0].get(k, 0) != counts[1].get(k, 0)}
+        print(f"{name} B=1: kernels (and copies) per cloud that differ, "
+              f"eager against captured: {moved}")
+        cfg = det.config
+        roof = roofline_report(cfg, turns[1][1]["device_ms"], 1)
+        seconds = {str(k[0]): g.seconds for k, g in fn.graphs.items()}
+        result["times"][name] = {
+            "turns": turns, "capture_s": seconds,
+            "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
+            "flops": roof["flops"], "bytes": roof["bytes"]}
+        eager_ms = [t["ms"] for v, t in turns if v == "eager"]
+        graph_ms = [t["ms"] for v, t in turns if v == "captured"]
+        print(f"{name} B=1 in turns: eager {eager_ms} against captured "
+              f"{graph_ms} ms/cloud (CUDA events); capture s per shape "
+              f"{seconds}; analytic bound of the whole path "
+              f"{roof['bound_ms']:.4f} ms ({roof['bound_by']}: "
+              f"{roof['flops']:.4g} FLOP, {roof['bytes']:.4g} B, "
+              f"utils/roofline.py) [{smi}]")
+    result["pool_mib"] = pool_mib()
+    print(f"phase 18 (captured inference): graph pool {result['pool_mib']:.1f}"
+          f" MiB; {time.perf_counter() - t18:.1f} s [{smi}]")
+    print("captured: " + json.dumps(result))
+    return result
+
+
 def main(argv=None):
     import argparse
 
@@ -2451,6 +2744,7 @@ def main(argv=None):
         shutil.rmtree(root, ignore_errors=True)
     second_dense = run_second_dense(smi)
     kitti = run_kitti_second(smi)
+    run_captured(state_cpu, smi)
     nms["launches"] = dense["nms_keep_mask"]
     rpn["launches"] = fast["rpn_sep_block"]
     # kernel 2 in both dtypes: the bfloat16 variant's numbers, its launches

@@ -725,10 +725,21 @@ int launch_chain(const void* x, int b, int h, int w, int cin, int nblocks,
   if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   const long long capacity = (long long)sms * per_sm;
   const int grid = (int)(max_tiles < capacity ? max_tiles : capacity);
+  // a cooperative launch (the grid syncs between layers) through the
+  // extensible launch API: stream capture takes it into a CUDA graph as a
+  // cooperative kernel node
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
   void* args[] = {&prm};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kThreads), args, smem,
-                                    (cudaStream_t)stream);
+  err = cudaLaunchKernelExC(&config, (const void*)kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,9 @@ was consumed, so no pending copy is overwritten. The copy of the predictions
 back is enqueued by the dispatch thread behind the batch
 (:class:`~pillars_torch.models.detector.HostFetch`); a worker thread waits
 for that batch's event only and stamps the latency when the data is there.
+On the card each dispatch replays the captured CUDA graph of its input
+shape (pillars_torch/cuda_graph.py); the warm-up call before the sources
+start captures it.
 """
 
 from __future__ import annotations

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from pillars_torch import device_constant
+
 # unit-square corner layout, clockwise from the minimum point (the
 # reference's corners_nd reordering [0, 1, 3, 2])
 _CORNERS_NORM_2D = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
@@ -31,9 +33,10 @@ def limit_period(val, offset: float = 0.5, period: float = math.pi):
 def corners_nd(dims: torch.Tensor, origin=0.5) -> torch.Tensor:
     """[N, ndim] dims -> [N, 2**ndim, ndim] corners relative to the center."""
     ndim = dims.shape[-1]
-    norm = torch.tensor(_CORNERS_NORM_2D if ndim == 2 else _CORNERS_NORM_3D,
-                        dtype=dims.dtype, device=dims.device)
-    norm = norm - torch.as_tensor(origin, dtype=dims.dtype, device=dims.device)
+    norm = device_constant(
+        _CORNERS_NORM_2D if ndim == 2 else _CORNERS_NORM_3D, dims.dtype,
+        dims.device)
+    norm = norm - device_constant(origin, dims.dtype, dims.device)
     return dims[..., None, :] * norm[None]
 
 

@@ -7,16 +7,18 @@ the worst case. ``BucketedInference`` keeps a small ladder of point-count
 buckets and sends every cloud through the smallest bucket that holds it.
 
 The JAX package needs the ladder because XLA compiles one graph per static
-shape. CUDA kernels take run-time sizes, so here the ladder compiles
-nothing: it still cuts the sort and the per-point work to the rung's width,
-and :meth:`BucketedInference.warmup` still matters, because the first call
-on the card builds the port's kernels with nvcc and cuDNN picks its
-algorithms per shape. The interface is the JAX package's.
+shape; here each rung's inference function captures one CUDA graph per
+input shape on the card (pillars_torch/cuda_graph.py), and the ladder cuts
+the sort and the per-point work to the rung's width.
+:meth:`BucketedInference.warmup` captures every rung (the first call also
+builds the port's kernels with nvcc and lets cuDNN pick its algorithms), so
+that no frame pays for it. The interface is the JAX package's.
 
 The weights are shared: no parameter depends on ``max_points``. All rungs
 take the SAME state tensors (move them to the card once, with
 :meth:`BucketedInference.state_to_device`), and share one cache of folded
-RPN block weights, which is keyed on tensor identity.
+RPN block weights, which is keyed on tensor identity, and on the card the
+one static copy of the state that every rung's graphs read.
 
 Semantics: a cloud with ``n <= bucket`` points voxelizes IDENTICALLY in
 every bucket that holds it. Padding rows carry an out-of-range cell id and
@@ -141,11 +143,12 @@ class BucketedInference:
             if cfg.model.voxel.max_voxels > bucket:
                 cfg = cfg.override("model.voxel.max_voxels", bucket)
             det = self._detector_cls(cfg, device=self.device)
-            # the folded block weights depend on the state alone
+            # the folded block weights and the graphs' copy of the state
+            # depend on the state alone
             for other in self._dets.values():
+                det.graph_state = other.graph_state
                 if det.fast and other.fast:
                     det.folded_blocks = other.folded_blocks
-                    break
             fn = det.make_inference_fn(self._threshold)
             self._dets[bucket] = det
             self._fns[bucket] = fn
@@ -160,9 +163,10 @@ class BucketedInference:
     # ------------------------------------------------------------------
     def warmup(self, variables, batch_size: int = 1,
                num_features: Optional[int] = None):
-        """Run every rung once on an empty batch and wait for it (streaming
-        callers must not pay the kernels' build or cuDNN's algorithm search
-        on the first large frame)."""
+        """Run every rung once on an empty batch of ``batch_size`` and wait
+        for it: on the card this captures each rung's graph at that batch
+        size (streaming callers must not pay the kernels' build, cuDNN's
+        algorithm search or a capture on the first large frame)."""
         d = (num_features if num_features is not None
              else self._config.model.num_point_features)
         eye = np.tile(np.eye(4, dtype=np.float32), (batch_size, 1, 1))

@@ -31,6 +31,7 @@ float32 and receive float32 gradients through the casts.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -39,6 +40,7 @@ from torch import nn
 
 from pillars_torch import resolve_device
 from pillars_torch.config import Config, ModelConfig
+from pillars_torch.cuda_graph import CapturedInference, StaticState
 from pillars_torch.geometry import boxes as gb
 from pillars_torch.models.layers import BatchNorm, collect_batch_stats
 from pillars_torch.models.losses import LossOutput, detection_loss
@@ -342,6 +344,10 @@ class PillarsDetector:
         self.grad_scale = 1.0
         if mesh is not None:
             self._bind_mesh(mesh)
+        # the state copy that make_inference_fn's graphs read: on the card
+        # without a mesh (cuda_graph.py)
+        self.graph_state = (StaticState() if dev.type == "cuda"
+                            and mesh is None else None)
 
     def _bind_mesh(self, mesh):
         rt = self.config.runtime
@@ -477,18 +483,19 @@ class PillarsDetector:
             use_direction_classifier=self.mcfg.postprocess
             .use_direction_classifier)
 
-    def _forward_fast(self, state, voxelized: VoxelizedPoints
+    def _forward_fast(self, state, voxelized: VoxelizedPoints, folded=None
                       ) -> Dict[str, torch.Tensor]:
         """:meth:`apply` with the three downsample blocks as one fused
-        kernel launch (BN folded once per state; in bfloat16 the blocks
-        read and write bfloat16 and compute in float32), then
-        :class:`RPNTail`."""
+        kernel launch (BN folded once per state, through ``folded`` or this
+        detector's cache; in bfloat16 the blocks read and write bfloat16 and
+        compute in float32), then :class:`RPNTail`."""
         _full_f32()
         canvas = torch.func.functional_call(
             self.network, _front_state(state), (voxelized,),
             {"canvas_only": True})
-        b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn,
-                                      self.folded_blocks)
+        if folded is None:
+            folded = self.folded_blocks
+        b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn, folded)
         return torch.func.functional_call(
             self.rpn_tail, _sub_state(state, self.rpn_tail, "rpn."),
             (b1, b2, b3))
@@ -511,7 +518,7 @@ class PillarsDetector:
         # sigmoid after max == max of sigmoids (monotone)
         scores_all = torch.sigmoid(cls.amax(dim=-1).float())
 
-        neg_inf = torch.tensor(float("-inf"), device=box.device)
+        neg_inf = torch.full((), float("-inf"), device=box.device)
         masked = torch.where(anchors_mask, scores_all, neg_inf)
         if pp.nms_score_threshold > 0.0:
             masked = torch.where(masked >= pp.nms_score_threshold, masked,
@@ -538,7 +545,9 @@ class PillarsDetector:
         sel_label = rows(cls, top_idx).argmax(dim=-1).to(torch.int32)
 
         decoded = gb.second_box_decode(sel_box, sel_anchor)         # [B, k, 7]
-        bev = decoded[..., [0, 1, 3, 4, 6]].reshape(-1, 5)
+        # (x, y, w, l, r) by slices: a list index is a tensor made on the host
+        bev = torch.cat([decoded[..., 0:2], decoded[..., 3:5],
+                         decoded[..., 6:7]], dim=-1).reshape(-1, 5)
         corners = gb.center_to_corner_box2d(bev[:, :2], bev[:, 2:4],
                                             bev[:, 4])
         standup = gb.corner_to_standup(corners).reshape(b, k, 4)
@@ -602,14 +611,35 @@ class PillarsDetector:
             }
 
     # ------------------------------------------------------------------
+    def _infer(self, state, points, num_valid, rect, trv2c, thr: float,
+               folded=None) -> Predictions:
+        """The inference body on tensors on this detector's device: what a
+        graph captures (no host sync, no host constant, static shapes)."""
+        if self.dense_cell:
+            preds, amask = self._forward_dense(state, points, num_valid, thr)
+        else:
+            voxelized = self.voxelize_batch(points, num_valid)
+            amask = self.anchors_mask_batch(
+                voxelized.coords, voxelized.pillar_mask, thr)
+            preds = (self._forward_fast(state, voxelized, folded) if self.fast
+                     else self.apply(state, voxelized))
+        return self.postprocess(preds, amask, rect, trv2c)
+
     def make_inference_fn(self, anchor_area_threshold: Optional[float] = None):
         """fn(state, points [B, MAXPTS, D], num_valid [B], rect [B, 4, 4],
         trv2c [B, 4, 4]) -> Predictions, on this detector's device.
 
-        Inputs may be arrays or tensors anywhere. A tensor is copied to the
-        card without blocking the host, which is asynchronous when it lies
-        in pinned memory (the caller then leaves the buffer alone until the
-        batch is done); an array goes through a pageable, blocking copy."""
+        On the card without a mesh, the counterpart of the JAX package's
+        ``jax.jit``: a :class:`pillars_torch.cuda_graph.CapturedInference`
+        that replays one captured CUDA graph per input shape, its inputs
+        arrays or tensors anywhere (a pinned host tensor is copied without
+        blocking the host; the caller then leaves it alone until the batch
+        is done). Elsewhere (the CPU, or a mesh, whose collectives a graph
+        cannot hold) the eager function, which runs the body op by op; a
+        tensor is copied to the card without blocking the host, an array
+        through a pageable, blocking copy. Either has the eager function as
+        its ``eager`` attribute (the eager one itself), which tests use to
+        compare the two."""
         thr = (self.config.eval_input.anchor_area_threshold
                if anchor_area_threshold is None else anchor_area_threshold)
         dev = self.device
@@ -619,21 +649,15 @@ class PillarsDetector:
                 return a.to(device=dev, dtype=dtype, non_blocking=True)
             return torch.as_tensor(a, dtype=dtype, device=dev)
 
-        def fn(state, points, num_valid, rect, trv2c):
+        def eager(state, points, num_valid, rect, trv2c):
             with torch.inference_mode():
-                points = put(points, torch.float32)
-                num_valid = put(num_valid)
-                rect = put(rect, torch.float32)
-                trv2c = put(trv2c, torch.float32)
-                if self.dense_cell:
-                    preds, amask = self._forward_dense(state, points,
-                                                       num_valid, thr)
-                else:
-                    voxelized = self.voxelize_batch(points, num_valid)
-                    amask = self.anchors_mask_batch(
-                        voxelized.coords, voxelized.pillar_mask, thr)
-                    forward = self._forward_fast if self.fast else self.apply
-                    preds = forward(state, voxelized)
-                return self.postprocess(preds, amask, rect, trv2c)
+                return self._infer(state, put(points, torch.float32),
+                                   put(num_valid), put(rect, torch.float32),
+                                   put(trv2c, torch.float32), thr)
 
-        return fn
+        eager.eager = eager
+        if self.graph_state is None:
+            return eager
+        return CapturedInference(
+            functools.partial(self._infer, thr=thr, folded=self.graph_state),
+            eager, self.graph_state, dev, Predictions)

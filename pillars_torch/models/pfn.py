@@ -111,7 +111,7 @@ class PointwisePFN(nn.Module):
                  if self.training else None)
         x, zero_contrib = _encode(self, points, point_mean[:, :3], cx, cy,
                                   point_kept, count)
-        neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+        neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
         x = torch.where(kept, x, neg)  # dropped points cannot win a max
         # one spare row takes the id P (the JAX package drops it)
         seg = torch.full((n_pillars + 1, x.shape[1]), float("-inf"),
@@ -170,7 +170,7 @@ class DenseCellPFN(nn.Module):
         rows = num_pillars * N if self.training else None
         x, zero_contrib = _encode(self, points, mean, cx, cy, kept, rows)
 
-        neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+        neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
         xm = torch.where(kept[:, None], x, neg)
         # the per-cell count rides the same scatter as channel F: every
         # valid row of a cell carries the same count, so max == count;

@@ -177,7 +177,9 @@ def fused_rpn_blocks(canvas: torch.Tensor, state: Dict[str, torch.Tensor],
                      ) -> List[torch.Tensor]:
     """The three fused blocks over a [B, H, W, C] canvas -> the per-block
     outputs [b1, b2, b3] (inputs to the deconv branches), NHWC. The blocks
-    are folded from ``state`` on every call, or through ``cache``."""
+    are folded from ``state`` on every call, or through ``cache`` (a
+    :class:`FoldedBlocksCache`, or any object with its ``blocks`` method:
+    the static state of the captured graphs, pillars_torch/cuda_graph.py)."""
     from pillars_torch.ops.rpn_cuda import fused_sep_chain
 
     blocks = (fold_rpn_blocks(state, rpn_cfg) if cache is None

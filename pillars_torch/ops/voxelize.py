@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pillars_torch import device_constant
 from pillars_torch.config import VoxelConfig
 
 
@@ -57,11 +58,13 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
     The sort key ``cell * MAXPTS + index`` is unique, so the sort order is
     unambiguous. Segment starts come from a running max, segment ends from a
     reverse running min; the per-cell mean is one segment sum (index_add_
-    over the segment id) for any batch size."""
+    over the segment id) for any batch size, in fixed point relative to the
+    cell centre as :func:`voxelize_points` takes it, so that a cloud gives
+    the same bits in every run on the card."""
     b, maxpts, dim = points.shape
     dev = points.device
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
-    pcr = torch.as_tensor(point_cloud_range, dtype=points.dtype, device=dev)
+    vs = device_constant(voxel_size, points.dtype, dev)
+    pcr = device_constant(point_cloud_range, points.dtype, dev)
     nx, ny, nz = (int(g) for g in grid_size)
     n_cells = nx * ny * nz
     N = int(max_points_per_voxel)
@@ -69,7 +72,7 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
     idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
     in_count = idx < num_valid.to(dev)[:, None]
     c = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
-    gs = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    gs = device_constant([nx, ny, nz], torch.int32, dev)
     valid = in_count & ((c >= 0) & (c < gs)).all(dim=-1)
     cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]
     cell = torch.where(valid, cell, torch.full_like(cell, n_cells))
@@ -99,15 +102,28 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
     count = torch.where(valid_s, torch.clamp_max(seg_len, N),
                         torch.zeros_like(seg_len)).to(torch.int32)
 
-    # per-cell xyz mean over kept points: one sum per segment, gathered back
+    # per-cell xyz mean over kept points: one sum per segment of the points
+    # relative to their cell centre, in the fixed point of voxelize_points
+    # (the same bits whatever order the card's atomics land in), gathered
+    # back and recentred
     seg_id = (torch.cumsum(is_start.to(torch.int64), dim=1) - 1
               + torch.arange(b, device=dev)[:, None] * maxpts).reshape(-1)
-    vals = torch.where(kept[..., None], points_s[..., :3],
-                       torch.zeros_like(points_s[..., :3])).reshape(-1, 3)
-    sums = torch.zeros((b * maxpts, 3), dtype=points.dtype, device=dev)
-    sums.index_add_(0, seg_id, vals)
+    z = torch.div(cell_s, ny * nx, rounding_mode="floor")
+    rem = cell_s - z * (ny * nx)
+    y = torch.div(rem, nx, rounding_mode="floor")
+    cell_center = (torch.stack([rem - y * nx, y, z], dim=-1).to(points.dtype)
+                   + 0.5) * vs[:3] + pcr[:3]
+    centered = points_s[..., :3] - cell_center
+    vals = torch.where(kept[..., None], centered, torch.zeros_like(centered))
+    if dev.type == "cpu":
+        _check_fixed_range(vals, N)
+    sums = torch.zeros((b * maxpts, 3), dtype=torch.int64, device=dev)
+    sums.index_add_(0, seg_id, (vals.reshape(-1, 3) * _FIXED_ONE).to(
+        torch.int64))
     denom = torch.clamp_min(count, 1).to(points.dtype)[..., None]
-    mean = sums[seg_id].reshape(b, maxpts, 3) / denom
+    total = (sums[seg_id].to(points.dtype) * (1.0 / _FIXED_ONE)).reshape(
+        b, maxpts, 3)
+    mean = total / denom + cell_center
 
     num_pillars = (is_start & valid_s).sum().to(torch.int32)
     return CellVoxelized(points_s, cell_s.to(torch.int32), kept, count, mean,
@@ -149,8 +165,8 @@ def _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
     cell order, so the ids stay non-decreasing over the sorted points."""
     b, maxpts, dim = points.shape
     dev = points.device
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
-    pcr = torch.as_tensor(point_cloud_range, dtype=points.dtype, device=dev)
+    vs = device_constant(voxel_size, points.dtype, dev)
+    pcr = device_constant(point_cloud_range, points.dtype, dev)
     nx, ny, nz = (int(g) for g in grid_size)
     n_cells = nx * ny * nz
     P = int(max_voxels)
@@ -158,7 +174,7 @@ def _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
     idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
     in_count = idx < num_valid.to(dev)[:, None]
     c = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
-    gs = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    gs = device_constant([nx, ny, nz], torch.int32, dev)
     valid = in_count & ((c >= 0) & (c < gs)).all(dim=-1)
     cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]
     cell = torch.where(valid, cell, torch.full_like(cell, n_cells))
@@ -316,8 +332,8 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     the card, and the sums of such a cloud wrap."""
     b, maxpts, dim = points.shape
     dev = points.device
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
-    pcr = torch.as_tensor(point_cloud_range, dtype=points.dtype, device=dev)
+    vs = device_constant(voxel_size, points.dtype, dev)
+    pcr = device_constant(point_cloud_range, points.dtype, dev)
     P = int(max_voxels)
     N = int(max_points_per_voxel)
     srt = _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
@@ -337,11 +353,8 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     centered = torch.cat([points_s[..., :3] - cell_center, points_s[..., 3:],
                           torch.ones_like(points_s[..., :1])], dim=-1)
     vals = torch.where(keep[..., None], centered, torch.zeros_like(centered))
-    if dev.type == "cpu" and float(vals.abs().max()) * N >= _FIXED_RANGE:
-        raise ValueError(
-            f"voxelize_points: |value| * max_points_per_voxel must stay "
-            f"under 2^23 for the fixed-point means, got "
-            f"{float(vals.abs().max())} * {N}")
+    if dev.type == "cpu":
+        _check_fixed_range(vals, N)
     seg = (seg_id + torch.arange(b, device=dev)[:, None] * maxpts
            ).reshape(-1)
     sums = torch.zeros((b * maxpts, dim + 1), dtype=torch.int64, device=dev)
@@ -378,6 +391,16 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
         head[..., None], point_mean, torch.zeros_like(point_mean)), "sum")
     return VoxelizedPoints(points_s, pp.to(torch.int32), keep, point_mean, zyx,
                            num_points, coords, num_points > 0, voxel_mean)
+
+
+def _check_fixed_range(vals: torch.Tensor, n: int) -> None:
+    """Raises where a fixed-point sum of :func:`voxelize_points` could wrap
+    (CPU tensors only: on the card the look would make the host wait)."""
+    worst = float(vals.abs().max())
+    if worst * n >= _FIXED_RANGE:
+        raise ValueError(
+            f"voxelize_points: |value| * max_points_per_voxel must stay "
+            f"under 2^23 for the fixed-point means, got {worst} * {n}")
 
 
 def make_point_voxelizer(cfg: VoxelConfig):

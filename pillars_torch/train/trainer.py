@@ -58,13 +58,18 @@ class Evaluator:
     ``eval_input.bn_recal_batches`` > 0 refreshes its BN statistics first
     (train/bn_recal.py).
 
+    On one card the inference replays captured CUDA graphs, one per batch
+    shape (``PillarsDetector.make_inference_fn``); a new batch shape is
+    captured at its first batch.
+
     Data-parallel over ``runtime.num_devices`` ranks (0: every rank of the
     process group, one device outside any group): each full batch that splits
     over the ranks is split, each rank infers its block (its postprocess
     launching the NMS kernel) and the blocks are gathered in batch order;
     a batch that does not split runs on rank 0 and its predictions are
     broadcast. Every rank returns the same annos; the AP is computed on
-    rank 0 and broadcast."""
+    rank 0 and broadcast. This path runs the eager inference function beside
+    its collectives."""
 
     def __init__(self, cfg: Config, detector: PillarsDetector,
                  measure_time: bool = False, buckets=None):
@@ -83,6 +88,13 @@ class Evaluator:
         # the host to the smallest bucket holding their largest cloud
         # BEFORE they go to the device, then routed to that bucket's
         # detector by the (now exact) points.shape[1]
+        self.mesh = None
+        n_dev = resolve_num_devices(cfg.runtime.num_devices)
+        if n_dev > 1:
+            axis = cfg.runtime.data_axis
+            mesh = detector.mesh
+            self.mesh = (mesh if mesh is not None and mesh.group(axis)
+                         is not None else make_mesh(n_dev, axis))
         self._bucketed = None
         if buckets is not None:
             from pillars_torch.infer import BucketedInference
@@ -92,15 +104,8 @@ class Evaluator:
                 device=self.device)
             self.infer = self._bucketed_infer
         else:
-            self.infer = detector.make_inference_fn(
-                cfg.eval_input.anchor_area_threshold)
-        self.mesh = None
-        n_dev = resolve_num_devices(cfg.runtime.num_devices)
-        if n_dev > 1:
-            axis = cfg.runtime.data_axis
-            mesh = detector.mesh
-            self.mesh = (mesh if mesh is not None and mesh.group(axis)
-                         is not None else make_mesh(n_dev, axis))
+            self.infer = self._inference_fn(detector.make_inference_fn(
+                cfg.eval_input.anchor_area_threshold))
 
     def _split(self, b: int) -> bool:
         """Whether a batch of ``b`` clouds splits over the data ranks."""
@@ -136,9 +141,14 @@ class Evaluator:
             return Predictions(*(_from_wire(broadcast_(
                 _to_wire(t), 0, group), t.dtype) for t in preds))
 
+    def _inference_fn(self, fn):
+        """``fn``, or its eager function over data ranks: the distributed
+        path stays eager beside its collectives."""
+        return fn if self.mesh is None else fn.eager
+
     def _bucketed_infer(self, variables, points, num_points, rect, trv2c):
         # points was pre-sliced to an exact bucket width in _device_put
-        return self._bucketed._fn(points.shape[1])(
+        return self._inference_fn(self._bucketed._fn(points.shape[1]))(
             variables, points, num_points, rect, trv2c)
 
     def _device_put(self, batch):

@@ -11,10 +11,11 @@ runs ``PillarsDetector`` with the trained checkpoint on d435i-sized clouds
 dense-cell path of ``Config.default()``, ``--path fast`` the point-major path
 whose RPN blocks run fused (``model.pfn.dense_cell`` false,
 ``model.rpn.use_pallas_blocks`` true). It prints, in ms per cloud: each stage
-alone (CUDA events, warm), the whole path (three times, for the spread), the
-device time per cloud summed over its kernels, the idle share, the kernel
-launches per cloud and the longest kernels. Needs a card; the numbers name
-it.
+alone (CUDA events, warm, run eagerly), the whole path as
+``make_inference_fn`` gives it (a captured CUDA graph; three times, for the
+spread) and run eagerly, the device time per cloud summed over its kernels,
+the idle share, the graph and kernel launches per cloud and the longest
+kernels. Needs a card; the numbers name it.
 """
 
 from __future__ import annotations
@@ -143,6 +144,8 @@ def profile_stages(det, state, points, num_valid, rect, trv2c,
             **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
                                                  rect, trv2c), iters)
                for i in range(3)},
+            "t_full_eager": cuda_ms(lambda: fn.eager(
+                state, points, num_valid, rect, trv2c), iters),
         }
 
 
@@ -192,14 +195,18 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
             **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
                                                  rect, trv2c), iters)
                for i in range(3)},
+            "t_full_eager": cuda_ms(lambda: fn.eager(
+                state, points, num_valid, rect, trv2c), iters),
         }
 
 
 def device_busy(fn: Callable[[], object], iters: int,
                 must_have: str = ""):
     """(host wall ms per call, device ms per call summed over kernels,
-    kernels by device time [(name, calls per call, device ms per call)])
-    from torch.profiler over ``iters`` warm calls. A trace now and then
+    kernels by device time [(name, calls per call, device ms per call)],
+    CUDA graph launches per call) from torch.profiler over ``iters`` warm
+    calls. The kernels of a replayed graph count one by one, as the eager
+    path's do. A trace now and then
     comes back without kernels and is taken again; raises when three in a
     row hold no CUDA kernel, or none whose name contains ``must_have``, so
     that a time that was not measured is never reported as 0."""
@@ -229,7 +236,10 @@ def device_busy(fn: Callable[[], object], iters: int,
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     rows = [(e.key, e.count / iters, e.self_device_time_total / 1e3 / iters)
             for e in kernels]
-    return wall, device, rows
+    graphs = sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.key.startswith("cudaGraphLaunch")) / iters
+    return wall, device, rows, graphs
 
 
 def main():
@@ -270,7 +280,7 @@ def main():
     stages = (profile_fast_stages if args.path == "fast" else profile_stages)(
         det, state, points, num, eye, eye, args.iters)
     fn = det.make_inference_fn()
-    wall, device, rows = device_busy(
+    wall, device, rows, graphs = device_busy(
         lambda: fn(state, points, num, eye, eye), args.iters,
         "nms_keep_mask_kernel")
     # idle share against the event time of the whole path without the
@@ -281,6 +291,7 @@ def main():
               "iters": args.iters,
               "stages_ms": stages, "profiled_wall_ms": wall,
               "device_ms": device, "idle_share": idle,
+              "graph_launches": graphs,
               "kernels": [{"name": k, "per_cloud": c, "ms": t}
                           for k, c, t in rows]}
     print(card)
@@ -289,8 +300,8 @@ def main():
     print(f"whole path: device {device:.4f} ms/cloud summed over kernels, "
           f"idle share {idle:.3f} of the median t_full; host wall "
           f"{wall:.4f} ms/cloud under the profiler")
-    print(f"{sum(c for _, c, _ in rows):g} kernel launches per cloud; "
-          f"the 12 longest, and the port's own:")
+    print(f"{graphs:g} graph launches and {sum(c for _, c, _ in rows):g} "
+          f"kernel launches per cloud; the 12 longest, and the port's own:")
     for i, (k, c, t) in enumerate(rows):
         if i < 12 or "nms_keep_mask" in k or "rpn_sep_" in k:
             print(f"  {t * 1e3:9.2f} us  x{c:g}  {k[:90]}")

@@ -5,11 +5,14 @@
 Full-width d435i detector, trained checkpoint, a bank of 8 synthetic scenes
 published round-robin. Needs a card; every number names it. Prints:
 
-- saturated throughput (each stream publishes at 240 Hz, more than one
-  dispatch thread can serve) for 1, 4 and 8 streams, twice each, so that
-  the spread between two runs of one kind shows;
+- saturated throughput (each stream publishes at 1000 Hz, more than one
+  dispatch thread serves: a captured B=1 dispatch takes about 1.3 ms of
+  the card) for 1, 4 and 8 streams, twice each, so that the spread between
+  two runs of one kind shows;
 - the device's busy and idle share of such a run at 1 and 4 streams
-  (torch.profiler: kernel time summed over the run's wall time);
+  (torch.profiler: kernel time summed over the run's wall time), with its
+  CUDA graph launches and kernel launches per dispatch (a dispatch replays
+  one captured graph, and each replay adds one to the NMS kernel's count);
 - at 30 Hz and 4 streams, the latency the loop reports with an in-flight
   window of 1, 2 and 8: a result is handed on when the window is full, so
   the window, not the card, sets that latency below saturation.
@@ -24,6 +27,9 @@ import subprocess
 import time
 
 import torch
+
+# per stream: above what one dispatch thread serves at any N
+SATURATING_HZ = 1000.0
 
 
 def main():
@@ -62,7 +68,7 @@ def main():
               "busy": [], "window": []}
     for n in (1, 4, 8):
         for _ in range(2):
-            s = serve(n, 240.0)
+            s = serve(n, SATURATING_HZ)
             result["saturated"].append({"streams": n, **s})
             print(f"saturated N={n}: {s['aggregate_hz']:8.2f} clouds/s, "
                   f"{s['per_stream_hz']:7.2f} per stream, p50 "
@@ -72,26 +78,43 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
 
+    from pillars_torch.ops import nms_cuda
+
     for n in (1, 4):
+        before = nms_cuda.nms_keep_mask.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            s = serve(n, 240.0)
+            s = serve(n, SATURATING_HZ)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        device_s = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       ) / 1e6
+        # the warm-up call that captures runs eagerly and counts too
+        dispatches = nms_cuda.nms_keep_mask.launches - before
+        events = prof.key_averages()
+        cuda = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_s = sum(e.self_device_time_total for e in cuda) / 1e6
         if not device_s > 0:
             raise RuntimeError("torch.profiler traced no CUDA kernel")
+        graphs = sum(e.count for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.key.startswith("cudaGraphLaunch"))
         # this wall time spans the loop's warm-up call too
         busy = device_s / max(wall, 1e-9)
-        result["busy"].append({"streams": n, "device_s": device_s,
-                               "wall_s": wall, "busy_share": busy,
-                               "idle_share": 1.0 - busy, **s})
+        result["busy"].append({
+            "streams": n, "device_s": device_s, "wall_s": wall,
+            "busy_share": busy, "idle_share": 1.0 - busy,
+            "dispatches": dispatches,
+            "graph_launches_per_dispatch": graphs / dispatches,
+            "kernel_launches_per_dispatch": sum(
+                e.count for e in cuda) / dispatches, **s})
         print(f"profiled N={n}: device busy {device_s:.4f} s of "
               f"{wall:.4f} s, idle share {1.0 - busy:.3f}; "
-              f"{s['aggregate_hz']:.2f} clouds/s under the profiler")
+              f"{s['aggregate_hz']:.2f} clouds/s under the profiler; "
+              f"{dispatches} dispatches, "
+              f"{graphs / dispatches:.3f} graph launches and "
+              f"{sum(e.count for e in cuda) / dispatches:.1f} kernel launches "
+              f"per dispatch")
 
     for window in (1, 2, 8):
         s = serve(4, 30.0, window=window)

@@ -14,7 +14,10 @@ in bfloat16, the fused blocks round only their outputs). Criteria
   jax_f32) per head (BF16_RMS_FACTOR) and max |port - jax_bf16| <= max
   |jax_bf16 - jax_f32| (BF16_MAX_FACTOR), on the same inputs and weights;
 - predictions matched as sets (``compare_predictions_bf16``): bfloat16
-  heads give exact score ties, and near-tied boxes trade slots.
+  heads give exact score ties, and near-tied boxes trade slots; the
+  random-init cases, whose boxes reach 1e5 m, hold boxes to
+  BF16_BOX_RTOL_RANDOM_INIT, the spread measured between two faithful
+  variants of the port.
 The JAX side runs under ``jax.jit`` (eager JAX over these graphs costs
 minutes), compiled with XLA's excess precision off
 (``torch_parity.XLA_STRICT``): XLA then keeps every rounding the JAX
@@ -40,8 +43,9 @@ from pillars_torch.weights import convert_tree
 from pillars_tpu.config import Config as JaxConfig
 from pillars_tpu.models import layers as jl
 from pillars_tpu.models import rpn as jrpn
-from torch_parity import (BF16_RMS_FACTOR, BF16_RMS_FACTOR_FULL,
-                          head_criterion, head_ratio, heads_criterion,
+from torch_parity import (BF16_BOX_RTOL_RANDOM_INIT, BF16_RMS_FACTOR,
+                          BF16_RMS_FACTOR_FULL, head_criterion, head_ratio,
+                          heads_criterion,
                           jit_strict, module_criterion, randomize_variables,
                           small_config)
 
@@ -472,7 +476,7 @@ def _bf16_config(cfg):
 
 
 def _end_to_end(jcfg, tcfg, state, variables, pts, num, label,
-                fast_monkeypatch=None, full=False):
+                fast_monkeypatch=None, full=False, box_rtol=None):
     """The heads under the head criterion (``full``: the whole-network
     factor), then the predictions matched as sets: the port in bfloat16
     against the JAX package in bfloat16 (and in float32 for the heads' gap).
@@ -531,9 +535,9 @@ def _end_to_end(jcfg, tcfg, state, variables, pts, num, label,
     got_p = tdet.make_inference_fn()(state, tp, tn, *map(torch.from_numpy,
                                                          (rect, trv2c)))
     pp = tcfg.model.postprocess
-    return compare_predictions_bf16(predict(jdet), got_p,
-                                    pp.nms_score_threshold,
-                                    pp.nms_iou_threshold, label)
+    return compare_predictions_bf16(
+        predict(jdet), got_p, pp.nms_score_threshold, pp.nms_iou_threshold,
+        label, **({} if box_rtol is None else {"box_rtol": box_rtol}))
 
 
 REDUCED_PATHS = {
@@ -567,7 +571,8 @@ def test_inference_reduced_random_init(path, monkeypatch):
     state, variables = _random_state(TorchDetector(tcfg, device="cpu"), 17)
     pts, num = d435i_clouds(17, 2, jcfg.model.voxel.max_points, n)
     _end_to_end(jcfg, tcfg, state, variables, pts, num, path,
-                monkeypatch if path == "point_major_fast" else None)
+                monkeypatch if path == "point_major_fast" else None,
+                box_rtol=BF16_BOX_RTOL_RANDOM_INIT)
 
 
 WEIGHTS = str(ROOT / "benchmarks" / "hard_synth" / "weights_59.pkl")

@@ -446,6 +446,14 @@ def grad_criterion(got, want, want_f32, label="", floor_rms=None,
 BF16_SCORE_ATOL = 2e-2
 BF16_BOX_ATOL = 5e-2
 BF16_BOX_RTOL = 2e-2
+# ... except for random-init weights, whose boxes reach 1e5 m: a size is
+# anchor * exp(delta) with a log-size delta of 5-12, where one bfloat16 step
+# of the delta (2^-5 in [4, 8)) moves the size by 3.2%. Two faithful
+# variants of the port (oneDNN's bfloat16 convs on and off, with oneDNN
+# capped at AVX512_CORE) flip one such step on the reduced simple_voxel
+# path and need 0.0305; the port against the JAX package the same
+# (tools/torch_bf16_train_spread.py --inference).
+BF16_BOX_RTOL_RANDOM_INIT = 4e-2
 BF16_IOU_TOL = 2e-2
 BF16_ROT_FLIP_TOL = 5e-2
 
@@ -493,11 +501,12 @@ def _suppressed_by(other, box, score, lab, iou_thr):
     return None
 
 
-def compare_predictions_bf16(want, got, score_thr, iou_thr, label=""):
+def compare_predictions_bf16(want, got, score_thr, iou_thr, label="",
+                             box_rtol=BF16_BOX_RTOL):
     """``want``: the JAX package's Predictions (NumPy leaves) in bfloat16
     compute, ``got``: the port's. Matches each sample's valid detections
-    as sets (see above); prints every borderline exception and returns
-    their count."""
+    as sets (see above), boxes within BF16_BOX_ATOL + ``box_rtol`` x
+    |value|; prints every borderline exception and returns their count."""
     exceptions = 0
     wv = np.asarray(want.valid)
     gv = got.valid.numpy()
@@ -519,10 +528,11 @@ def compare_predictions_bf16(want, got, score_thr, iou_thr, label=""):
                                    - w["boxes_lidar"][i, :3], axis=1)
                 j = cand[np.argmin(d)]
                 box_w = w["boxes_lidar"][i]
-                tol = BF16_BOX_ATOL + BF16_BOX_RTOL * np.abs(box_w[:3])
+                tol = BF16_BOX_ATOL + box_rtol * np.abs(box_w[:3])
                 if np.all(np.abs(g["boxes_lidar"][j, :3] - box_w[:3]) <= tol):
                     free[j] = False
-                    _same_detection(w, i, g, j, f"{label} sample {s}")
+                    _same_detection(w, i, g, j, f"{label} sample {s}",
+                                    box_rtol)
                     continue
             missed.append(i)
         for side, idx, p, other in (("JAX", missed, w, g),
@@ -543,7 +553,7 @@ def compare_predictions_bf16(want, got, score_thr, iou_thr, label=""):
     return exceptions
 
 
-def _same_detection(w, i, g, j, label):
+def _same_detection(w, i, g, j, label, box_rtol):
     assert abs(g["scores"][j] - w["scores"][i]) <= BF16_SCORE_ATOL, (
         label, g["scores"][j], w["scores"][i])
     # the flip adds pi where the lidar rotation's sign disagrees with the
@@ -552,10 +562,10 @@ def _same_detection(w, i, g, j, label):
     for name in ("boxes_lidar", "boxes_camera"):
         bw, bg = w[name][i].astype(np.float64), g[name][j].astype(np.float64)
         rot_w, rot_g = bw[6], bg[6]
-        tol = BF16_BOX_ATOL + BF16_BOX_RTOL * np.abs(bw)
+        tol = BF16_BOX_ATOL + box_rtol * np.abs(bw)
         assert np.all(np.abs(bg[:6] - bw[:6]) <= tol[:6]), (label, name, bg,
                                                             bw)
         period = np.pi if near_flip else 2 * np.pi
         d = (rot_g - rot_w + period / 2) % period - period / 2
-        assert abs(d) <= BF16_BOX_ATOL + BF16_BOX_RTOL * abs(rot_w), (
+        assert abs(d) <= BF16_BOX_ATOL + box_rtol * abs(rot_w), (
             label, name, rot_g, rot_w)

@@ -6,6 +6,8 @@ torch_parity.py and of chip_smoke.py phase 16.
     python tools/torch_bf16_train_spread.py --full-width --root DIR
     ONEDNN_MAX_CPU_ISA=AVX2 python tools/torch_bf16_train_spread.py \
         --networks
+    ONEDNN_MAX_CPU_ISA=AVX512_CORE python tools/torch_bf16_train_spread.py \
+        --inference
 
 Default: the reduced ``torch_parity.train_config`` (B=2) with NumPy-seeded
 random weights, per seed: the train-mode heads of the port (A), of the port
@@ -19,7 +21,11 @@ under ``--root`` (8 train clouds, seed 7), A against B relative to the
 port's own bf16-f32 gap (no JAX), and the ATen ops of one f32 and one bf16
 train step (a CPU proxy of the card's launches). With ``--networks``: the
 train-mode forward of the four networks of tests/test_torch_bf16_train.py
-on its inputs (worst head and worst new statistic). oneDNN's instruction set
+on its inputs (worst head and worst new statistic). With ``--inference``:
+the reduced random-init bf16 inference paths of tests/test_torch_bf16.py
+on its inputs, A, B and J's heads (share of elements apart) and the
+relative box tolerance each pair of predictions needs (the yardstick of
+``torch_parity.BF16_BOX_RTOL_RANDOM_INIT``). oneDNN's instruction set
 is another faithful variant: run under ``ONEDNN_MAX_CPU_ISA=AVX512_CORE``
 or ``AVX2``. Prints one JSON object per measurement.
 """
@@ -211,12 +217,131 @@ def full_width(root):
                       **ops}))
 
 
+def _box_rtol_needed(want, got):
+    """The smallest relative box tolerance (over ``BF16_BOX_ATOL``) under
+    which ``got``'s valid detections match ``want``'s: each of ``want``'s,
+    in descending score order, against the unmatched one of ``got`` of its
+    label with the nearest centre, over the six centre and size components
+    of the lidar and camera boxes. Returns (that tolerance, detections of
+    ``want`` left without a counterpart)."""
+    from torch_parity import BF16_BOX_ATOL
+
+    need, missed = 0.0, 0
+    wv, gv = np.asarray(want.valid), np.asarray(got.valid)
+    for s in range(wv.shape[0]):
+        w, g = ({k: np.asarray(getattr(p, k)[s], np.float64)[v]
+                 for k in ("boxes_lidar", "boxes_camera", "labels")}
+                for p, v in ((want, wv[s]), (got, gv[s])))
+        free = np.ones(len(g["labels"]), bool)
+        for i in range(len(w["labels"])):
+            cand = np.flatnonzero(free & (g["labels"] == w["labels"][i]))
+            if not len(cand):
+                missed += 1
+                continue
+            j = cand[np.argmin(np.linalg.norm(
+                g["boxes_lidar"][cand, :3] - w["boxes_lidar"][i, :3],
+                axis=1))]
+            free[j] = False
+            for k in ("boxes_lidar", "boxes_camera"):
+                d = np.abs(g[k][j, :6] - w[k][i, :6]) - BF16_BOX_ATOL
+                need = max(need, float((d / np.abs(w[k][i, :6])).max()))
+    return need, missed
+
+
+def inference():
+    """The reduced random-init inference paths of tests/test_torch_bf16.py
+    (its inputs): the port's heads (A), the port's with oneDNN's bfloat16
+    convs off (B) and the JAX package's (J), in bfloat16 steps apart, and
+    the relative box tolerance each pair of predictions needs."""
+    import conftest  # noqa: F401  (JAX on the CPU)
+    import jax
+
+    import test_torch_bf16 as T
+    from pillars_torch.config import Config as TorchConfig
+    from pillars_torch.models.detector import PillarsDetector as TD
+    from pillars_tpu.config import Config as JaxConfig
+    from pillars_tpu.models.detector import PillarsDetector as JD
+    from test_torch_second import reduced as reduced_second
+    from torch_parity import bf16_steps, d435i_clouds, jit_strict, small_config
+
+    for path in sorted(T.REDUCED_PATHS) + ["second_sparse_d435i",
+                                           "second_d435i"]:
+        if path.startswith("second"):
+            jcfg, tcfg = (reduced_second(c, path)
+                          for c in (JaxConfig, TorchConfig))
+            n = 1500
+        else:
+            jcfg, tcfg = small_config(JaxConfig), small_config(TorchConfig)
+            for key, value in T.REDUCED_PATHS[path]:
+                jcfg, tcfg = (jcfg.override(key, value),
+                              tcfg.override(key, value))
+            n = 1800
+        state, variables = T._random_state(TD(tcfg, device="cpu"), 17)
+        pts, num = d435i_clouds(17, 2, jcfg.model.voxel.max_points, n)
+        rect, trv2c = T._eye(2)
+        jdet = JD(T._bf16_config(jcfg))
+        tdet = TD(T._bf16_config(tcfg), device="cpu")
+        thr = jcfg.eval_input.anchor_area_threshold
+        if path == "point_major_fast":
+            import functools
+
+            from pillars_tpu.ops import rpn_pallas
+            rpn_pallas.fused_rpn_blocks = functools.partial(
+                rpn_pallas.fused_rpn_blocks, interpret=True)
+
+        def jax_run(p, n_, r, t):
+            v = jdet.voxelize_batch(p, n_)
+            if jdet.dense_cell:
+                heads = jdet._forward_dense(variables, p, n_, thr)[0]
+            elif path == "point_major_fast":
+                heads = jdet._forward_fast(variables, v)
+            else:
+                heads = jdet.apply(variables, v)
+            if path == "point_major_fast":
+                amask = jdet.anchors_mask_batch(v.coords, v.pillar_mask, thr)
+                preds = jdet.postprocess(heads, amask, r, t)
+            else:
+                preds = jdet.make_inference_fn()(variables, p, n_, r, t)
+            return heads, preds
+
+        jh, jp = jax.device_get(jit_strict(jax_run)(pts, num, rect, trv2c))
+        args = tuple(map(torch.from_numpy, (pts, num, rect, trv2c)))
+
+        def port():
+            with torch.inference_mode():
+                if tdet.dense_cell:
+                    heads = tdet._forward_dense(state, *args[:2], thr)[0]
+                else:
+                    v = tdet.voxelize_batch(*args[:2])
+                    heads = (tdet._forward_fast(state, v) if tdet.fast
+                             else tdet.apply(state, v))
+                return heads, tdet.make_inference_fn()(state, *args)
+
+        ah, ap = port()
+        with torch.backends.mkldnn.flags(enabled=False):
+            bh, bp = port()
+        out = {"what": "bf16 inference, reduced random init", "path": path,
+               "onednn_max_cpu_isa": os.environ.get("ONEDNN_MAX_CPU_ISA",
+                                                    "default")}
+        for pair, x, y, px, py in (("A-J", ah, jh, ap, jp),
+                                   ("B-J", bh, jh, bp, jp),
+                                   ("A-B", ah, bh, ap, bp)):
+            out[f"heads {pair}: share of elements apart"] = max(
+                float((bf16_steps(x[k], y[k]) > 0).mean()) for k in jh)
+            need, missed = _box_rtol_needed(py, px)
+            out[f"box rtol needed {pair}"] = need
+            out[f"unmatched {pair}"] = missed
+        print(json.dumps(out))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seeds", type=int, nargs="*", default=[1, 2, 3, 4])
     p.add_argument("--full-width", action="store_true")
     p.add_argument("--networks", action="store_true",
                    help="the four networks' train-mode forward only")
+    p.add_argument("--inference", action="store_true",
+                   help="the reduced bf16 inference paths only")
     p.add_argument("--root", default=None,
                    help="--full-width: directory of the generated split")
     args = p.parse_args(argv)
@@ -227,6 +352,8 @@ def main(argv=None):
         full_width(args.root)
     elif args.networks:
         networks()
+    elif args.inference:
+        inference()
     else:
         reduced(args.seeds)
 
