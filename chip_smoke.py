@@ -56,10 +56,17 @@ Phases, none of whose failures is caught:
 10. the train step at full width, B=2, from the trained checkpoint, on one
    batch of the hard train split (``PedestrianDataset(training=True)`` with
    the GT-database sampler, seed 0): targets, loss, every gradient leaf and
-   the new BN statistics on the card against the port on the CPU; then ms
-   per step (CUDA events over 20 warm steps), host wall ms per step,
-   launches per step and idle share (torch.profiler), and the peak device
-   memory of a step with ``rpn.remat`` off and on;
+   the new BN statistics on the card against the port on the CPU; then the
+   captured step (``make_train_step``: one CUDA graph per batch shape) and
+   the eager step in turns (eager, captured, captured, eager), each
+   threading its state over its steps: ms per step (CUDA events over 20
+   warm steps), host wall ms per step, graph and kernel launches, device
+   ms and idle share per step (torch.profiler), the captured step's first
+   call + capture seconds and the graph pool's MiB; the peak device memory
+   of an eager step with ``rpn.remat`` off and on; the eager step's
+   launches and device ms by stage (its ``record_function`` ranges:
+   voxelize, anchors mask, assign_targets, forward, loss, backward, AdamW)
+   beside the whole captured step's;
 11. the Trainer: ``Trainer(Config.default())`` from ``PillarsDetector.init``
    on the first ``--train-clouds`` clouds of the hard train split (300, so
    150 steps per epoch at B=2; 600 runs the recipe's epochs), epoch 0 with
@@ -69,7 +76,9 @@ Phases, none of whose failures is caught:
    epoch 1 after the resume, the NMS launches of each eval equal to its
    batches, the state on the card, and the epoch-1 aggregate AP above
    ``AP1_FLOOR``; printed beside the JAX run of the recipe at the same step
-   (benchmarks/hard_synth/metrics.csv).
+   (benchmarks/hard_synth/metrics.csv). The Trainer's step is the captured
+   one (checked); a third Trainer runs epoch 0 with the eager step for its
+   seconds beside the captured epoch's (its loss under the same gate).
 
 12. SECOND sparse (``configs/second_sparse_d435i.yaml``) at full width with
    benchmarks/second_sparse_synth/weights_33.pkl on the val clouds of the
@@ -112,9 +121,11 @@ Phases, none of whose failures is caught:
    (labels equal; each loss part within 3 x the CPU's own bf16-f32 gap of
    that part or 1e-2 relative; each gradient leaf's rms within 1.5 x the
    larger of its gap and one bf16 step; each new BN statistic's rms within
-   1.5 x its gap); ms per step, host wall, launches, device ms, idle share and
-   peak MiB with ``rpn.remat`` off and on, f32 and bf16 in turns (f32,
-   bf16, bf16, f32); then a bfloat16 ``Trainer`` from
+   1.5 x its gap); ms per step, host wall, launches, device ms and idle
+   share of the captured and the eager step, f32 and bf16 in turns (f32,
+   bf16, bf16, f32; each captured and eager in turns), and the eager
+   step's peak MiB with ``rpn.remat`` off and on; then a bfloat16
+   ``Trainer`` from
    ``PillarsDetector.init`` for epoch 0 on phase 11's train clouds with its
    bf16 eval: its NMS launches equal to the eval batches, the mean loss of
    its last 50 steps below ``LOSS_GATE`` and within ``BF16_LOSS_GAP`` of
@@ -152,7 +163,33 @@ Phases, none of whose failures is caught:
    dense and fast paths: ms per cloud (CUDA events), host wall, graph and
    kernel launches, device ms and idle share, the capture seconds per
    shape, the graph pool's MiB and the path's analytic bound
-   (utils/roofline.py).
+   (utils/roofline.py);
+19. the captured train and recalibration steps (train/loop.py
+   ``CapturedTrainStep``, train/bn_recal.py ``CapturedRecal``) and the
+   repairs of this slice, on phase 10's split (run before 18, while the
+   split exists): an extra feature of 1e7, and a NaN and both infinities,
+   through both voxelizers on the card against the CPU (integers equal,
+   NaN and infinities where the CPU has them, means within ``MEAN_ATOL``
+   of their scale), and both voxelizers captured at 19200 points, B=1 and
+   2, in device ms against the earlier fixed-unit sums in turns; the captured
+   step against the eager step from the same
+   state for three B=2 steps at full width from ``weights_59.pkl`` (its
+   first call, then replays), f32, bf16, ``rpn.remat`` and train metrics:
+   loss parts, rate, positives and metrics equal, new BN statistics equal,
+   moments within ``GRAD_RTOL`` of each leaf's max, parameters within two
+   rates, and the gradients through a graph of the body's ``gradients``
+   within ``GRAD_RTOL``; the same f32 steps under deterministic algorithms
+   (warn only) and cuDNN's deterministic mode, with the ops PyTorch names
+   nondeterministic: where two eager steps agree bit for bit, replays must
+   equal eager bit for bit; two ``second_sparse_d435i`` steps from
+   ``weights_33.pkl``; after replayed steps the detector's captured heads
+   against eager heads on a fresh clone of the state (within
+   ``CAPTURE_RTOL``); the AdaBN recalibration of ``Config.default()`` with
+   ``eval_input.bn_recal_batches`` 8 through the ``Evaluator``, captured
+   against eager, and both timed; ``profile_stages`` of the dense and fast
+   configs (each stage a graph of its own, device ms) against the three
+   stages in one graph: their sum within 0.8 and 1.1 times the whole plus
+   three graph launches.
 
 Every inference phase runs what ``make_inference_fn`` returns on the card,
 a captured CUDA graph per input shape: the launch counts read around a
@@ -1059,14 +1096,43 @@ def run_train_step(state_cpu, smi, root):
           f"statistics {stat_err:.3e} (tol {STAT_RTOL}); loss "
           f"{float(fb.loss.loss):.4f}")
 
-    stats = {"loader_ms_per_batch": loader_ms,
-             **_time_train_step(cfg, state_cpu,
-                                batch_to_device(batch, det.device))}
-    print(f"train step B=2 full width: {_step_line(stats)}; the host makes "
-          f"one augmented batch (sampler, noise, global transforms) in "
-          f"{loader_ms:.1f} ms on one thread [{smi}]")
+    on_card = batch_to_device(batch, det.device)
+    turns = _step_turns(cfg, state_cpu, on_card)
+    memory = _step_memory(cfg, state_cpu, on_card)
+    stats = {"loader_ms_per_batch": loader_ms, "turns": turns, **memory}
+    print(f"train step B=2 full width in turns: {_turns_line(turns)} "
+          f"[{smi}]")
+    print(f"train step B=2 full width: peak device memory of an eager step "
+          f"above the state {memory['peak_mib_remat_off']:.1f} MiB with "
+          f"rpn.remat off, {memory['peak_mib_remat_on']:.1f} MiB on; the "
+          f"host makes one augmented batch (sampler, noise, global "
+          f"transforms) in {loader_ms:.1f} ms on one thread [{smi}]")
+    stats["stages"] = _train_stages(cfg, state_cpu, on_card, turns, smi)
     print("train step: " + json.dumps(stats))
     return stats
+
+
+def _train_stages(cfg, state_cpu, on_card, turns, smi):
+    """The eager step's launches and device ms by stage (record_function
+    ranges under torch.profiler), beside the whole captured step's."""
+    from pillars_torch.utils.profiling import train_stage_breakdown
+
+    _, eager, state = _train_steps(cfg, state_cpu)
+    stages = train_stage_breakdown(eager, state, on_card, 5)
+    captured = [t for t in turns if t["variant"] == "captured"]
+    total = sum(ms for _, ms in stages.values())
+    if not total > 0:
+        raise AssertionError(f"train stages: no device time attributed "
+                             f"{stages}")
+    print("train step stages (eager, per step: kernel launches, device ms): "
+          + ", ".join(f"{k} {c:g} / {ms:.3f}" for k, (c, ms)
+                      in stages.items())
+          + f"; sum {sum(c for c, _ in stages.values()):g} / {total:.3f}; "
+          f"the whole captured step "
+          f"{captured[0]['launches_per_step']:g} / "
+          f"{captured[0]['device_ms_per_step']:.3f} [{smi}]")
+    return {k: {"launches": c, "device_ms": ms}
+            for k, (c, ms) in stages.items()}
 
 
 def _train_batches(cfg, n):
@@ -1084,57 +1150,107 @@ def _train_batches(cfg, n):
     return [collate([ds[2 * i], ds[2 * i + 1]]) for i in range(n)]
 
 
-def _time_train_step(cfg, state_cpu, on_card):
-    """ms per step (CUDA events over 20 warm steps), host wall ms per step,
-    launches, device ms and idle share per step (torch.profiler) and the
-    peak device memory of a step above the state with ``rpn.remat`` off
-    and on, for the train step of ``cfg`` from ``state_cpu`` on the batch
-    ``on_card``."""
+def _clone_state(state):
+    from pillars_torch.train.loop import TrainState
+    from pillars_torch.train.optim import AdamState
+
+    c = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return TrainState(state.step, c(state.params), c(state.batch_stats),
+                      AdamState(state.opt_state.count, c(state.opt_state.mu),
+                                c(state.opt_state.nu)))
+
+
+def _train_steps(cfg, state_cpu):
+    """(the captured step of ``cfg`` on the card, its eager step, the state
+    from ``state_cpu``); raises unless ``make_train_step`` captured."""
     from pillars_torch.models.detector import PillarsDetector
-    from pillars_torch.train.loop import make_train_step
-    from pillars_torch.utils.profiling import cuda_ms, device_busy
+    from pillars_torch.train.loop import CapturedTrainStep, make_train_step
 
     det = PillarsDetector(cfg)
     state, opt = _train_state(det, state_cpu)
     step = make_train_step(det, opt)
+    if not isinstance(step, CapturedTrainStep):
+        raise AssertionError("make_train_step did not capture on the card")
+    return step, step.eager, state
+
+
+def _time_train_step(fn, state, on_card, captured):
+    """ms per step (CUDA events over 20 warm steps), host wall ms per step,
+    kernel and graph launches, device ms and idle share per step
+    (torch.profiler) of the train step ``fn`` threaded from ``state`` on
+    the batch ``on_card``; for a captured step also the seconds of its
+    first call and capture and the graph pool's MiB."""
+    from pillars_torch.cuda_graph import pool_mib
+    from pillars_torch.utils.profiling import cuda_ms, device_busy
+
+    box = [state]
+
+    def one():
+        box[0] = fn(box[0], on_card)[0]
+
     for _ in range(3):
-        step(state, on_card)
-    ms = cuda_ms(lambda: step(state, on_card), 20)
+        one()
+    ms = cuda_ms(one, 20)
     t0 = time.perf_counter()
     for _ in range(20):
-        step(state, on_card)
+        one()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 20
-    prof_wall, device_ms, rows, _ = device_busy(
-        lambda: step(state, on_card), 5)
-    launches = sum(c for _, c, _ in rows)
+    prof_wall, device_ms, rows, graphs = device_busy(one, 5)
+    out = {"variant": "captured" if captured else "eager",
+           "ms_per_step": ms, "host_wall_ms_per_step": wall_ms,
+           "launches_per_step": sum(c for _, c, _ in rows),
+           "graph_launches_per_step": graphs,
+           "device_ms_per_step": device_ms,
+           "idle_share": 1 - device_ms / prof_wall}
+    if captured:
+        out["capture_s"] = [g.seconds for g in fn.graphs.values()]
+        out["pool_mib"] = pool_mib()
+    return out
+
+
+def _step_turns(cfg, state_cpu, on_card):
+    """The captured and the eager step of ``cfg`` timed in turns (eager,
+    captured, captured, eager), each from ``state_cpu``."""
+    step, eager, state = _train_steps(cfg, state_cpu)
+    return [_time_train_step(step if v == "captured" else eager,
+                             _clone_state(state), on_card, v == "captured")
+            for v in ("eager", "captured", "captured", "eager")]
+
+
+def _step_memory(cfg, state_cpu, on_card):
+    """Peak device memory of an eager step above the state with
+    ``rpn.remat`` off and on (MiB)."""
     peak = {}
     for remat in (False, True):
-        d = PillarsDetector(cfg.override("model.rpn.remat", remat))
-        s = step if not remat else make_train_step(d, opt)
-        s(state, on_card)
+        _, eager, state = _train_steps(
+            cfg.override("model.rpn.remat", remat), state_cpu)
+        eager(state, on_card)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        s(state, on_card)
+        eager(state, on_card)
         torch.cuda.synchronize()
         peak[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    return {"ms_per_step": ms, "host_wall_ms_per_step": wall_ms,
-            "launches_per_step": launches, "device_ms_per_step": device_ms,
-            "idle_share": 1 - device_ms / prof_wall,
-            "peak_mib_remat_off": peak[False],
+    return {"peak_mib_remat_off": peak[False],
             "peak_mib_remat_on": peak[True]}
 
 
 def _step_line(t):
-    return (f"{t['ms_per_step']:.3f} ms per step (CUDA events, 20 warm "
-            f"steps), {t['host_wall_ms_per_step']:.3f} ms host wall; "
-            f"{t['launches_per_step']:g} launches and "
+    line = (f"{t['variant']} {t['ms_per_step']:.3f} ms per step (CUDA "
+            f"events, 20 warm steps), {t['host_wall_ms_per_step']:.3f} ms "
+            f"host wall; {t['graph_launches_per_step']:g} graph and "
+            f"{t['launches_per_step']:g} kernel launches and "
             f"{t['device_ms_per_step']:.3f} ms of device time per step, idle "
-            f"share {t['idle_share']:.3f} (torch.profiler); peak device "
-            f"memory of a step above the state "
-            f"{t['peak_mib_remat_off']:.1f} MiB with rpn.remat off, "
-            f"{t['peak_mib_remat_on']:.1f} MiB on")
+            f"share {t['idle_share']:.3f} (torch.profiler)")
+    if "capture_s" in t:
+        line += (f"; first call + capture {t['capture_s']} s, graph pool "
+                 f"{t['pool_mib']:.1f} MiB")
+    return line
+
+
+def _turns_line(turns):
+    return "; ".join(_step_line(t) for t in turns)
 
 
 def _train_cfg(root, out, n_clouds):
@@ -1153,14 +1269,20 @@ def _train_cfg(root, out, n_clouds):
             .override("train_input.info_path", train_info))
 
 
-def _trainer_epoch(cfg, epoch, resume=None):
+def _trainer_epoch(cfg, epoch, resume=None, eager=False):
     """Epoch ``epoch`` of a new ``Trainer(cfg)`` (from ``PillarsDetector.
     init``, or resumed from ``resume``'s weights_temp.pkl) with its eval:
-    the losses of its steps, its NMS launches and its times. Gates: the
-    state on the card, the eval's NMS launches equal to its batches."""
+    the losses of its steps, its NMS launches and its times; its captured
+    step, or with ``eager`` the eager one. Gates: the state on the card,
+    the eval's NMS launches equal to its batches."""
+    from pillars_torch.train.loop import CapturedTrainStep
     from pillars_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg)
+    if not isinstance(trainer.step_fn, CapturedTrainStep):
+        raise AssertionError("the Trainer's step is not captured")
+    if eager:
+        trainer.step_fn = trainer.step_fn.eager
     if resume is not None:
         step = trainer.resume(os.path.join(resume["dirs"]["checkpoints"],
                                            "weights_temp.pkl"))
@@ -1228,6 +1350,13 @@ def run_trainer(smi, root, out, n_clouds):
         print(f"Trainer {_epoch_line(r, epoch, n_clouds)} (the JAX run after "
               f"{r['steps']} steps: "
               f"{JAX_AP_AFTER_STEPS.get(r['steps'], 'no eval')}) [{smi}]")
+    r_eager = _trainer_epoch(cfg, 0, eager=True)
+    print(f"Trainer with the eager step {_epoch_line(r_eager, 0, n_clouds)}; "
+          f"epoch 0 captured {r0['seconds']:.2f} s against eager "
+          f"{r_eager['seconds']:.2f} s [{smi}]")
+    if not r_eager["last50"] < LOSS_GATE:
+        raise AssertionError(f"eager epoch 0: mean loss of the last 50 steps "
+                             f"{r_eager['last50']} not below {LOSS_GATE}")
     if not r0["last50"] < LOSS_GATE:
         raise AssertionError(f"epoch 0: mean loss of the last 50 steps "
                              f"{r0['last50']} not below {LOSS_GATE}")
@@ -1245,6 +1374,8 @@ def run_trainer(smi, root, out, n_clouds):
                "last50_loss_epoch0": r0["last50"],
                "ap": [r0["ap"], r1["ap"]], "steps": [r0["steps"], r1["steps"]],
                "eval_seconds": [r0["eval_seconds"], r1["eval_seconds"]],
+               "eager_epoch0": {k: v for k, v in r_eager.items()
+                                if k != "dirs"},
                "jax_ap_after_steps": JAX_AP_AFTER_STEPS}
     print("trainer: " + json.dumps(summary))
     return r0, r1
@@ -2035,14 +2166,24 @@ def run_bf16_train_step(state_cpu, smi, root):
         raise AssertionError(f"bf16 train step card vs CPU: {bad}")
 
     on_card = batch_to_device(batch, CARD)
+    steps = {c.runtime.compute_dtype: _train_steps(c, state_cpu)
+             for c in (cfg, cfg_bf)}
     times = {"float32": [], "bfloat16": []}
-    for c in (cfg, cfg_bf, cfg_bf, cfg):
-        times[c.runtime.compute_dtype].append(
-            _time_train_step(c, state_cpu, on_card))
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        step, eager, state = steps[dtype]
+        for v in (("eager", "captured") if len(times[dtype]) == 0
+                  else ("captured", "eager")):
+            times[dtype].append(_time_train_step(
+                step if v == "captured" else eager, _clone_state(state),
+                on_card, v == "captured"))
     for dtype, runs in times.items():
-        for i, t in enumerate(runs):
-            print(f"train step {dtype} (turn {i + 1} of 2): {_step_line(t)}")
-    print(f"bf16 train step [{smi}]: " + json.dumps(times))
+        print(f"train step {dtype} in turns: {_turns_line(runs)}")
+    memory = {c.runtime.compute_dtype: _step_memory(c, state_cpu, on_card)
+              for c in (cfg, cfg_bf)}
+    print(f"train step peak device memory above the state (MiB), eager: "
+          f"{memory}")
+    print(f"bf16 train step [{smi}]: " + json.dumps(
+        {"turns": times, "memory": memory}))
     return times
 
 
@@ -2680,6 +2821,426 @@ def run_captured(state_cpu, smi):
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 19: the captured train and recalibration steps (train/loop.py
+# CapturedTrainStep, train/bn_recal.py CapturedRecal) and the repairs
+
+
+def _voxelizer_range(smi):
+    """19.1: an extra feature of 1e7 and one NaN / infinite feature through
+    both voxelizers, the card against the CPU: integers equal, NaN and
+    infinities where the CPU has them, means within ``MEAN_ATOL`` of the
+    CPU's (relative to their scale for the feature)."""
+    from pillars_torch.config import Config
+    from pillars_torch.ops.voxelize import (make_cell_voxelizer,
+                                            make_point_voxelizer)
+
+    vcfg = Config.default().model.voxel
+    pts, num = _clouds(vcfg.max_points, 2, 1)
+    pts = np.concatenate([pts[0], np.zeros(pts.shape[1:3] + (1,),
+                                           np.float32)], -1)
+    r = np.random.RandomState(19)
+    pts[..., :num[0], 3] = r.uniform(-1e7, 1e7, (2, num[0]))
+    bad = pts.copy()
+    bad[0, 7, 3], bad[1, 11, 3], bad[1, 12, 3] = np.nan, np.inf, -np.inf
+    worst = {}
+    for name, fn in (("cells", make_cell_voxelizer(vcfg)),
+                     ("points", make_point_voxelizer(vcfg))):
+        for label, cloud in (("1e7", pts), ("non-finite", bad)):
+            args = (torch.from_numpy(cloud), torch.from_numpy(num))
+            want = fn(*args)
+            got = fn(*(a.cuda() for a in args))
+            err = 0.0
+            for field, g, w in zip(want._fields, got, want):
+                g = g.cpu()
+                if not w.is_floating_point():
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"voxelize_{name} {label} "
+                                             f"{field}: card against CPU")
+                    continue
+                for check in (torch.isnan, torch.isinf):
+                    if not torch.equal(check(g), check(w)):
+                        raise AssertionError(
+                            f"voxelize_{name} {label} {field}: "
+                            f"{check.__name__} differs from the CPU")
+                fin = torch.isfinite(w)
+                scale = torch.ones_like(w)
+                if w.shape[-1] == 4:  # the 1e7 feature's column
+                    scale[..., 3] = 1e7
+                diff = ((g - w).abs() / scale)[fin]
+                err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            if not err <= MEAN_ATOL:
+                raise AssertionError(f"voxelize_{name} {label}: means card "
+                                     f"against CPU {err} of their scale")
+            nan = int(torch.isnan(want[-1]).sum()) if name == "points" else 0
+            worst[f"{name}_{label}"] = err
+            print(f"voxelize_{name} with an extra feature of 1e7 ({label}): "
+                  f"card against CPU, integers equal, NaN/inf positions "
+                  f"equal ({nan} NaN pillar means), means within {err:.3e} "
+                  f"of their scale (tol {MEAN_ATOL}) [{smi}]")
+    return worst
+
+
+def _fixed_scale_sums(vals, seg, n):
+    """The voxelizers' earlier segment sums, for timing only: a
+    fixed 2^-40 unit (which wraps beyond |value| * n = 2^23) and no
+    non-finite sum."""
+    sums = torch.zeros(vals.shape, dtype=torch.int64, device=vals.device)
+    sums.index_add_(0, seg, (vals * float(2 ** 40)).to(torch.int64))
+    return sums[seg].to(vals.dtype) * (1.0 / 2 ** 40)
+
+
+def _voxelizer_cost(smi):
+    """19.2: both voxelizers captured at the main paths' shapes (19200
+    points, B=1 and 2), device ms with the adaptive fixed point against
+    the earlier fixed one, in turns (new, fixed, fixed, new)."""
+    from pillars_torch.config import Config
+    from pillars_torch.ops import voxelize as vox
+    from pillars_torch.utils.profiling import captured_ms
+
+    vcfg = Config.default().model.voxel
+    adaptive = vox._segment_sums
+    out = {}
+    for b in (1, 2):
+        pts, num = _clouds(vcfg.max_points, b, 1)
+        p, n = torch.from_numpy(pts[0]).cuda(), torch.from_numpy(num).cuda()
+        for name, make in (("cells", vox.make_cell_voxelizer),
+                           ("points", vox.make_point_voxelizer)):
+            fn = make(vcfg)
+            turns = []
+            for sums in (adaptive, _fixed_scale_sums, _fixed_scale_sums,
+                         adaptive):
+                vox._segment_sums = sums
+                try:
+                    turns.append(captured_ms(lambda: fn(p, n), 50))
+                finally:
+                    vox._segment_sums = adaptive
+            out[f"{name}_B{b}"] = {"adaptive": [turns[0], turns[3]],
+                                   "fixed": [turns[1], turns[2]]}
+            print(f"voxelize_{name} B={b}, captured, device ms per call in "
+                  f"turns: adaptive fixed point {turns[0]:.4f}, "
+                  f"{turns[3]:.4f}; the fixed 2^-40 unit {turns[1]:.4f}, "
+                  f"{turns[2]:.4f} [{smi}]")
+    return out
+
+
+def _nondeterministic_ops(caught):
+    """The op names of PyTorch's 'does not have a deterministic
+    implementation' warnings."""
+    names = set()
+    for w in caught:
+        text = str(w.message)
+        if "deterministic" in text:
+            names.add(text.split(" does not have")[0].split(" ")[-1])
+    return sorted(names)
+
+
+def _replays_against_eager(label, step, state, batches, lr, tm_state=None):
+    """Captured steps against the eager step, each from the state the
+    captured step holds (its first call, then replays): metrics equal, new
+    BN statistics equal, moments within ``GRAD_RTOL`` of each leaf's max,
+    parameters within two rates; returns the differences and whether all
+    was bit-equal, and the last state."""
+    worst = {"stats": 0.0, "mu": 0.0, "nu": 0.0, "params_over_lr": 0.0}
+    bitwise = True
+    for batch in batches:
+        ref = _clone_state(state)
+        if tm_state is not None:
+            want, _, m_want, v_want = step.eager(ref, _tm_clone(tm_state),
+                                                 batch)
+            state, tm_state, m_got, v_got = step(state, tm_state, batch)
+            for k in v_want:
+                if not torch.equal(v_got[k], v_want[k]):
+                    raise AssertionError(f"{label}: metric {k} replay "
+                                         f"{float(v_got[k])} against eager "
+                                         f"{float(v_want[k])}")
+        else:
+            want, m_want = step.eager(ref, batch)
+            state, m_got = step(state, batch)
+        for name, g, w in zip(m_want._fields, m_got, m_want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: {name} replay {float(g)} "
+                                     f"against eager {float(w)}")
+        for part, got, exp in (("stats", state.batch_stats,
+                                want.batch_stats),
+                               ("mu", state.opt_state.mu, want.opt_state.mu),
+                               ("nu", state.opt_state.nu, want.opt_state.nu),
+                               ("params", state.params, want.params)):
+            for k, w in exp.items():
+                g = got[k]
+                bitwise = bitwise and torch.equal(g, w)
+                if part == "params":
+                    err = float((g - w).abs().max()) / lr
+                    key, tol = "params_over_lr", 2.0
+                else:
+                    err = (float((g.double() - w.double()).abs().max())
+                           / max(float(w.abs().max()), 1e-30))
+                    key, tol = part, (0.0 if part == "stats" else GRAD_RTOL)
+                worst[key] = max(worst[key], err)
+                if not err <= tol:
+                    raise AssertionError(f"{label}: {part} {k} replay "
+                                         f"against eager {err} (tol {tol})")
+    return worst, bitwise, state
+
+
+def _tm_clone(tm_state):
+    from pillars_torch.train.loop import _leaves, _rebuild
+
+    return _rebuild(tm_state, iter([t.clone() for t in _leaves(tm_state)]))
+
+
+def _gradients_graph(det, state, batch, thr):
+    """The gradients of ``batch`` at ``state`` through a graph of the
+    train body's ``gradients`` and eagerly: (max of each leaf's |diff| over
+    its max, the leaves that are not bit-equal)."""
+    from pillars_torch.cuda_graph import CapturedCall
+    from pillars_torch.train.loop import BATCH_DTYPES, BATCH_KEYS, gradients
+
+    call = CapturedCall(
+        lambda *b: list(gradients(det, state.params, state.batch_stats,
+                                  dict(zip(BATCH_KEYS, b)), thr)
+                        .grads.values()),
+        det.device, BATCH_DTYPES, context=torch.no_grad)
+    args = [batch[k] for k in BATCH_KEYS]
+    call(*args)
+    got = call(*args)
+    want = gradients(det, state.params, state.batch_stats, batch, thr).grads
+    err = max(_max_rel(g, w.cpu()) for g, w in zip(got, want.values()))
+    differ = [k for g, (k, w) in zip(got, want.items())
+              if not torch.equal(g, w)]
+    return err, differ
+
+
+def _deterministic_replay(cfg, state_cpu, batches, algorithms, cudnn):
+    """The f32 step with ``torch.use_deterministic_algorithms(algorithms,
+    warn_only=True)`` and ``cudnn.deterministic = cudnn``: whether two eager
+    steps from one state agree bit for bit, whether replays then equal
+    eager bit for bit, and the ops PyTorch names as nondeterministic."""
+    import warnings
+
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(algorithms, warn_only=True)
+    torch.backends.cudnn.deterministic = cudnn
+    torch.backends.cudnn.benchmark = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step, eager, state = _train_steps(cfg, state_cpu)
+            a = eager(_clone_state(state), batches[0])[0]
+            b = eager(_clone_state(state), batches[0])[0]
+            reproducible = all(torch.equal(a.params[k], b.params[k])
+                               for k in a.params)
+            _, bitwise, _ = _replays_against_eager(
+                "deterministic f32", step, state, batches,
+                float(step.opt.schedule(0)))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic = flags[1]
+        torch.backends.cudnn.benchmark = flags[2]
+    return {"eager_reproducible": reproducible, "replay_bitwise": bitwise,
+            "nondeterministic_ops": _nondeterministic_ops(caught)}
+
+
+def _heads_after_steps(cfg, state_cpu, batches):
+    """Replayed steps, and after each the detector's captured heads on the
+    step's state against eager heads on a fresh clone of it (within
+    ``CAPTURE_RTOL`` of each tensor's max); returns the largest |diff|."""
+    from pillars_torch.train.loop import variables
+
+    step, _, state = _train_steps(cfg, state_cpu)
+    det = step.detector
+    thr = cfg.eval_input.anchor_area_threshold
+    heads, heads_eager = _captured_heads(det, thr)
+    pts, num = _clouds(cfg.model.voxel.max_points, 1, 1)
+    eye = torch.eye(4)[None].cuda()
+    inputs = (torch.from_numpy(pts[0]).cuda(), torch.from_numpy(num).cuda(),
+              eye, eye)
+    heads(variables(state), *inputs)
+    before = heads(variables(state), *inputs)
+    worst = 0.0
+    for batch in batches:
+        state, _ = step(state, batch)
+        fresh = {k: v.clone() for k, v in variables(state).items()}
+        got = heads(variables(state), *inputs)
+        worst = max(worst, _replay_close(got, heads_eager(fresh, *inputs),
+                                         "heads after a replayed step"))
+    if all(torch.equal(a, b) for a, b in zip(got, before)):
+        raise AssertionError("heads after replayed steps equal the heads "
+                             "before them: inference read old weights")
+    return worst
+
+
+def _recal_against_eager(cfg, state_cpu, smi):
+    """19.4: the AdaBN recalibration of ``Config.default()`` with
+    ``eval_input.bn_recal_batches`` 8 through the Evaluator, captured
+    against eager, and the two timed."""
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.bn_recal import CapturedRecal
+    from pillars_torch.train.trainer import Evaluator
+    from pillars_torch.utils.profiling import cuda_ms
+
+    cfg = cfg.override("eval_input.bn_recal_batches", 8)
+    det = PillarsDetector(cfg)
+    ev = Evaluator(cfg, det)
+    state = det.state_to_device(state_cpu)
+    got = ev._maybe_recalibrate(state)
+    if not isinstance(ev._recal_step, CapturedRecal):
+        raise AssertionError("build_recal_fn did not capture on the card")
+    got = {k: v.clone() for k, v in got.items()}
+    captured = ev._recal_step
+    ev._recal_step = captured.eager
+    want = ev._maybe_recalibrate(state)
+    err = 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            e = float((got[k] - w).abs().max())
+            err = max(err, e / max(float(w.abs().max()), 1e-30))
+        elif not torch.equal(got[k], w):
+            raise AssertionError(f"recal {k}: replay against eager")
+    if not err <= CAPTURE_RTOL:
+        raise AssertionError(f"recal statistics replay against eager {err}")
+    b = ev._recal_batches[0]
+    ms = {}
+    for name, fn in (("eager", captured.eager), ("captured", captured)):
+        box = [state]
+
+        def one():  # each step's statistics into the next, as recalibrate
+            box[0] = {**box[0], **fn(box[0], b["points"], b["num_points"])}
+
+        ms[name] = cuda_ms(one, 20)
+    print(f"recalibration, {len(ev._recal_batches)} batches of "
+          f"{cfg.eval_input.batch_size}: captured against eager statistics "
+          f"within {err:.3e} of their max (tol {CAPTURE_RTOL}); ms per recal "
+          f"step (CUDA events) eager {ms['eager']:.3f}, captured "
+          f"{ms['captured']:.3f} [{smi}]")
+    return {"max_rel": err, "ms": ms}
+
+
+def _stage_sums(state_cpu, smi):
+    """19.5: ``profile_stages`` of the dense and fast configs in device ms
+    from captured stages against the three stages in one graph."""
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.utils.profiling import stage_sum
+
+    out = {}
+    for name, cfg in (("dense", Config.default()), ("fast", _fast_config())):
+        det = PillarsDetector(cfg)
+        state = det.state_to_device(state_cpu)
+        pts, num = _clouds(cfg.model.voxel.max_points, 1, 1)
+        eye = torch.eye(4)[None]
+        r = stage_sum(det, state, torch.from_numpy(pts[0]),
+                      torch.from_numpy(num), eye, eye, 50)
+        stages = det.profile_stages(state, torch.from_numpy(pts[0]),
+                                    torch.from_numpy(num), eye, eye, 50)
+        rounded = lambda d: json.dumps(  # noqa: E731
+            {k: round(v, 4) for k, v in d.items()})
+        print(f"profile_stages {name} B=1 (device ms, each stage a graph of "
+              f"its own): {rounded(stages)}; stage_sum's stages "
+              f"{rounded(r['stages'])}, sum {r['sum']:.4f} against the three in one graph "
+              f"{r['whole']:.4f} and a boundary {r['boundary']:.4f} [{smi}]")
+        if not (0.8 * r["whole"] <= r["sum"]
+                <= 1.1 * r["whole"] + 3 * r["boundary"]):
+            raise AssertionError(f"profile_stages {name}: the sum "
+                                 f"{r['sum']} against the whole {r['whole']}")
+        out[name] = {**r, "profile_stages": stages}
+    return out
+
+
+def run_captured_train(state_cpu, smi, root):
+    """Phase 19; returns its numbers."""
+    from pillars_torch.config import Config
+    from pillars_torch.train import metrics as tm
+    from pillars_torch.train.loop import batch_to_device
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    t19 = time.perf_counter()
+    result = {"voxelizer": _voxelizer_range(smi),
+              "voxelizer_ms": _voxelizer_cost(smi)}
+    cfg = _with_split(Config.default(), root)
+    thr = cfg.train_input.anchor_area_threshold
+    batches = [batch_to_device(b, CARD) for b in _train_batches(cfg, 3)]
+    variants = {
+        "f32": cfg, "bf16": cfg.override("runtime.compute_dtype",
+                                         "bfloat16"),
+        "remat": cfg.override("model.rpn.remat", True),
+        "metrics": cfg}
+    result["replay"] = {}
+    for name, c in variants.items():
+        step, _, state = _train_steps(c, state_cpu)
+        if name == "metrics":
+            from pillars_torch.train.loop import make_train_step
+
+            step = make_train_step(step.detector, step.opt,
+                                   with_metrics=True)
+        lr = float(step.opt.schedule(0))
+        tm_state = (tm.TrainMetricsState.init(CARD) if name == "metrics"
+                    else None)
+        worst, bitwise, state = _replays_against_eager(
+            f"captured step {name}", step, state, batches, lr, tm_state)
+        err, differ = _gradients_graph(step.detector, state, batches[0],
+                                       thr)
+        if not err <= GRAD_RTOL:
+            raise AssertionError(f"captured gradients {name}: {err} of max")
+        result["replay"][name] = {**worst, "bitwise": bitwise,
+                                  "grad_max_rel": err,
+                                  "grad_leaves_differing": differ,
+                                  "graphs": len(step.graphs)}
+        print(f"captured step {name} B=2 full width, 3 steps (the first "
+              f"call, then replays) each against the eager step from the "
+              f"same state: loss parts, rate and positives equal; new BN "
+              f"statistics max rel {worst['stats']:.3e}, moments "
+              f"{worst['mu']:.3e} / {worst['nu']:.3e} of each leaf's max "
+              f"(tol {GRAD_RTOL}), parameters {worst['params_over_lr']:.3e} "
+              f"rates (tol 2); bit-equal: {bitwise}; gradients through a "
+              f"graph of the body's gradients {err:.3e} of each leaf's max, "
+              f"{len(differ)} leaves not bit-equal: {differ} [{smi}]")
+    result["deterministic"] = {}
+    for algorithms, cudnn in ((True, True), (True, False), (False, True)):
+        d = _deterministic_replay(cfg, state_cpu, batches, algorithms, cudnn)
+        key = f"algorithms_{algorithms}_cudnn_{cudnn}"
+        result["deterministic"][key] = d
+        print(f"f32 step with deterministic algorithms {algorithms} (warn "
+              f"only), cuDNN deterministic {cudnn}: two eager steps "
+              f"bit-equal: {d['eager_reproducible']}; replays bit-equal to "
+              f"eager: {d['replay_bitwise']}; ops PyTorch names "
+              f"nondeterministic: {d['nondeterministic_ops']}")
+        if d["eager_reproducible"] and not d["replay_bitwise"]:
+            raise AssertionError(f"{key}: the eager step is reproducible "
+                                 f"but a replay differs from it")
+
+    scfg = _with_split(Config.from_yaml(
+        str(CONFIGS / "second_sparse_d435i.yaml")), root)
+    sstate = from_jax_variables(*load_params(str(SECOND_WEIGHTS)), scfg)
+    step, _, state = _train_steps(scfg, sstate)
+    sb = [batch_to_device(b, CARD) for b in _train_batches(scfg, 2)]
+    worst, bitwise, _ = _replays_against_eager(
+        "captured step second_sparse", step, state, sb,
+        float(step.opt.schedule(0)))
+    result["replay"]["second_sparse"] = {**worst, "bitwise": bitwise}
+    print(f"captured step second_sparse_d435i B=2 from weights_33.pkl, 2 "
+          f"steps against eager: metrics equal, statistics "
+          f"{worst['stats']:.3e}, moments {worst['mu']:.3e} / "
+          f"{worst['nu']:.3e}, parameters {worst['params_over_lr']:.3e} "
+          f"rates; bit-equal: {bitwise} [{smi}]")
+
+    result["heads_after_steps"] = _heads_after_steps(cfg, state_cpu,
+                                                     batches)
+    print(f"inference after replayed steps: the detector's captured heads "
+          f"against eager heads on a fresh clone of the state, max |diff| "
+          f"{result['heads_after_steps']:.3e} (tol {CAPTURE_RTOL} of each "
+          f"tensor's max), and moved by the steps")
+    result["recal"] = _recal_against_eager(cfg, state_cpu, smi)
+    result["stages"] = _stage_sums(state_cpu, smi)
+    print(f"phase 19 (captured training): "
+          f"{time.perf_counter() - t19:.1f} s [{smi}]")
+    print("captured train: " + json.dumps(result))
+    return result
+
+
 def main(argv=None):
     import argparse
 
@@ -2740,6 +3301,7 @@ def main(argv=None):
             trainer_runs[0])
         print(f"phase 16 (bf16 training): {time.perf_counter() - t16:.1f} s")
         parallel = run_parallel(state_cpu, smi, root)
+        run_captured_train(state_cpu, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     second_dense = run_second_dense(smi)

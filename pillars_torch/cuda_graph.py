@@ -1,33 +1,41 @@
-"""The counterpart of ``jax.jit`` for inference: a captured CUDA graph.
+"""The counterpart of ``jax.jit``: captured CUDA graphs.
 
-The JAX package never runs its inference op by op:
-pillars_tpu/models/detector.py::make_inference_fn returns ``jax.jit(fn)``,
-one compiled program per static input shape. On the card,
-:meth:`pillars_torch.models.detector.PillarsDetector.make_inference_fn`
-returns a :class:`CapturedInference` instead: per static input shape (batch
-size, padded point width, point features) one ``torch.cuda.CUDAGraph``
-holding the whole eager body (voxelizer, network, postprocess with the NMS
-kernel and, on the fast configs, the fused RPN chain kernel), replayed with
-one launch from the host.
+The JAX package never runs inference or a train step op by op: it returns
+``jax.jit(fn)`` (pillars_tpu/models/detector.py::make_inference_fn) and
+``jax.jit(step, donate_argnums=(0,))`` (pillars_tpu/train/loop.py), one
+compiled program per static input shape. On the card the port replays one
+``torch.cuda.CUDAGraph`` per static input shape instead, with one launch
+from the host: :class:`CapturedCall` is that per-shape captured callable,
+and :class:`CapturedInference` (``PillarsDetector.make_inference_fn``), the
+captured train step and AdaBN recalibration step (train/loop.py,
+train/bn_recal.py) and the profiled stages
+(``PillarsDetector.profile_stages``) are built on it.
 
 - A new shape runs the eager body once on a side stream (the kernels' nvcc
-  builds, cuDNN's algorithm choice, the folded RPN blocks), which answers
-  that call, and is then captured, as ``jax.jit`` traces and compiles at a
-  new shape. Every graph of the process draws on one memory pool.
+  builds, cuDNN's algorithm choice, autograd's warm-up, the folded RPN
+  blocks), which answers that call, and is then captured, as ``jax.jit``
+  traces and compiles at a new shape. Every graph of the process draws on
+  one memory pool.
 - Inputs are copied, on the caller's stream, into the graph's static device
   tensors before the replay: a CUDA tensor on the card, a pinned host tensor
-  without blocking the host (the caller leaves it alone until the batch is
+  without blocking the host (the caller leaves it alone until the call is
   done, as with the eager function), anything else through pinned memory of
   PyTorch's caching host allocator, which keeps a block until its copy has
   run.
-- The state: every graph reads :class:`StaticState`, a copy of the state
-  made on the card. Before a replay the caller's state is copied into it
-  when it is not the state copied last (other tensors, or the same tensors
-  written in place since), and the fast path's folded RPN blocks are then
-  refolded in place. A state of inference tensors carries no version, so it
-  is copied on every call.
-- The outputs: the graph packs the predictions into one static buffer,
-  which each replay clones, so call *n*'s predictions outlive call *n+1*, as
+- The state: the graphs read :class:`StaticState`, copies of the state
+  tensors on the card. Before a replay each of the caller's tensors is
+  copied in unless it is the static tensor itself or the tensor copied last
+  into that entry, unwritten since (same object, same version), and the
+  fast path's folded RPN blocks are then refolded in place. A state of
+  inference tensors carries no version, so it is copied on every call.
+- State the graph writes (a train step's parameters, statistics and
+  moments) is written in place into the static tensors. A replay writes
+  without bumping the versions of what it wrote, and two caches trust
+  versions (:meth:`StaticState.load` here and ``FoldedBlocksCache``), so
+  every replay that writes bumps them (:meth:`StaticState.written`): a
+  detector's inference graphs then read the new weights.
+- The outputs: the graph packs its outputs into one static buffer, which
+  each replay clones, so call *n*'s outputs outlive call *n+1*, as
   ``jax.jit``'s fresh arrays do.
 - Launch counts: a kernel wrapper counts its launches in Python, which a
   replay does not run. Each graph records what its capture launched, and
@@ -35,8 +43,7 @@ one launch from the host.
   nothing.
 
 Nothing falls back: a capture or a replay that fails raises. Calls come from
-one thread at a time (the serving loops' dispatch thread), on the stream
-that is current there.
+one thread at a time, on the stream that is current there.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
 from pillars_torch.ops import nms_cuda, rpn_cuda
 
@@ -90,10 +98,12 @@ def _set_counts(values) -> None:
 
 
 class StaticState:
-    """The state tensors that the graphs of a detector read (shared by the
-    rungs of a ``BucketedInference``, whose detectors take the same state).
+    """The state tensors that the graphs of a detector or a step read (a
+    detector's are shared by the rungs of a ``BucketedInference``, whose
+    detectors take the same state).
 
-    :meth:`load` copies a caller's state in; :meth:`blocks` is the
+    :meth:`load` copies a caller's state in; :meth:`written` marks the
+    static tensors as written by a replay; :meth:`blocks` is the
     ``FoldedBlocksCache`` interface (ops/rpn_blocks.py) over the copy: the
     fast path's folded blocks, folded at their first use and refolded in
     place by every later :meth:`load` that copies, so that the graphs go on
@@ -102,27 +112,23 @@ class StaticState:
     def __init__(self):
         self.tensors: Dict[str, torch.Tensor] = {}
         self.copies = 0
-        # the caller's tensors last copied, each with its version (None for
-        # an inference tensor); holding them keeps the identities valid
-        self._src: Tuple[Tuple[str, torch.Tensor, Optional[int]], ...] = ()
+        # by entry, the caller's tensor last copied in and its version (None
+        # for an inference tensor); holding it keeps the identity valid
+        self._src: Dict[str, Tuple[torch.Tensor, Optional[int]]] = {}
         self._blocks = None
         self._rpn_cfg = None
 
-    def _is_loaded(self, state: Dict[str, torch.Tensor]) -> bool:
-        if len(state) != len(self._src):
-            return False
-        for name, t, version in self._src:
-            if (state.get(name) is not t or version is None
-                    or t._version != version):
-                return False
-        return True
+    def _holds(self, name: str, t: torch.Tensor) -> bool:
+        if t is self.tensors[name]:
+            return True
+        src = self._src.get(name)
+        return (src is not None and src[0] is t and src[1] is not None
+                and t._version == src[1])
 
     def load(self, state: Dict[str, torch.Tensor], device) -> None:
-        """Makes the static tensors hold ``state``: copies it in unless it
-        is the state copied last, unchanged. Raises for a state whose
-        entries, shapes or dtypes differ from the first one's."""
-        if self._is_loaded(state):
-            return
+        """Makes the static tensors hold ``state``: copies in each entry
+        that does not hold it already. Raises for a state whose entries,
+        shapes or dtypes differ from the first one's."""
         if not self.tensors:
             self.tensors = {k: torch.empty(v.shape, dtype=v.dtype,
                                            device=device)
@@ -131,19 +137,31 @@ class StaticState:
             raise ValueError(
                 f"the state's entries differ from those the graphs read: "
                 f"{sorted(set(state) ^ set(self.tensors))[:5]}")
-        for k, t in self.tensors.items():
+        stale = [k for k, t in state.items() if not self._holds(k, t)]
+        if not stale:
+            return
+        for k in stale:
+            t = self.tensors[k]
             if state[k].shape != t.shape or state[k].dtype != t.dtype:
                 raise ValueError(
                     f"{k}: {tuple(state[k].shape)} {state[k].dtype}, the "
                     f"graphs read {tuple(t.shape)} {t.dtype}")
-        names = list(self.tensors)
-        torch._foreach_copy_([self.tensors[k] for k in names],
-                             [state[k] for k in names])
-        self._src = tuple((k, state[k], None if state[k].is_inference()
-                           else state[k]._version) for k in names)
+        torch._foreach_copy_([self.tensors[k] for k in stale],
+                             [state[k] for k in stale])
+        for k in stale:
+            self._src[k] = (state[k], None if state[k].is_inference()
+                            else state[k]._version)
         self.copies += 1
         if self._blocks is not None:
             self._refold()
+
+    def written(self, names) -> None:
+        """After a replay that wrote the static tensors ``names``: bumps
+        their versions, which the replay left as they were, and forgets the
+        caller's tensors they were copied from."""
+        increment_version([self.tensors[k] for k in names])
+        for k in names:
+            self._src.pop(k, None)
 
     def _refold(self) -> None:
         from pillars_torch.ops.rpn_blocks import fold_rpn_blocks
@@ -187,37 +205,35 @@ def _pack(outputs) -> torch.Tensor:
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: Tuple[torch.Tensor, ...]   # static device inputs
-    packed: torch.Tensor               # static packed outputs
+    packed: Optional[torch.Tensor]     # static packed outputs
     layout: Tuple[Tuple[torch.dtype, Tuple[int, ...], int], ...]
     launches: Tuple[int, ...]          # per replay, in COUNTERS order
     seconds: float                     # eager first call + capture
 
 
-class CapturedInference:
-    """``fn(state, points [B, MAXPTS, D], num_valid [B], rect [B, 4, 4],
-    trv2c [B, 4, 4]) -> Predictions`` that replays one captured graph per
-    static input shape (module docstring).
+class CapturedCall:
+    """``fn(*inputs) -> list of tensors`` that replays one captured graph
+    per static input shape (module docstring).
 
-    ``body(state, points, num_valid, rect, trv2c)`` is the eager inference
-    body on device tensors, which the graphs capture; ``eager`` the whole
-    eager function (inputs anywhere), kept to compare against; ``state`` the
-    :class:`StaticState` the graphs read; ``output_type`` the NamedTuple the
-    body returns. ``graphs`` maps each input shape to its graph."""
+    ``body(*inputs)`` runs on device tensors and returns a sequence of
+    tensors (possibly empty); it may read and write tensors that outlive the
+    call (the state), which the graph then reads and writes in place.
+    ``dtypes``: the dtype of each static input (None: the first call's).
+    ``context``: the grad mode the call stages, captures and replays in
+    (``torch.inference_mode``, or ``torch.no_grad`` for a body that takes
+    gradients itself). ``graphs`` maps each input shape to its graph."""
 
-    def __init__(self, body: Callable, eager: Callable, state: StaticState,
-                 device, output_type):
+    def __init__(self, body: Callable, device, dtypes=None,
+                 context: Callable = torch.inference_mode):
         self.body = body
-        self.eager = eager
-        self.state = state
         self.device = torch.device(device)
-        self.output_type = output_type
+        self.dtypes = dtypes
+        self.context = context
         self.graphs: Dict[Tuple, _Graph] = {}
 
-    def __call__(self, state, points, num_valid, rect, trv2c):
-        inputs = (points, num_valid, rect, trv2c)
+    def __call__(self, *inputs) -> List[torch.Tensor]:
         key = tuple(tuple(np.shape(x)) for x in inputs)
-        with torch.inference_mode():
-            self.state.load(state, self.device)
+        with self.context():
             g = self.graphs.get(key)
             if g is None:
                 return self._capture(key, inputs)
@@ -225,29 +241,33 @@ class CapturedInference:
                 _stage(dst, x)
             g.graph.replay()
             _set_counts(a + b for a, b in zip(_read_counts(), g.launches))
+            if g.packed is None:
+                return []
             flat = g.packed.clone()
         outs, offset = [], 0
         for dtype, shape, nbytes in g.layout:
             outs.append(flat[offset:offset + nbytes].view(dtype).view(shape))
             offset += nbytes
-        return self.output_type(*outs)
+        return outs
 
     def _capture(self, key, inputs):
         """The first call at a new shape: the eager body on a side stream
         (its result answers the call), then the capture."""
         t0 = time.perf_counter()
-        dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
+        dtypes = self.dtypes or tuple(
+            x.dtype if isinstance(x, torch.Tensor)
+            else torch.as_tensor(np.asarray(x)).dtype for x in inputs)
         static = tuple(torch.empty(shape, dtype=dtype, device=self.device)
                        for shape, dtype in zip(key, dtypes))
         for dst, x in zip(static, inputs):
             _stage(dst, x)
 
         def run():
-            return self.body(self.state.tensors, *static)
+            return list(self.body(*static))
 
         def run_packed():
             outs = run()
-            return outs, _pack(outs)
+            return outs, (_pack(outs) if outs else None)
 
         first = _run_on_side_stream(run, self.device)
         before = _read_counts()
@@ -259,6 +279,55 @@ class CapturedInference:
         self.graphs[key] = _Graph(graph, static, packed, layout, launches,
                                   time.perf_counter() - t0)
         return first
+
+
+class CapturedInference:
+    """``fn(state, points [B, MAXPTS, D], num_valid [B], rect [B, 4, 4],
+    trv2c [B, 4, 4]) -> Predictions`` that replays one captured graph per
+    static input shape (module docstring).
+
+    ``body(state, points, num_valid, rect, trv2c)`` is the eager inference
+    body on device tensors, which the graphs capture; ``eager`` the whole
+    eager function (inputs anywhere), kept to compare against; ``state`` the
+    :class:`StaticState` the graphs read; ``output_type`` the NamedTuple the
+    body returns. ``call`` is the :class:`CapturedCall`, and ``graphs`` maps
+    each input shape to its graph."""
+
+    def __init__(self, body: Callable, eager: Callable, state: StaticState,
+                 device, output_type):
+        self.body = body
+        self.eager = eager
+        self.state = state
+        self.device = torch.device(device)
+        self.output_type = output_type
+        self.call = CapturedCall(
+            lambda *x: body(state.tensors, *x), device,
+            (torch.float32, torch.int32, torch.float32, torch.float32))
+        self.graphs = self.call.graphs
+
+    def __call__(self, state, points, num_valid, rect, trv2c):
+        with torch.inference_mode():
+            self.state.load(state, self.device)
+        return self.output_type(*self.call(points, num_valid, rect, trv2c))
+
+
+def replay_ms(call: CapturedCall, iters: int) -> float:
+    """Warm mean ms per replay of ``call``'s one graph, replayed back to
+    back between two CUDA events (no staging, no clone)."""
+    if len(call.graphs) != 1:
+        raise ValueError(f"replay_ms times one graph, the call holds "
+                         f"{len(call.graphs)}")
+    graph = next(iter(call.graphs.values())).graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _run_on_side_stream(run: Callable, device):

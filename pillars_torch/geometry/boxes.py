@@ -75,8 +75,10 @@ def rbbox2d_to_near_bbox(rbboxes: torch.Tensor) -> torch.Tensor:
     rots = rbboxes[..., -1]
     rots_0_pi_div_2 = torch.abs(limit_period(rots, 0.5, math.pi))
     cond = (rots_0_pi_div_2 > math.pi / 4)[..., None]
-    bboxes_center = torch.where(cond, rbboxes[..., [0, 1, 3, 2]],
-                                rbboxes[..., :4])
+    # (x, y, l, w) by slices: a list index is a tensor made on the host
+    swapped = torch.cat([rbboxes[..., 0:2], rbboxes[..., 3:4],
+                         rbboxes[..., 2:3]], dim=-1)
+    bboxes_center = torch.where(cond, swapped, rbboxes[..., :4])
     return center_to_minmax_2d(bboxes_center[..., :2], bboxes_center[..., 2:4])
 
 

@@ -40,7 +40,8 @@ from torch import nn
 
 from pillars_torch import resolve_device
 from pillars_torch.config import Config, ModelConfig
-from pillars_torch.cuda_graph import CapturedInference, StaticState
+from pillars_torch.cuda_graph import (CapturedCall, CapturedInference,
+                                      StaticState)
 from pillars_torch.geometry import boxes as gb
 from pillars_torch.models.layers import BatchNorm, collect_batch_stats
 from pillars_torch.models.losses import LossOutput, detection_loss
@@ -575,40 +576,72 @@ class PillarsDetector:
     def profile_stages(self, state, points, num_valid, rect, trv2c,
                        iters: int = 20) -> Dict[str, float]:
         """The reference's measure_time_extended tier (voxelnet.py:753-903)
-        with the JAX package's stage names: ms per call of the point-major
-        voxelizer (``t_voxel_features``), of :meth:`apply` in eval mode
-        (``t_spatial_features_plus_rpn``) and of the anchors mask +
-        :meth:`postprocess` (``t_nms_func``), each timed alone with CUDA
-        events over ``iters`` warm calls on the outputs of the stage
-        before. Stage boundaries prevent overlap, so the sum exceeds the
-        whole path. The card's clock only: raises on the CPU."""
-        from pillars_torch.utils.profiling import cuda_ms
+        with the JAX package's stage names: device ms per call of the
+        point-major voxelizer (``t_voxel_features``), of :meth:`apply` in
+        eval mode (``t_spatial_features_plus_rpn``) and of the anchors mask
+        + :meth:`postprocess` (``t_nms_func``). Each stage is captured as a
+        graph of its own (:func:`profiled_stages`) and its back-to-back
+        replays are timed with CUDA events, as the JAX package times each
+        stage's jitted program on the device; each graph's launch is in its
+        stage's time, so the sum exceeds the three stages in one graph by
+        about two graph launches. The card only: raises on the CPU."""
+        from pillars_torch.cuda_graph import replay_ms
 
         if self.device.type != "cuda":
-            raise RuntimeError("profile_stages times stages with CUDA "
-                               "events; this detector is on the CPU")
+            raise RuntimeError("profile_stages times captured stages with "
+                               "CUDA events; this detector is on the CPU")
+        calls = self.profiled_stages(state, points, num_valid, rect, trv2c)
+        return {name: replay_ms(call, iters) for name, call in calls.items()
+                if name != "t_whole"}
+
+    def profiled_stages(self, state, points, num_valid, rect, trv2c
+                        ) -> Dict[str, CapturedCall]:
+        """The stages of :meth:`profile_stages`, each captured and replayed
+        once on the outputs of the stage before (and ``t_whole``: the three
+        in one graph), as :class:`~pillars_torch.cuda_graph.CapturedCall`
+        objects holding one graph each."""
         thr = self.config.eval_input.anchor_area_threshold
         dev = self.device
-        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
-        num_valid = torch.as_tensor(num_valid, device=dev)
-        rect = torch.as_tensor(rect, dtype=torch.float32, device=dev)
-        trv2c = torch.as_tensor(trv2c, dtype=torch.float32, device=dev)
-        with torch.inference_mode():
-            vox = self.voxelize_batch(points, num_valid)
-            preds = self.apply(state, vox)
+        vox_type = []
 
-            def nms_func():
-                amask = self.anchors_mask_batch(vox.coords, vox.pillar_mask,
-                                                thr)
-                return self.postprocess(preds, amask, rect, trv2c)
+        def voxelize(p, n):
+            v = self.voxelize_batch(p, n)
+            vox_type[:] = [type(v)]
+            return list(v)
 
-            return {
-                "t_voxel_features": cuda_ms(
-                    lambda: self.voxelize_batch(points, num_valid), iters),
-                "t_spatial_features_plus_rpn": cuda_ms(
-                    lambda: self.apply(state, vox), iters),
-                "t_nms_func": cuda_ms(nms_func, iters),
-            }
+        heads = []
+
+        def network(*v):
+            preds = self.apply(state, vox_type[0](*v))
+            heads[:] = sorted(preds)
+            return [preds[k] for k in heads]
+
+        def nms_func(coords, pillar_mask, r, t, *h):
+            amask = self.anchors_mask_batch(coords, pillar_mask, thr)
+            return list(self.postprocess(dict(zip(heads, h)), amask, r, t))
+
+        def whole(p, n, r, t):
+            v = voxelize(p, n)
+            h = network(*v)
+            v = vox_type[0](*v)
+            return nms_func(v.coords, v.pillar_mask, r, t, *h)
+
+        inputs = [torch.as_tensor(a, dtype=dtype).to(dev) for a, dtype in (
+            (points, torch.float32), (num_valid, torch.int32),
+            (rect, torch.float32), (trv2c, torch.float32))]
+        calls = {name: CapturedCall(fn, dev) for name, fn in (
+            ("t_voxel_features", voxelize),
+            ("t_spatial_features_plus_rpn", network),
+            ("t_nms_func", nms_func), ("t_whole", whole))}
+        v = calls["t_voxel_features"](*inputs[:2])
+        calls["t_voxel_features"](*inputs[:2])
+        h = calls["t_spatial_features_plus_rpn"](*v)
+        calls["t_spatial_features_plus_rpn"](*v)
+        v = vox_type[0](*v)
+        for _ in range(2):
+            calls["t_nms_func"](v.coords, v.pillar_mask, *inputs[2:], *h)
+            calls["t_whole"](*inputs)
+        return calls
 
     # ------------------------------------------------------------------
     def _infer(self, state, points, num_valid, rect, trv2c, thr: float,

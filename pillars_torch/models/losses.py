@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from pillars_torch import device_constant
 from pillars_torch.config import LossConfig
 
 
@@ -61,6 +62,12 @@ def _heads_to_lane_major(x, batch_size, fields):
     return lt.permute(0, 3, 1, 2).reshape(batch_size, fields, -1)
 
 
+def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(x, n)`` without its range check, which makes the host
+    wait for the device (int64, ``x`` in [0, n))."""
+    return (x[..., None] == torch.arange(n, device=x.device)).long()
+
+
 def detection_loss(cfg: LossConfig, num_class: int, box_preds, cls_preds,
                    dir_preds, anchors, labels, reg_targets,
                    use_direction_classifier: bool = True) -> LossOutput:
@@ -81,7 +88,7 @@ def detection_loss(cfg: LossConfig, num_class: int, box_preds, cls_preds,
 
     cls_weights, reg_weights, cared = prepare_loss_weights(labels, cfg, ft)
     cls_targets = labels * cared.to(labels.dtype)
-    one_hot_targets = F.one_hot(cls_targets, num_class + 1).permute(
+    one_hot_targets = _one_hot(cls_targets, num_class + 1).permute(
         0, 2, 1)[:, 1:, :].to(box_preds.dtype)                    # [B, C, A]
 
     if cfg.encode_rad_error_by_sin:
@@ -96,8 +103,8 @@ def detection_loss(cfg: LossConfig, num_class: int, box_preds, cls_preds,
 
     # weighted smooth L1 (sigma, code_weights), fields on axis 1
     sigma = cfg.smooth_l1_sigma
-    code_w = torch.tensor(cfg.code_weights, dtype=box_preds.dtype,
-                          device=box_preds.device).reshape(1, -1, 1)
+    code_w = device_constant(cfg.code_weights, box_preds.dtype,
+                             box_preds.device).reshape(1, -1, 1)
     abs_diff = torch.abs(code_w * (box_preds_sin - reg_targets_sin))
     lt_mask = (abs_diff <= 1.0 / (sigma ** 2)).to(abs_diff.dtype)
     loc_loss = (lt_mask * 0.5 * (abs_diff * sigma) ** 2
@@ -136,7 +143,7 @@ def detection_loss(cfg: LossConfig, num_class: int, box_preds, cls_preds,
         # direction target: (rot_gt > 0) one-hot (voxelnet.py:38-46)
         rot_gt = reg_targets[:, 6, :] + anchors[None, :, 6].to(
             reg_targets.dtype)
-        dir_targets = F.one_hot((rot_gt > 0).long(), 2).permute(0, 2, 1).to(
+        dir_targets = _one_hot((rot_gt > 0).long(), 2).permute(0, 2, 1).to(
             box_preds.dtype)                                       # [B, 2, A]
         dir_logits = _heads_to_lane_major(dir_preds.to(ft), batch_size, 2)
         weights = (labels > 0).to(box_preds.dtype)

@@ -55,7 +55,10 @@ def _remat(module: nn.Module, x, kwargs=None):
         finally:
             module.train(was)
 
-    return checkpoint(run, x, *tensors, use_reentrant=False)
+    # the forward draws no random numbers: no RNG state to save, which a
+    # captured CUDA graph could not read
+    return checkpoint(run, x, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class _SplitHead(nn.Module):

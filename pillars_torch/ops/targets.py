@@ -48,8 +48,10 @@ def assign_targets_batched(anchors_standup, anchors, gt_boxes, gt_classes,
     """gt_boxes [B,G,7], gt_classes/gt_valid [B,G], anchors_mask [B,A] ->
     labels [B,A], bbox_targets [B,7,A], reg_weights [B,A]."""
     b, g, _ = gt_boxes.shape
-    gt_standup = gb.rbbox2d_to_near_bbox(
-        gt_boxes[..., [0, 1, 3, 4, 6]].reshape(b * g, 5))
+    # (x, y, w, l, r) by slices: a list index is a tensor made on the host
+    gt_standup = gb.rbbox2d_to_near_bbox(torch.cat(
+        [gt_boxes[..., 0:2], gt_boxes[..., 3:5], gt_boxes[..., 6:7]],
+        dim=-1).reshape(b * g, 5))
     overlap = gb.iou_matrix(anchors_standup, gt_standup)          # [A, B*G]
     overlap = overlap.reshape(-1, b, g).permute(1, 0, 2)          # [B, A, G]
     participate = anchors_mask[:, :, None] & gt_valid[:, None, :]

@@ -115,13 +115,8 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
                    + 0.5) * vs[:3] + pcr[:3]
     centered = points_s[..., :3] - cell_center
     vals = torch.where(kept[..., None], centered, torch.zeros_like(centered))
-    if dev.type == "cpu":
-        _check_fixed_range(vals, N)
-    sums = torch.zeros((b * maxpts, 3), dtype=torch.int64, device=dev)
-    sums.index_add_(0, seg_id, (vals.reshape(-1, 3) * _FIXED_ONE).to(
-        torch.int64))
     denom = torch.clamp_min(count, 1).to(points.dtype)[..., None]
-    total = (sums[seg_id].to(points.dtype) * (1.0 / _FIXED_ONE)).reshape(
+    total = _segment_sums(vals.reshape(-1, 3), seg_id, N).reshape(
         b, maxpts, 3)
     mean = total / denom + cell_center
 
@@ -269,10 +264,8 @@ def voxelize(points: torch.Tensor, num_valid: torch.Tensor, *,
                            num_points > 0)
 
 
-# one unit of the fixed-point segment sums of ``voxelize_points``, and what
-# |value| * max_points_per_voxel must stay under for an int64 sum of them
-_FIXED_ONE = float(2 ** 40)
-_FIXED_RANGE = float(2 ** 23)
+# the finest fixed-point unit of the per-pillar sums: 2^-40
+_FIXED_BITS = 40
 
 
 class VoxelizedPoints(NamedTuple):
@@ -322,14 +315,11 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     Per-pillar means sum each point relative to its cell centre (the same
     for every point of a pillar) and add the centre back, as the JAX
     package does, so the rounding stays at the scale of a cell. The sums
-    are taken in 2^-40 fixed point: integer addition does not depend on the
-    order in which the card's atomics land, so the same cloud gives the
-    same bits in every run and at every padded width. The int64 sums hold
-    |value| * ``max_points_per_voxel`` < 2^23, where a value is an xyz
-    offset from the cell centre or an extra feature (167772 at 50 points per
-    pillar): on the CPU a cloud beyond that raises ``ValueError``; on the
-    card it is not looked at, because the look would make the host wait for
-    the card, and the sums of such a cloud wrap."""
+    are taken in fixed point (:func:`_segment_sums`): the same cloud gives
+    the same bits in every run and at every padded width, values of any
+    finite size give the JAX package's means, and a NaN or infinite value
+    makes its pillar's mean NaN or infinite, as the JAX package's float
+    sums do."""
     b, maxpts, dim = points.shape
     dev = points.device
     vs = device_constant(voxel_size, points.dtype, dev)
@@ -353,16 +343,9 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
     centered = torch.cat([points_s[..., :3] - cell_center, points_s[..., 3:],
                           torch.ones_like(points_s[..., :1])], dim=-1)
     vals = torch.where(keep[..., None], centered, torch.zeros_like(centered))
-    if dev.type == "cpu":
-        _check_fixed_range(vals, N)
     seg = (seg_id + torch.arange(b, device=dev)[:, None] * maxpts
            ).reshape(-1)
-    sums = torch.zeros((b * maxpts, dim + 1), dtype=torch.int64, device=dev)
-    # scaling by a power of two is exact in f32; the conversion truncates
-    # what lies below one unit, the same way for a value wherever it stands
-    sums.index_add_(0, seg, (vals.reshape(-1, dim + 1) * _FIXED_ONE).to(
-        torch.int64))
-    total = (sums[seg].to(points.dtype) * (1.0 / _FIXED_ONE)).reshape(
+    total = _segment_sums(vals.reshape(-1, dim + 1), seg, N).reshape(
         b, maxpts, dim + 1)
     denom = torch.clamp_min(total[..., dim:], 1.0)
     point_mean = total[..., :dim] / denom
@@ -393,20 +376,43 @@ def voxelize_points(points: torch.Tensor, num_valid: torch.Tensor, *,
                            num_points, coords, num_points > 0, voxel_mean)
 
 
-def _check_fixed_range(vals: torch.Tensor, n: int) -> None:
-    """Raises where a fixed-point sum of :func:`voxelize_points` could wrap
-    (CPU tensors only: on the card the look would make the host wait)."""
-    worst = float(vals.abs().max())
-    if worst * n >= _FIXED_RANGE:
-        raise ValueError(
-            f"voxelize_points: |value| * max_points_per_voxel must stay "
-            f"under 2^23 for the fixed-point means, got {worst} * {n}")
+def _segment_sums(vals: torch.Tensor, seg: torch.Tensor, n: int
+                  ) -> torch.Tensor:
+    """``vals`` [R, C] (f32) summed per segment ``seg`` [R] (each segment
+    holds at most ``n`` nonzero rows) and gathered back per row: [R, C].
+
+    Each column sums in fixed point, as int64 multiples of 2^-k: integer
+    addition does not depend on the order in which the card's atomics land,
+    so a cloud gives the same bits in every run and at every padded width.
+    k is chosen per column on the device from the batch's largest finite
+    |value| m: the largest k <= 40 with m * n * 2^k < 2^63, so no sum can
+    wrap (k is 40, the scale of every earlier release, while m * n < 2^23).
+    Scaling by a power of two is exact in f32, and the conversion truncates
+    what lies below one unit the same way for a value wherever it stands.
+    A non-finite value enters a float sum of the non-finite values alone,
+    whose NaN or infinity then stands for its segment's sum, as a float sum
+    of all the values would give it."""
+    finite = torch.isfinite(vals)
+    clean = torch.where(finite, vals, 0.0)
+    m = clean.abs().amax(dim=0).double() * n  # exact: 24 + 63 bits
+    k = torch.clamp_max(63 - torch.frexp(m).exponent, _FIXED_BITS)
+    scale = _pow2(k)
+    sums = torch.zeros(vals.shape, dtype=torch.int64, device=vals.device)
+    sums.index_add_(0, seg, (clean * scale).to(torch.int64))
+    special = torch.zeros_like(vals)
+    special.index_add_(0, seg, torch.where(finite, 0.0, vals))
+    # + 0.0 leaves a finite total's bits (never -0.0) as they are
+    return sums[seg].to(vals.dtype) * torch.reciprocal(scale) + special[seg]
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k in f32 for int32 ``k`` in [-126, 127], built from its exponent
+    bits (exact, and the same on every device)."""
+    return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
 def make_point_voxelizer(cfg: VoxelConfig):
-    """Bound point-major voxelizer, ``fn(points [B, M, D], num_valid [B])``.
-    Every kept value (xyz relative to its cell centre, extra features as they
-    are) times ``cfg.max_points_per_voxel`` must stay under 2^23
+    """Bound point-major voxelizer, ``fn(points [B, M, D], num_valid [B])``
     (:func:`voxelize_points`)."""
     return functools.partial(
         voxelize_points,

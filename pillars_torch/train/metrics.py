@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from pillars_torch import device_constant
+
 PR_THRESHOLDS = (0.1, 0.3, 0.5, 0.7, 0.8, 0.9, 0.95)
 IGNORE_IDX = -1
 
@@ -111,7 +113,7 @@ def precision_recall_update(state: PrecisionRecallState, labels, cls_preds,
     scores = torch.sigmoid(cls_preds).amax(dim=-1).reshape(-1)
     weights = _weights(labels, weights).reshape(-1)
     trues = (labels > 0).reshape(-1)
-    thr = torch.tensor(thresholds, dtype=scores.dtype, device=scores.device)
+    thr = device_constant(thresholds, scores.dtype, scores.device)
     pred_trues = scores[None, :] > thr[:, None]                   # [T, N]
     tp = (weights * (trues & pred_trues).float()).sum(dim=1)
     fp = (weights * (~trues & pred_trues).float()).sum(dim=1)

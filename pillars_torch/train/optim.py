@@ -30,18 +30,22 @@ B1, B2 = 0.9, 0.999
 
 
 def exponential_decay_schedule(cfg: OptimizerConfig, batch_size: int
-                               ) -> Callable[[int], float]:
+                               ) -> Callable[[torch.Tensor], torch.Tensor]:
     """lr(step) = initial * factor**(step / (decay_steps / batch_size)),
     evaluated at the count of updates taken BEFORE this one (optax's
     scale_by_schedule). The reference divides decay_steps by batch_size
-    (train.py:230)."""
+    (train.py:230). ``step``: an int, or an int32 tensor; the rate is an
+    f32 tensor on its device, computed there in f32 as the JAX package
+    computes it, so that a captured step reads the rate of each replay's
+    count."""
     decay_steps = cfg.decay_steps / batch_size
 
-    def schedule(step):
-        p = float(step) / decay_steps
+    def schedule(step) -> torch.Tensor:
+        p = torch.as_tensor(step, dtype=torch.int32).to(
+            torch.float32) / decay_steps
         if cfg.staircase:
-            p = float(int(p))
-        return cfg.initial_learning_rate * cfg.decay_factor ** p
+            p = torch.floor(p)
+        return cfg.initial_learning_rate * torch.pow(cfg.decay_factor, p)
 
     return schedule
 
@@ -56,7 +60,8 @@ def trainable_names(params: Dict[str, torch.Tensor],
 
 class AdamState(NamedTuple):
     """optax's ScaleByAdamState over the trainable parameters: ``count``
-    updates taken, first and second moments by torch name."""
+    updates taken (a host int; the step hands it to the device as an int32
+    tensor), first and second moments by torch name."""
 
     count: int
     mu: Dict[str, torch.Tensor]
@@ -64,9 +69,10 @@ class AdamState(NamedTuple):
 
 
 class AdamW:
-    """The tfa-style AdamW with the decay schedule, functional:
-    :meth:`update` returns new parameter tensors and a new state and
-    changes neither argument."""
+    """The tfa-style AdamW with the decay schedule. :meth:`update` is
+    functional (new parameter tensors and a new state; changes neither
+    argument); :meth:`step` is its body on tensors, which a captured train
+    step runs with the count on the device."""
 
     def __init__(self, cfg: OptimizerConfig, batch_size: int):
         self.cfg = cfg
@@ -81,27 +87,40 @@ class AdamW:
     def update(self, grads: Dict[str, torch.Tensor], state: AdamState,
                params: Dict[str, torch.Tensor]
                ) -> Tuple[Dict[str, torch.Tensor], AdamState]:
-        names = list(state.mu)
+        count = torch.tensor(state.count, dtype=torch.int32).to(
+            next(iter(params.values())).device)
+        new, mu, nu = self.step(grads, state.mu, state.nu, params, count)
+        return new, AdamState(state.count + 1, mu, nu)
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor],
+             mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
+             params: Dict[str, torch.Tensor], count: torch.Tensor
+             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
+                        Dict[str, torch.Tensor]]:
+        """(new parameters, new first and second moments) after one update
+        from ``count`` (int32 tensor: updates taken before this one), with
+        no host sync and no host constant. The bias corrections and the rate
+        are f32 scalars on the device, as optax computes them."""
+        names = list(mu)
         g = [grads[n] for n in names]
         p = [params[n] for n in names]
-        mu = torch._foreach_add(torch._foreach_mul(g, 1 - B1),
-                                torch._foreach_mul([state.mu[n] for n in names],
-                                                   B1))
-        nu = torch._foreach_add(
+        new_mu = torch._foreach_add(torch._foreach_mul(g, 1 - B1),
+                                    torch._foreach_mul([mu[n] for n in names],
+                                                       B1))
+        new_nu = torch._foreach_add(
             torch._foreach_mul(torch._foreach_mul(g, g), 1 - B2),
-            torch._foreach_mul([state.nu[n] for n in names], B2))
-        count = state.count + 1
-        # the bias corrections and the rate are f32 scalars in optax
-        c1 = torch.tensor(1 - B1 ** count, dtype=torch.float32).item()
-        c2 = torch.tensor(1 - B2 ** count, dtype=torch.float32).item()
-        lr = torch.tensor(self.schedule(state.count),
-                          dtype=torch.float32).item()
+            torch._foreach_mul([nu[n] for n in names], B2))
+        n = (count + 1).to(torch.float32)
+        c1 = 1 - torch.pow(B1, n)
+        c2 = 1 - torch.pow(B2, n)
+        lr = self.schedule(count)
         denom = torch._foreach_add(
-            torch._foreach_sqrt(torch._foreach_div(nu, c2)), self.cfg.adam_eps)
-        step = torch._foreach_div(torch._foreach_div(mu, c1), denom)
+            torch._foreach_sqrt(torch._foreach_div(new_nu, c2)),
+            self.cfg.adam_eps)
+        step = torch._foreach_div(torch._foreach_div(new_mu, c1), denom)
         step = torch._foreach_add(torch._foreach_mul(step, lr),
                                   torch._foreach_mul(p, self.cfg.weight_decay))
         new = dict(params)
         new.update(zip(names, torch._foreach_sub(p, step)))
-        return new, AdamState(count, dict(zip(names, mu)),
-                              dict(zip(names, nu)))
+        return new, dict(zip(names, new_mu)), dict(zip(names, new_nu))

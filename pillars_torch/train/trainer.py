@@ -60,7 +60,8 @@ class Evaluator:
 
     On one card the inference replays captured CUDA graphs, one per batch
     shape (``PillarsDetector.make_inference_fn``); a new batch shape is
-    captured at its first batch.
+    captured at its first batch. So does the recalibration step
+    (``train/bn_recal.py``), which updates the statistics in place.
 
     Data-parallel over ``runtime.num_devices`` ranks (0: every rank of the
     process group, one device outside any group): each full batch that splits
@@ -346,7 +347,14 @@ class Trainer:
     ranks of a process group when ``runtime.num_devices`` > 1 (0: every
     rank of the group, one device outside any group): each rank builds its
     own Trainer on its device; the global batch size must split over the
-    ranks."""
+    ranks.
+
+    On one card the step replays a captured CUDA graph per batch shape
+    (``make_train_step``), and ``state`` holds its static tensors, updated
+    in place by every step (donated, as the JAX package's jitted step is);
+    the per-epoch eval and the checkpoints read them. Each replay bumps
+    their versions, so the eval's captured inference copies the newest
+    weights."""
 
     def __init__(self, cfg: Config, use_wandb: bool = False, device=None):
         self.cfg = cfg

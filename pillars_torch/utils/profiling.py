@@ -1,7 +1,9 @@
 """Timing: the host-side stage timer with the reference's stage names, a
 Chrome trace of a block (``profiler_trace``), and on the card CUDA-event
-timers, a per-stage breakdown of the d435i inference paths and a
-torch.profiler pass for the device's busy share.
+timers, per-stage breakdowns of the d435i inference paths (each stage a
+captured graph of its own, timed in device ms), the train step's launches
+and device ms by stage (``train_stage_breakdown``) and a torch.profiler
+pass for the device's busy share.
 
     python -m pillars_torch.utils.profiling [--path dense|fast] [--iters 50]
                                             [--out FILE]
@@ -11,7 +13,7 @@ runs ``PillarsDetector`` with the trained checkpoint on d435i-sized clouds
 dense-cell path of ``Config.default()``, ``--path fast`` the point-major path
 whose RPN blocks run fused (``model.pfn.dense_cell`` false,
 ``model.rpn.use_pallas_blocks`` true). It prints, in ms per cloud: each stage
-alone (CUDA events, warm, run eagerly), the whole path as
+alone (captured, replayed back to back), the whole path as
 ``make_inference_fn`` gives it (a captured CUDA graph; three times, for the
 spread) and run eagerly, the device time per cloud summed over its kernels,
 the idle share, the graph and kernel launches per cloud and the longest
@@ -27,7 +29,7 @@ import pathlib
 import subprocess
 import time
 from collections import defaultdict, deque
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,10 +107,35 @@ def cuda_ms(fn: Callable[[], object], iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _tensors(out) -> List[torch.Tensor]:
+    """The tensors of an output: a tensor, a sequence or a dict of them, or
+    of such."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = [out[k] for k in sorted(out)]
+    return [t for o in out for t in _tensors(o)]
+
+
+def captured_ms(fn: Callable[[], object], iters: int) -> float:
+    """Device ms per call of ``fn`` (no arguments; it reads what it closes
+    over), captured as one CUDA graph whose back-to-back replays are timed
+    with CUDA events: the stage's own time, whatever the host's rate."""
+    from pillars_torch.cuda_graph import CapturedCall, replay_ms
+
+    call = CapturedCall(lambda: _tensors(fn()), torch.device("cuda"))
+    call()
+    call()
+    return replay_ms(call, iters)
+
+
 def profile_stages(det, state, points, num_valid, rect, trv2c,
                    iters: int) -> Dict[str, float]:
-    """ms per call of each stage of the dense-cell path, each timed alone on
-    inputs made by the stage before it, and of the whole path."""
+    """ms per call of each stage of the dense-cell path, each captured
+    alone on inputs made by the stage before it (device ms, replays timed
+    with CUDA events), and of the whole path (``t_full_*``: the captured
+    function, replay and the staging of its inputs and the copy of its
+    outputs, at the host's call rate; ``t_full_eager``: the eager one)."""
     thr = det.config.eval_input.anchor_area_threshold
     net = det.dense_network
     net.load_state_dict(state)
@@ -131,14 +158,14 @@ def profile_stages(det, state, points, num_valid, rect, trv2c,
         canvas, _ = front(cv)
         preds_full, amask = det._forward_dense(state, points, num_valid, thr)
         return {
-            "t_voxelize": cuda_ms(lambda: net.cell_voxelize(points, num_valid),
-                                  iters),
-            "t_pfn_canvas": cuda_ms(lambda: front(cv), iters),
-            "t_rpn": cuda_ms(lambda: net.rpn(canvas), iters),
-            "t_forward_dense": cuda_ms(
+            "t_voxelize": captured_ms(
+                lambda: net.cell_voxelize(points, num_valid), iters),
+            "t_pfn_canvas": captured_ms(lambda: front(cv), iters),
+            "t_rpn": captured_ms(lambda: net.rpn(canvas), iters),
+            "t_forward_dense": captured_ms(
                 lambda: det._forward_dense(state, points, num_valid, thr),
                 iters),
-            "t_postprocess": cuda_ms(
+            "t_postprocess": captured_ms(
                 lambda: det.postprocess(preds_full, amask, rect, trv2c),
                 iters),
             **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
@@ -153,8 +180,8 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
                         iters: int) -> Dict[str, float]:
     """ms per call of each stage of the point-major fast path (voxelize,
     PFN + canvas, the three fused blocks, the RPN tail, postprocess), each
-    timed alone on inputs made by the stage before it, and of the whole
-    path."""
+    captured alone on inputs made by the stage before it, and of the whole
+    path (as :func:`profile_stages`)."""
     from pillars_torch.models.detector import _front_state, _sub_state
     from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
 
@@ -178,19 +205,19 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
         preds = tail(blocks)
         amask = det.anchors_mask_batch(v.coords, v.pillar_mask, thr)
         return {
-            "t_voxelize": cuda_ms(
+            "t_voxelize": captured_ms(
                 lambda: det.voxelize_batch(points, num_valid), iters),
-            "t_anchors_mask": cuda_ms(
+            "t_anchors_mask": captured_ms(
                 lambda: det.anchors_mask_batch(v.coords, v.pillar_mask, thr),
                 iters),
-            "t_pfn_canvas": cuda_ms(lambda: front(v), iters),
-            "t_rpn_blocks": cuda_ms(
+            "t_pfn_canvas": captured_ms(lambda: front(v), iters),
+            "t_rpn_blocks": captured_ms(
                 lambda: fused_rpn_blocks(canvas, state, det.mcfg.rpn,
                                          det.folded_blocks), iters),
-            "t_rpn_tail": cuda_ms(lambda: tail(blocks), iters),
-            "t_forward_fast": cuda_ms(
+            "t_rpn_tail": captured_ms(lambda: tail(blocks), iters),
+            "t_forward_fast": captured_ms(
                 lambda: det._forward_fast(state, v), iters),
-            "t_postprocess": cuda_ms(
+            "t_postprocess": captured_ms(
                 lambda: det.postprocess(preds, amask, rect, trv2c), iters),
             **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
                                                  rect, trv2c), iters)
@@ -222,8 +249,11 @@ def device_busy(fn: Callable[[], object], iters: int,
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
+        # a record_function range also shows on the device, spanning the
+        # kernels it launched and the gaps between them: not a kernel
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
         if any(must_have in e.key and e.self_device_time_total > 0
                for e in kernels):
             break
@@ -240,6 +270,89 @@ def device_busy(fn: Callable[[], object], iters: int,
                  if e.device_type == torch.autograd.DeviceType.CPU
                  and e.key.startswith("cudaGraphLaunch")) / iters
     return wall, device, rows, graphs
+
+
+def stage_sum(det, state, points, num_valid, rect, trv2c, iters: int
+              ) -> Dict[str, object]:
+    """``PillarsDetector.profile_stages`` against the whole: each stage's
+    device ms (its own graph), their sum, the three stages in one graph
+    (``whole``), and a boundary's cost (``boundary``: the replay of a graph
+    of one small kernel, the launch each extra graph adds). On the card the
+    sum should lie within ``whole`` plus the two extra boundaries, to the
+    run's noise."""
+    from pillars_torch.cuda_graph import CapturedCall, replay_ms
+
+    calls = det.profiled_stages(state, points, num_valid, rect, trv2c)
+    stages = {k: replay_ms(c, iters) for k, c in calls.items()
+              if k != "t_whole"}
+    one = torch.zeros((), device=det.device)
+    tiny = CapturedCall(lambda: [one + 1], det.device)
+    tiny()
+    tiny()
+    return {"stages": stages, "sum": sum(stages.values()),
+            "whole": replay_ms(calls["t_whole"], iters),
+            "boundary": replay_ms(tiny, iters)}
+
+
+def range_breakdown(prof, names: Sequence[str], iters: int
+                    ) -> Dict[str, Tuple[float, float]]:
+    """{range name: (device events per call, device ms per call)} from a
+    torch.profiler run over ``iters`` calls whose host code opened the
+    ``record_function`` ranges ``names``, and ``"other"`` for the rest.
+    Each device event (kernel, copy, set) is attributed to the range whose
+    host interval holds the call that launched it, on any thread (a
+    backward's launches come from autograd's thread inside the range that
+    called it). Raises when no device event is found."""
+    events = prof.profiler.kineto_results.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
+                   if e.device_type() == cpu and e.name() in names)
+    # the launching call of each device event: the runtime API call with its
+    # correlation id, else the operator it is linked to
+    runtime, ops = {}, {}
+    for e in events:
+        if e.device_type() != cpu:
+            continue
+        table = runtime if e.name().startswith("cu") else ops
+        table[e.correlation_id()] = e.start_ns()
+    out = {n: [0, 0.0] for n in (*names, "other")}
+    found = 0
+    for e in events:
+        if e.device_type() != cuda or e.name() in names:
+            continue  # the device-side copies of the ranges themselves
+        found += 1
+        t = runtime.get(e.correlation_id(), ops.get(e.linked_correlation_id()))
+        name = "other"
+        if t is not None:
+            for start, end, n in spans:
+                if start <= t <= end:
+                    name = n
+        out[name][0] += 1
+        out[name][1] += e.duration_ns() / 1e6
+    if not found:
+        raise RuntimeError("torch.profiler traced no device event")
+    return {k: (c / iters, ms / iters) for k, (c, ms) in out.items()}
+
+
+def train_stage_breakdown(step, state, batch, iters: int
+                          ) -> Dict[str, Tuple[float, float]]:
+    """Device events and device ms per step of each stage of the EAGER
+    train step ``step`` (train/loop.py ``TRAIN_STAGES``: voxelize, anchors
+    mask, assign_targets, forward, loss, backward, adamw; "other" for the
+    rest), over ``iters`` warm steps threaded from ``state`` under
+    torch.profiler (:func:`range_breakdown`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pillars_torch.train.loop import TRAIN_STAGES
+
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    return range_breakdown(prof, TRAIN_STAGES, iters)
 
 
 def main():

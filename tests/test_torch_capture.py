@@ -12,9 +12,8 @@ On the CPU, where nothing can be captured:
   from host data (``lift_fresh``: a host-to-device copy on every call, which
   a graph cannot hold). The body runs once before the check, as the card's
   first call runs it before the capture (``device_constant`` keeps its
-  constants from then on). Excluded by name, because they never run on the
-  card: ``keep_mask_plain`` (the NMS kernel's twin) and
-  ``_check_fixed_range`` (a range check of CPU tensors only);
+  constants from then on). Excluded by name, because it never runs on the
+  card: ``keep_mask_plain`` (the NMS kernel's twin);
 - parity: ``CapturedInference`` with a stand-in for the graph that reruns
   the captured function into the same static outputs (the capture-shaped
   body: static inputs in, static packed outputs out, cloned per call)
@@ -62,9 +61,8 @@ SYNC_OPS = {"_local_scalar_dense", "item", "nonzero", "masked_select",
             "bincount", "repeat_interleave", "equal", "is_nonzero",
             "lift_fresh"}
 INDEX_OPS = {"index", "index_put", "index_put_", "_index_put_impl_"}
-# functions that run only for CPU tensors: the NMS kernel's plain twin and
-# the voxelizer's range check
-CPU_ONLY = {"keep_mask_plain", "_check_fixed_range"}
+# functions that run only for CPU tensors: the NMS kernel's plain twin
+CPU_ONLY = {"keep_mask_plain"}
 
 
 class _SyncCheck(TorchDispatchMode):

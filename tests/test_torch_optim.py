@@ -45,6 +45,26 @@ def test_schedule_matches_jax(staircase):
     assert got(3500) == pytest.approx(0.002 * 0.8, rel=1e-6)
 
 
+@pytest.mark.parametrize("staircase", [False, True])
+def test_device_schedule_matches_jax_up_to_1e5(staircase):
+    """The rate as the captured step computes it, on an int32 count tensor
+    in f32, against the JAX package's at every count to 2000 and 5001
+    counts to 1e5: within 1e-6 relative, as the schedule at host ints
+    above (XLA's f32 pow drifts to 8 ulps from PyTorch's at 1e5, where
+    p = count / 3500 is 28)."""
+    kw = dict(initial_learning_rate=0.002, decay_steps=7000,
+              decay_factor=0.8, staircase=staircase)
+    counts = np.unique(np.concatenate([
+        np.arange(2000), np.linspace(0, 1e5, 5001)]).astype(np.int32))
+    got = exponential_decay_schedule(TorchOptConfig(**kw), batch_size=2)(
+        torch.from_numpy(counts))
+    assert got.dtype == torch.float32
+    want = jax.jit(jax_sched(JaxOptConfig(**kw), batch_size=2))(
+        jnp.asarray(counts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=0)
+
+
 @pytest.fixture(scope="module")
 def params_tree():
     """A flax params tree of the reduced network (its structure from the
@@ -97,6 +117,34 @@ def test_adamw_five_steps_match_optax(params_tree, patterns):
             np.testing.assert_allclose(ours[k], v, rtol=OPT_TOL,
                                        atol=OPT_TOL * np.abs(v).max(),
                                        err_msg=k)
+
+
+def test_adamw_late_counts_match_optax(params_tree):
+    """Five updates from a count of 99990: the bias corrections and the
+    rate from the int32 count on the device against optax's."""
+    kw = dict(weight_decay=1e-4, adam_eps=1e-8)
+    tx = make_optimizer(JaxOptConfig(**kw), batch_size=2)
+    adam, sched, *rest = tx.init(params_tree)
+    start = jnp.int32(99990)
+    jstate = (adam._replace(count=start), sched._replace(count=start),
+              *rest)
+    jparams = params_tree
+    update = jax.jit(tx.update)
+    params = convert_tree(params_tree, None)
+    opt = AdamW(TorchOptConfig(**kw), batch_size=2)
+    state = opt.init(params)._replace(count=99990)
+    for step in range(5):
+        g = _grads(10 + step, params_tree)
+        updates, jstate = update(g, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        params, state = opt.update(convert_tree(g, None), state, params)
+    assert state.count == 99995
+    want = convert_tree(jax.device_get(jparams), None)
+    for name, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(params[name].numpy(), w, rtol=OPT_TOL,
+                                   atol=OPT_TOL * np.abs(w).max(),
+                                   err_msg=name)
 
 
 def _paths(tree, prefix=()):

@@ -175,34 +175,78 @@ def test_same_bits_at_every_padded_width():
         assert torch.equal(out.point_mean[:, :600], outs[0].point_mean[:, :600])
 
 
-@pytest.mark.parametrize("max_voxels", [500, 20000])
-def test_feature_range_of_the_fixed_point_sums(max_voxels):
-    """An extra feature near the range the int64 sums hold (|value| * 50 <
-    2^23) still gives the JAX package's means; one beyond it raises on the
-    CPU instead of wrapping."""
+def _feature_cloud(amplitude):
+    """One crowded cloud of 900 points with an extra feature uniform in
+    +-``amplitude``."""
     n = np.array([900], np.int32)
     pts = np.concatenate([crowded_clouds(9, 1, 1024, n),
                           np.zeros((1, 1024, 1), np.float32)], -1)
     r = np.random.RandomState(9)
-    pts[0, :900, 3] = r.uniform(-1.6e5, 1.6e5, 900)
+    pts[0, :900, 3] = r.uniform(-amplitude, amplitude, 900)
+    return pts, n
+
+
+def _jax_and_port(pts, n, max_voxels):
     jv = JaxConfig.default().model.voxel
     kw = _kwargs(TorchConfig.default().model.voxel, max_voxels)
     want = jax.device_get(jax.jit(lambda p, c: jax_voxelize(
         p, c, **_kwargs(jv, max_voxels)))(jnp.asarray(pts[0]),
                                            jnp.int32(n[0])))
-    got = torch_voxelize(torch.from_numpy(pts), torch.from_numpy(n), **kw)
-    assert int(got.num_points.max()) == 50  # a full pillar of such values
-    for name in EXACT:
-        np.testing.assert_array_equal(getattr(got, name).numpy()[0],
-                                      np.asarray(getattr(want, name)),
-                                      err_msg=name)
+    return want, torch_voxelize(torch.from_numpy(pts), torch.from_numpy(n),
+                                **kw)
+
+
+@pytest.mark.parametrize("max_voxels", [500, 20000])
+def test_feature_range_of_the_fixed_point_sums(max_voxels):
+    """Extra features near the range where the int64 sums keep the finest
+    unit (|value| * 50 < 2^23), beyond it (1.7e5) and far beyond it (1e7)
+    give the JAX package's means: the unit grows with the batch's largest
+    value, so no sum wraps."""
+    for amplitude, beyond in ((1.6e5, 1.7e5), (1e7, 1.2e7)):
+        pts, n = _feature_cloud(amplitude)
+        pts[0, 0, 3] = beyond
+        want, got = _jax_and_port(pts, n, max_voxels)
+        assert int(got.num_points.max()) == 50  # a full pillar of such values
+        for name in EXACT:
+            np.testing.assert_array_equal(getattr(got, name).numpy()[0],
+                                          np.asarray(getattr(want, name)),
+                                          err_msg=name)
+        for name in ("point_mean", "voxel_mean"):
+            g = getattr(got, name).numpy()[0]
+            w = np.asarray(getattr(want, name))
+            np.testing.assert_allclose(g[..., :3], w[..., :3], atol=MEAN_ATOL,
+                                       err_msg=name)
+            # f32 sums of 50 such values in another order: an ulp or two
+            # of the sum, over 50
+            np.testing.assert_allclose(g[..., 3], w[..., 3], rtol=1e-6,
+                                       atol=0.05 * amplitude / 1.6e5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("max_voxels", [500, 20000])
+def test_non_finite_features_where_jax_puts_them(max_voxels):
+    """A NaN, an infinity, and both infinities in the three fullest
+    pillars: each pillar's feature mean is NaN, infinite or NaN where the
+    JAX package's float sums put them, and every other mean is JAX's."""
+    pts, n = _feature_cloud(1.0)
+    _, plain = _jax_and_port(pts, n, max_voxels)
+    kept = plain.point_kept.numpy()[0]
+    pillar = plain.point_pillar.numpy()[0]
+    counts = plain.num_points.numpy()[0]
+    full = np.argsort(-counts, kind="stable")[:3]
+    assert counts[full].min() >= 2
+    order = plain.points.numpy()[0]
+    # the input positions of the first two kept points of each full pillar
+    src = [[int(np.flatnonzero((pts[0, :, :3] == order[i, :3]).all(-1))[0])
+            for i in np.flatnonzero(kept & (pillar == p))[:2]] for p in full]
+    pts[0, src[0][0], 3] = np.nan
+    pts[0, src[1][0], 3] = np.inf
+    pts[0, src[2][0], 3] = np.inf
+    pts[0, src[2][1], 3] = -np.inf
+    want, got = _jax_and_port(pts, n, max_voxels)
     for name in ("point_mean", "voxel_mean"):
         g, w = getattr(got, name).numpy()[0], np.asarray(getattr(want, name))
-        np.testing.assert_allclose(g[..., :3], w[..., :3], atol=MEAN_ATOL,
-                                   err_msg=name)
-        # f32 sums of values of 1e5 in another order: an ulp or two
-        np.testing.assert_allclose(g[..., 3], w[..., 3], rtol=1e-6,
-                                   atol=0.05, err_msg=name)
-    pts[0, 0, 3] = 1.7e5
-    with pytest.raises(ValueError, match="2\\^23"):
-        torch_voxelize(torch.from_numpy(pts), torch.from_numpy(n), **kw)
+        assert np.isnan(w[..., 3]).any() and np.isinf(w[..., 3]).any()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
+        np.testing.assert_array_equal(np.isinf(g), np.isinf(w), err_msg=name)
+        np.testing.assert_allclose(g, w, atol=MEAN_ATOL, err_msg=name)
