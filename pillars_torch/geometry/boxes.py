@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pillars_torch import device_constant
@@ -26,8 +27,22 @@ _CORNERS_NORM_3D = ((0.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, 1.0, 1.0),
 
 
 def limit_period(val, offset: float = 0.5, period: float = math.pi):
-    """Wrap angles into [-offset*period, (1-offset)*period)."""
-    return val - torch.floor(val / period + offset) * period
+    """Wrap angles into [-offset*period, (1-offset)*period).
+
+    Float32 angles wrap as XLA compiles the JAX package's formula on the
+    CPU: the division by the constant period becomes a product with its
+    float32 reciprocal, and ``val * inv + offset`` and ``val - n * period``
+    each one fused multiply-add. Float64 holds both exactly before the one
+    rounding to float32, so the wrap falls where the jitted JAX package's
+    does, also at the odd multiples of half the period, and the wrapped
+    angle has its bits."""
+    if val.dtype == torch.float64:
+        return val - torch.floor(val / period + offset) * period
+    p32 = float(np.float32(period))
+    inv = float(np.float32(1) / np.float32(period))
+    v = val.double()
+    n = torch.floor((v * inv + offset).to(val.dtype))
+    return (v - n.double() * p32).to(val.dtype)
 
 
 def corners_nd(dims: torch.Tensor, origin=0.5) -> torch.Tensor:

@@ -13,7 +13,9 @@ pillars in ARRIVAL order and drops every point from the overflow on.
 
 Both stably sort points by cell; each cell keeps its first
 ``max_points_per_voxel`` points in input order (reference
-load_data.py:593-692).
+load_data.py:593-692). A point's cell is its offset from the range's
+corner times the reciprocal of the voxel size (:func:`_point_cells`), as
+the JAX package's jitted voxelizers compute it.
 """
 
 from __future__ import annotations
@@ -50,6 +52,26 @@ class CellVoxelized(NamedTuple):
     num_pillars: torch.Tensor
 
 
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _point_cells(points: torch.Tensor, voxel_size, point_cloud_range
+                 ) -> torch.Tensor:
+    """[..., 3] int32 cell of each point: ``floor((p - corner) * (1 /
+    voxel_size))`` with the reciprocal rounded to the points' dtype. The
+    JAX package writes a division by the voxel size, which XLA folds, the
+    size being a constant, into a product with that reciprocal: a point
+    whose exact quotient is an integer can then land in the cell below
+    (0.16 m voxels: y = -2.0800002 gives 234.99998, not 235). The port
+    computes what the jitted JAX package computes."""
+    dev = points.device
+    np_dtype = _NP_FLOAT[points.dtype]
+    inv = np_dtype(1) / np.asarray(voxel_size, np_dtype)
+    inv_vs = device_constant(inv.tolist(), points.dtype, dev)
+    pcr = device_constant(point_cloud_range, points.dtype, dev)
+    return torch.floor((points[..., :3] - pcr[:3]) * inv_vs).to(torch.int32)
+
+
 def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
                    voxel_size, point_cloud_range, grid_size,
                    max_points_per_voxel: int) -> CellVoxelized:
@@ -71,7 +93,7 @@ def voxelize_cells(points: torch.Tensor, num_valid: torch.Tensor, *,
 
     idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
     in_count = idx < num_valid.to(dev)[:, None]
-    c = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
+    c = _point_cells(points, voxel_size, point_cloud_range)
     gs = device_constant([nx, ny, nz], torch.int32, dev)
     valid = in_count & ((c >= 0) & (c < gs)).all(dim=-1)
     cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]
@@ -160,15 +182,13 @@ def _sort_into_pillars(points, num_valid, voxel_size, point_cloud_range,
     cell order, so the ids stay non-decreasing over the sorted points."""
     b, maxpts, dim = points.shape
     dev = points.device
-    vs = device_constant(voxel_size, points.dtype, dev)
-    pcr = device_constant(point_cloud_range, points.dtype, dev)
     nx, ny, nz = (int(g) for g in grid_size)
     n_cells = nx * ny * nz
     P = int(max_voxels)
 
     idx = torch.arange(maxpts, dtype=torch.int64, device=dev)[None]  # [1, M]
     in_count = idx < num_valid.to(dev)[:, None]
-    c = torch.floor((points[..., :3] - pcr[:3]) / vs).to(torch.int32)
+    c = _point_cells(points, voxel_size, point_cloud_range)
     gs = device_constant([nx, ny, nz], torch.int32, dev)
     valid = in_count & ((c >= 0) & (c < gs)).all(dim=-1)
     cell = (c[..., 2] * ny + c[..., 1]) * nx + c[..., 0]

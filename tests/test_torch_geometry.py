@@ -68,6 +68,24 @@ def test_limit_period_and_corners_3d():
         np.asarray(jgb.corners_nd(jnp.asarray(dims))))
 
 
+def test_limit_period_as_the_jitted_jax_package():
+    """Angles at and a few float32 steps around the odd multiples of pi/2,
+    where XLA's product with 1/pi (the JAX package's division by pi, a
+    constant, as compiled) wraps apart from an exact division, and random
+    ones, whose wrapped value XLA's fused multiply-add moves by an ulp: the
+    port gives the jitted JAX package's bits."""
+    import jax
+
+    r = np.random.RandomState(1)
+    base = ((np.arange(-6, 7) + 0.5) * np.pi).astype(np.float32)
+    ang = np.concatenate([base + d * np.spacing(base) for d in range(-3, 4)]
+                         + [r.uniform(-10, 10, 2000)]).astype(np.float32)
+    want = np.asarray(jax.jit(jgb.limit_period)(jnp.asarray(ang)))
+    assert (want != np.asarray(jgb.limit_period(jnp.asarray(ang)))).any()
+    np.testing.assert_array_equal(
+        tgb.limit_period(torch.from_numpy(ang)).numpy(), want)
+
+
 def test_box_lidar_to_camera():
     r = np.random.RandomState(1)
     boxes = r.randn(2, 30, 7).astype(np.float32)

@@ -250,3 +250,73 @@ def test_non_finite_features_where_jax_puts_them(max_voxels):
         np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
         np.testing.assert_array_equal(np.isinf(g), np.isinf(w), err_msg=name)
         np.testing.assert_allclose(g, w, atol=MEAN_ATOL, err_msg=name)
+
+
+def _boundary_cloud(vcfg, nf, n, seed):
+    """[1, n, nf] points whose coordinates sit on cell boundaries (the
+    range's corner plus whole voxel sizes, in float32) or one or two float32
+    steps beside them: where the exact quotient by the voxel size and the
+    product with its reciprocal can fall on two sides of an integer."""
+    r = np.random.RandomState(seed)
+    vs = np.asarray(vcfg.voxel_size, np.float32)
+    pcr = np.asarray(vcfg.point_cloud_range, np.float32)
+    k = r.randint(0, np.asarray(vcfg.grid_size), (n, 3)).astype(np.float32)
+    p = (pcr[:3] + k * vs).astype(np.float32)
+    for _ in range(2):
+        step = r.randint(-1, 2, (n, 3))
+        p = np.where(step > 0, np.nextafter(p, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(p, np.float32(-np.inf)),
+                              p))
+    # no subnormal coordinate: XLA on the CPU flushes them to zero
+    p = np.where(np.abs(p) < np.finfo(np.float32).tiny, np.float32(0), p)
+    q = p - pcr[:3]
+    assert (np.floor(q / vs) != np.floor(q * (np.float32(1) / vs))).any()
+    pts = np.zeros((1, n, nf), np.float32)
+    pts[0, :, :3] = p
+    pts[0, :, 3:] = r.uniform(0, 1, (n, nf - 3))
+    return pts
+
+
+@pytest.mark.parametrize("config", ["kitti_3class.yaml", "default"])
+def test_cells_on_boundaries_as_the_jitted_jax_package(config):
+    """The JAX package divides by the voxel size, a constant, which XLA
+    folds into a product with its reciprocal: a point on a cell boundary
+    can land in the cell below. Both voxelizers of the port follow the
+    jitted JAX package (a point of a kitti3 val cloud at y = -2.0800002 fell
+    one cell apart and moved its top car's score by 2.7e-4)."""
+    import pathlib
+
+    from pillars_torch.ops.voxelize import make_cell_voxelizer
+    from pillars_tpu.ops.voxelize import (
+        make_cell_voxelizer as jax_cell_voxelizer)
+
+    yaml = (pathlib.Path(__file__).resolve().parent.parent / "configs"
+            / config)
+    tcfg, jcfg = ((TorchConfig.default(), JaxConfig.default())
+                  if config == "default" else
+                  (TorchConfig.from_yaml(str(yaml)),
+                   JaxConfig.from_yaml(str(yaml))))
+    tv, jv = tcfg.model.voxel, jcfg.model.voxel
+    nf = tcfg.model.num_point_features
+    # a pad of at least max_voxels points, as the JAX package's needs
+    pts = np.zeros((1, 16384, nf), np.float32)
+    pts[:, :3000] = _boundary_cloud(tv, nf, 3000, seed=5)
+    num = np.array([3000], np.int32)
+    if config == "default":
+        want = jax.device_get(jax.jit(jax_cell_voxelizer(jv))(
+            jnp.asarray(pts), jnp.asarray(num)))
+        got = make_cell_voxelizer(tv)(torch.from_numpy(pts),
+                                      torch.from_numpy(num))
+        names = ("points", "cell", "kept", "count", "num_pillars")
+    else:
+        kw = _kwargs(jv, jv.max_voxels)
+        want = jax.device_get(jax.jit(lambda p, n: jax_voxelize(
+            p, n, **kw))(jnp.asarray(pts[0]), jnp.int32(num[0])))
+        want = type(want)(*(np.asarray(f)[None] for f in want))
+        got = torch_voxelize(torch.from_numpy(pts), torch.from_numpy(num),
+                             **_kwargs(tv, tv.max_voxels))
+        names = EXACT
+    for name in names:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
