@@ -1,6 +1,7 @@
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
     python3 chip_smoke.py [--train-clouds N]
+    python3 chip_smoke.py --ranks N     # phase 21 alone, on N cards
 
 Phases, none of whose failures is caught:
 1. build every CUDA kernel of the port from ``pillars_torch/csrc`` (one
@@ -149,7 +150,25 @@ Phases, none of whose failures is caught:
    1e-5, locations 1e-4), each rank's NMS and fused-chain launches counted
    around its run and equal to the batches it ran; times and launches of
    the two-rank runs are those of two ranks sharing one card, not a
-   speed-up;
+   speed-up. The mesh paths captured (the counterpart of ``jax.jit`` over
+   a ``Mesh``): in the NCCL rank, under cuDNN's deterministic algorithms,
+   for the ``data``, the one-band ``spatial`` and the 2-D mesh,
+   ``make_train_step`` returns a ``CapturedTrainStep`` whose first call
+   and two replays equal eager steps from the same state bit for bit
+   (metrics, new parameters, BN statistics, Adam moments), then a step
+   captured under cuDNN's default algorithms (a graph keeps the algorithms
+   of its capture) and eager in turns (ms by CUDA events, host wall,
+   graph and kernel
+   launches, device ms, idle share, the NCCL kernels and device-to-device
+   copies per step, graph pool MiB); one-band spatial inference on the
+   point-major path through ``make_inference_fn`` at B=1 and B=2, a
+   ``CapturedInference`` held to its eager function as phase 18 holds it
+   (max |diff| 0), and in turns at B=1. In the gloo ranks the step stays
+   eager (``make_train_step`` returns the eager step: its body holds gloo
+   collectives), and the distributed ``Evaluator`` replays per-rank graphs
+   (its inference holds no collective), its detections and launches held
+   as above, its seconds for the first run (captures included) and for a
+   second, replayed, beside the same ``Evaluator`` run eagerly;
 18. the captured inference (pillars_torch/cuda_graph.py) against the eager
    function it captures, on the card: the dense-cell and fast paths at B=1
    and B=2 in float32 and bfloat16, both rungs of the default bucket ladder
@@ -220,6 +239,20 @@ Phases, none of whose failures is caught:
    the rate equal to the schedule's, the mean loss below ``K3_LOSS_GATE``,
    the eval's NMS launches equal to its batches, the aggregate AP above
    ``K3_AP_FLOOR``.
+
+21. only with ``--ranks N`` (and then alone): the captured mesh paths over
+   N NCCL ranks, one per card, from ``weights_59.pkl`` on the regenerated
+   hard split, two clouds per data rank: the checks of phase 17's NCCL
+   rank over a data mesh of N, a spatial mesh of N bands and 2 x N/2
+   (replays bit-equal to eager, one graph launch per captured step with
+   NCCL kernels inside it, the band's inference captured equal to eager,
+   and the parameters after the steps equal on every rank), then a
+   ``Trainer`` from ``weights_59.pkl`` over the N ranks for one epoch of
+   ``P21_TRAIN_CLOUDS`` clouds per rank, its step captured and
+   its distributed ``Evaluator`` replaying per-rank graphs between the
+   eager collectives: losses finite, variables equal on every rank, each
+   rank's NMS launches equal to the batches it ran, and the detections
+   equal to a single-rank card ``Evaluator``'s on the same variables.
 
 Every inference phase runs what ``make_inference_fn`` returns on the card,
 a captured CUDA graph per input shape: the launch counts read around a
@@ -600,7 +633,7 @@ def _check_outputs(cfg, on_card, outs):
                 raise AssertionError("non-finite predictions")
 
 
-def _warm_ms(fn, state, p, n, eye, label):
+def _warm_ms(fn, state, p, n, eye, label, group=None):
     from pillars_torch.utils.profiling import cuda_ms, device_busy
 
     ms = cuda_ms(lambda: fn(state, p, n, eye, eye), 50)
@@ -612,7 +645,7 @@ def _warm_ms(fn, state, p, n, eye, label):
     print(f"{label} B=1: {ms:.3f} ms/cloud (CUDA events, warm), "
           f"{wall_ms:.3f} ms/cloud host wall")
     prof_wall, device, rows, graphs = device_busy(
-        lambda: fn(state, p, n, eye, eye), 20, "nms_keep_mask_kernel")
+        lambda: fn(state, p, n, eye, eye), 20, "nms_keep_mask_kernel", group)
     launches = sum(c for _, c, _ in rows)
     print(f"{label} B=1: {graphs:g} graph launches, {launches:g} kernel "
           f"launches and {device:.4f} ms of device time per cloud, idle "
@@ -1265,12 +1298,14 @@ def _train_steps(cfg, state_cpu, host=None):
     return step, step.eager, state
 
 
-def _time_train_step(fn, state, on_card, captured):
-    """ms per step (CUDA events over 20 warm steps), host wall ms per step,
-    kernel and graph launches, device ms and idle share per step
-    (torch.profiler) of the train step ``fn`` threaded from ``state`` on
-    the batch ``on_card``; for a captured step also the seconds of its
-    first call and capture and the graph pool's MiB."""
+def _time_train_step(fn, state, on_card, captured, iters=20, prof_iters=5,
+                     group=None):
+    """ms per step (CUDA events over ``iters`` warm steps), host wall ms per
+    step, kernel and graph launches, device ms and idle share per step
+    (torch.profiler over ``prof_iters``) of the train step ``fn`` threaded
+    from ``state`` on the batch ``on_card``; for a captured step also the
+    seconds of its first call and capture and the graph pool's MiB.
+    ``group``: the ranks that take the same steps (``device_busy``)."""
     from pillars_torch.cuda_graph import pool_mib
     from pillars_torch.utils.profiling import cuda_ms, device_busy
 
@@ -1281,19 +1316,24 @@ def _time_train_step(fn, state, on_card, captured):
 
     for _ in range(3):
         one()
-    ms = cuda_ms(one, 20)
+    ms = cuda_ms(one, iters)
     t0 = time.perf_counter()
-    for _ in range(20):
+    for _ in range(iters):
         one()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 20
-    prof_wall, device_ms, rows, graphs = device_busy(one, 5)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    prof_wall, device_ms, rows, graphs = device_busy(one, prof_iters,
+                                                     group=group)
     out = {"variant": "captured" if captured else "eager",
            "ms_per_step": ms, "host_wall_ms_per_step": wall_ms,
            "launches_per_step": sum(c for _, c, _ in rows),
            "graph_launches_per_step": graphs,
            "device_ms_per_step": device_ms,
-           "idle_share": 1 - device_ms / prof_wall}
+           "idle_share": 1 - device_ms / prof_wall,
+           "nccl_kernels_per_step": sum(c for k, c, _ in rows
+                                        if "nccl" in k.lower()),
+           "dtod_copies_per_step": sum(c for k, c, _ in rows
+                                       if "DtoD" in k)}
     if captured:
         out["capture_s"] = [g.seconds for g in fn.graphs.values()]
         out["pool_mib"] = pool_mib()
@@ -2341,7 +2381,8 @@ def _p17_cfgs(root, tmp, world):
 
 
 def _p17_times(det, state, opt, on_card, group):
-    """Host wall ms per train step and per flat gradient all-reduce (each
+    """Of the eager step (and whether ``make_train_step`` captured): host
+    wall ms per train step and per flat gradient all-reduce (each
     over 5 calls, synchronized), launches and device ms per step
     (torch.profiler), and the collectives' own cost in 3 steps: before each
     ``torch.distributed`` collective the card is synchronized and the ranks
@@ -2354,7 +2395,8 @@ def _p17_times(det, state, opt, on_card, group):
     from pillars_torch.train.loop import make_train_step
     from pillars_torch.utils.profiling import device_busy
 
-    step = make_train_step(det, opt)
+    made = make_train_step(det, opt)
+    step = made.eager
 
     def wall(fn, n=5):
         fn()
@@ -2413,7 +2455,8 @@ def _p17_times(det, state, opt, on_card, group):
             "window_ms_per_step": window * 1e3 / 3,
             "wait_ms_per_step": spent["wait"] * 1e3 / 3,
             "overlaps": spent["overlaps"],
-            "collective_share": spent["s"] / window}
+            "collective_share": spent["s"] / window,
+            "captured": made is not step}
 
 
 def _p17_rank(rank, device, spec_file):
@@ -2470,21 +2513,175 @@ def _p17_rank(rank, device, spec_file):
                           "num_positives": int(fb.num_positives),
                           **_p17_times(det, state, opt, on_card,
                                        mesh.group())}
+    if "captured" in spec["parts"]:
+        out["captured"] = _p17_captured(
+            cfg, state_cpu, {name: spec["batches"] for name, _ in P17_MESHES},
+            device)
     if "eval" in spec["parts"]:
+        from pillars_torch.cuda_graph import CapturedInference
+
         det = PillarsDetector(ecfg, device=device)
         ev = Evaluator(ecfg, det)
+        if not isinstance(ev.infer, CapturedInference):
+            raise AssertionError("the distributed Evaluator does not replay "
+                                 "graphs")
         state = det.state_to_device(state_cpu)
         _reset_counts()
         t0 = time.perf_counter()
         annos, _ = ev.run(state, progress=False)
         torch.cuda.synchronize()
         out["eval"] = {"annos": annos, "launches": _read_counts(),
-                       "s": time.perf_counter() - t0}
+                       "s": time.perf_counter() - t0,
+                       "graphs": len(ev.infer.graphs)}
+        t0 = time.perf_counter()  # again, every shape's graph captured
+        out["eval"]["annos_replayed"], _ = ev.run(state, progress=False)
+        torch.cuda.synchronize()
+        out["eval"]["s_replayed"] = time.perf_counter() - t0
+        ev.infer = ev.infer.eager  # the same run op by op, warm
+        t0 = time.perf_counter()
+        out["eval"]["annos_eager"], _ = ev.run(state, progress=False)
+        torch.cuda.synchronize()
+        out["eval"]["s_eager"] = time.perf_counter() - t0
     torch.save(out, os.path.join(os.path.dirname(spec_file),
                                  f"rank{rank}.pt"))
 
 
-def _p17_spawn(tmp, name, world, backend, spec):
+P17_MESHES = (("data", (("data", 1),)), ("spatial", (("spatial", 1),)),
+              ("2d", (("data", 1), ("spatial", 1))))
+
+
+def _digest(tensors):
+    """sha256 of a dict of tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _p17_captured(cfg, state_cpu, batches, device, meshes=P17_MESHES,
+                  timed=True):
+    """The mesh paths captured over the NCCL ranks of the process group (at
+    one rank every axis group is the world, so every collective of the body
+    runs, though NCCL runs no kernel for an in-place sum of one rank): for
+    each (name, shape) of ``meshes``, under cuDNN's deterministic
+    algorithms, the train step of ``make_train_step``, its first call and
+    replays against the eager step from the same state, bit for bit, on the
+    global batches ``batches[name]`` (this rank's block taken here), and
+    the sha256 of the parameters after them; with ``timed``, a step
+    captured under cuDNN's defaults and eager in turns (one graph launch
+    per captured step, and over several ranks NCCL kernels inside it). Then
+    a band on every rank: inference on the point-major path through
+    ``make_inference_fn`` at B=1 and B=2 against its eager function (max
+    |diff| 0), and with ``timed`` in turns at B=1."""
+    import torch.distributed as dist
+
+    from pillars_torch.cuda_graph import CapturedInference
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.parallel.mesh import Mesh, shard_batch
+    from pillars_torch.train.loop import (CapturedTrainStep, batch_to_device,
+                                          make_train_step)
+
+    world, group = dist.get_world_size(), dist.group.WORLD
+    out = {}
+    for name, shape in meshes:
+        t0 = time.perf_counter()
+        label = f"NCCL-{world} {name} mesh"
+        c = (cfg if name == "data"
+             else cfg.override("runtime.spatial_axis", "spatial"))
+        mesh = Mesh(list(shape))
+        det = PillarsDetector(c, device=device, mesh=mesh)
+        state, opt = _train_state(det, state_cpu)
+        step = make_train_step(det, opt)
+        if not isinstance(step, CapturedTrainStep):
+            raise AssertionError(f"{label}: make_train_step did not capture")
+        on_card = [batch_to_device(shard_batch(b, mesh), device)
+                   for b in batches[name]]
+        worst, bitwise, last = _replays_against_eager(
+            label, step, _clone_state(state), on_card,
+            float(opt.schedule(0)))
+        if not bitwise:
+            raise AssertionError(f"{label}: replays differ from eager steps:"
+                                 f" {worst}")
+        out[name] = {"steps": len(on_card),
+                     "batch": len(batches[name][0]["points"]),
+                     "params_sha": _digest(last.params)}
+        if timed:
+            # timed with cuDNN's default algorithms, as users train: a step
+            # captured under them (a graph keeps the algorithms of its
+            # capture)
+            torch.backends.cudnn.deterministic = False
+            try:
+                timed_step = make_train_step(det, opt)
+                turns = [_time_train_step(
+                    timed_step if v == "captured" else timed_step.eager,
+                    _clone_state(state), on_card[0], v == "captured",
+                    iters=10, prof_iters=3, group=group)
+                         for v in ("eager", "captured", "captured", "eager")]
+            finally:
+                torch.backends.cudnn.deterministic = True
+            for t in turns:
+                if t["variant"] != "captured":
+                    continue
+                if t["graph_launches_per_step"] != 1:
+                    raise AssertionError(f"{label}: "
+                                         f"{t['graph_launches_per_step']} "
+                                         f"graph launches per captured step")
+                if world > 1 and not t["nccl_kernels_per_step"] > 0:
+                    raise AssertionError(f"{label}: no NCCL kernel in the "
+                                         f"captured step's graph")
+            out[name]["turns"] = turns
+        out[name]["s"] = time.perf_counter() - t0
+
+    icfg = (cfg.override("model.pfn.dense_cell", False)
+            .override("runtime.spatial_axis", "spatial"))
+    det = PillarsDetector(icfg, device=device,
+                          mesh=Mesh([("spatial", world)]))
+    state = det.state_to_device(state_cpu)
+    per_call = {"nms_keep_mask": 1, "rpn_sep_block": 0,
+                "rpn_sep_block_bf16": 0}
+    infer = {"max_abs_diff": {}, "launches_per_replay": {}}
+    t0 = time.perf_counter()
+    for b in (1, 2):
+        label = f"{world}-band spatial inference B={b}"
+        pts, num = _clouds(icfg.model.voxel.max_points, b, 2)
+        eye = torch.eye(4, device=device).expand(b, 4, 4).contiguous()
+        inputs = [(torch.from_numpy(pts[i]).to(device),
+                   torch.from_numpy(num).to(device), eye, eye)
+                  for i in range(2)]
+        fn, worst = _replay_path(label, det, state, inputs, per_call)
+        if not isinstance(fn, CapturedInference):
+            raise AssertionError(f"{label} over NCCL: make_inference_fn did "
+                                 f"not capture")
+        if worst != 0:
+            raise AssertionError(f"{label}: replay against eager max |diff| "
+                                 f"{worst}")
+        _reset_counts()
+        fn(state, *inputs[0])
+        torch.cuda.synchronize()
+        infer["launches_per_replay"][f"B{b}"] = _read_counts()
+        infer["max_abs_diff"][f"B{b}"] = worst
+        if b == 1 and timed:  # as the steps are, under cuDNN's defaults
+            p, n = inputs[0][:2]
+            torch.backends.cudnn.deterministic = False
+            try:
+                timed_fn = det.make_inference_fn()
+                infer["turns"] = [
+                    (v, _warm_ms(timed_fn if v == "captured"
+                                 else timed_fn.eager, state, p, n, eye,
+                                 f"{world}-band spatial {v}", group))
+                    for v in ("eager", "captured", "eager", "captured")]
+            finally:
+                torch.backends.cudnn.deterministic = True
+    infer["s"] = time.perf_counter() - t0
+    out["spatial_inference"] = infer
+    return out
+
+
+def _p17_spawn(tmp, name, world, backend, spec, fn=None):
+    """Runs ``fn`` (``_p17_rank``) in ``world`` ranks on the card over
+    ``spec``; returns what each rank saved and the seconds."""
     import pickle
 
     from pillars_torch.parallel.launch import spawn
@@ -2495,7 +2692,8 @@ def _p17_spawn(tmp, name, world, backend, spec):
     with open(path, "wb") as f:
         pickle.dump({**spec, "world": world}, f)
     t0 = time.perf_counter()
-    spawn(_p17_rank, world, args=(path,), device="cuda", backend=backend)
+    spawn(fn or _p17_rank, world, args=(path,), device="cuda",
+          backend=backend)
     seconds = time.perf_counter() - t0
     return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
             for r in range(world)], seconds
@@ -2534,6 +2732,52 @@ def _p17_annos_close(got, want, label):
     return n
 
 
+def _p17_captured_lines(cap, smi, meshes=P17_MESHES, world=1):
+    """Prints the captured mesh paths of rank 0 of ``world`` NCCL ranks;
+    returns the kernels' launches on the captured spatial inference."""
+    ranks = ("one NCCL rank" if world == 1
+             else f"{world} NCCL ranks, one per card")
+    for name, shape in meshes:
+        m = cap[name]
+        turns = m["turns"]
+        line = "; ".join(
+            f"{t['variant']} {t['ms_per_step']:.3f} ms (events) / "
+            f"{t['host_wall_ms_per_step']:.3f} ms host wall, "
+            f"{t['graph_launches_per_step']:g} graph and "
+            f"{t['launches_per_step']:g} kernel launches, "
+            f"{t['device_ms_per_step']:.3f} ms device, idle "
+            f"{t['idle_share']:.3f}, NCCL kernels "
+            f"{t['nccl_kernels_per_step']:g} and device-to-device copies "
+            f"{t['dtod_copies_per_step']:g}" for t in turns)
+        cap_t = [t for t in turns if t["variant"] == "captured"]
+        print(f"captured mesh step, {ranks}, {name} mesh {dict(shape)}, "
+              f"global B={m['batch']} full width from weights_59.pkl, cuDNN "
+              f"deterministic: make_train_step gave a CapturedTrainStep; its "
+              f"first call and {m['steps'] - 1} replays bit-equal to eager "
+              f"steps from the same state (metrics, parameters, BN "
+              f"statistics, Adam moments); rank 0 in turns with cuDNN's "
+              f"default algorithms: {line}; capture {cap_t[0]['capture_s']} "
+              f"s, graph pool {cap_t[-1]['pool_mib']:.1f} MiB; "
+              f"{m['s']:.1f} s [{smi}]")
+    inf = cap["spatial_inference"]
+    ms = {v: [t["ms"] for w, t in inf["turns"] if w == v]
+          for v in ("eager", "captured")}
+    wall = {v: [t["host_wall_ms"] for w, t in inf["turns"] if w == v]
+            for v in ("eager", "captured")}
+    print(f"captured {world}-band spatial inference, {ranks}, point-major "
+          f"from weights_59.pkl: make_inference_fn gave a CapturedInference; "
+          f"B=1 and B=2 replays against eager valid/labels equal, max |diff|"
+          f" {inf['max_abs_diff']}; heads likewise; launches per replay "
+          f"{inf['launches_per_replay']}; rank 0 at B=1 in turns with "
+          f"cuDNN's default algorithms, ms/cloud (events) eager "
+          f"{ms['eager']}, captured {ms['captured']}; host wall eager "
+          f"{wall['eager']}, captured {wall['captured']}; {inf['s']:.1f} s "
+          f"[{smi}]")
+    return {f"parallel_spatial_nccl{world}": {
+        k: sum(c[k] for c in inf["launches_per_replay"].values())
+        for k in ("nms_keep_mask", "rpn_sep_block", "rpn_sep_block_bf16")}}
+
+
 def _p17_line(t):
     return (f"{t['step_ms']:.3f} ms per step (host wall, synchronized), "
             f"{t['launches_per_step']:g} launches and "
@@ -2569,8 +2813,9 @@ def _run_parallel(state_cpu, smi, root, t17):
     tmp = tempfile.mkdtemp(prefix="p17_", dir=root)
     cfg, ecfg = _p17_cfgs(root, tmp, 1)
     thr = cfg.train_input.anchor_area_threshold
-    batch = _train_batches(cfg, 1)[0]
-    spec = {"root": root, "batch": batch}
+    batches = _train_batches(cfg, 3)
+    batch = batches[0]
+    spec = {"root": root, "batch": batch, "batches": batches}
     # the plain single-rank references on the card
     det = PillarsDetector(cfg)
     state, _ = _train_state(det, state_cpu)
@@ -2587,18 +2832,25 @@ def _run_parallel(state_cpu, smi, root, t17):
     single, _ = Evaluator(ecfg, edet).run(edet.state_to_device(state_cpu),
                                           progress=False)
 
-    (r,), s1 = _p17_spawn(tmp, "nccl1", 1, "nccl", {**spec, "parts": ["dp"]})
+    (r,), s1 = _p17_spawn(tmp, "nccl1", 1, "nccl",
+                          {**spec, "parts": ["dp", "captured"]})
     errs = _p17_loss_grads(r["dp"], fb, DP_LOSS_RTOL, NCCL1_GRAD_TOL,
                            "NCCL world 1")
+    if not r["dp"]["captured"]:
+        raise AssertionError("NCCL world 1: make_train_step did not capture")
     print(f"parallel, one NCCL rank (world size 1), B=2 full width from "
           f"weights_59.pkl: loss parts {errs[0]:.3e} relative (tol "
           f"{DP_LOSS_RTOL}), gradients {errs[1]:.3e} of their max (tol "
-          f"{NCCL1_GRAD_TOL}) against the plain card step; "
+          f"{NCCL1_GRAD_TOL}) against the plain card step; the eager step: "
           f"{_p17_line(r['dp'])}; {s1:.1f} s with the rank's start [{smi}]")
+    launches = _p17_captured_lines(r["captured"], smi)
 
     ranks, s2 = _p17_spawn(tmp, "gloo2", 2, "gloo",
                            {**spec, "parts": ["dp", "spatial", "eval"]})
     for i, r in enumerate(ranks):
+        if r["dp"]["captured"] or r["spatial"]["captured"]:
+            raise AssertionError(f"gloo rank {i}: make_train_step captured a "
+                                 f"body with gloo collectives")
         errs = _p17_loss_grads(r["dp"], fb, DP_LOSS_RTOL, DP_GRAD_TOL,
                                f"data-parallel rank {i}")
         stat_err = max(_max_rel(r["dp"]["stats"][k], v.cpu())
@@ -2633,10 +2885,13 @@ def _run_parallel(state_cpu, smi, root, t17):
               f"card run; {_p17_line(sp)}")
     n_batches = -(-P17_CLOUDS // P17_EVAL_BATCH)
     split = P17_CLOUDS // P17_EVAL_BATCH  # full batches, split
-    launches = {}
     for i, r in enumerate(ranks):
         n_det = _p17_annos_close(r["eval"]["annos"], single,
                                  f"distributed Evaluator rank {i}")
+        _p17_annos_close(r["eval"]["annos_replayed"], single,
+                         f"distributed Evaluator rank {i}, replayed")
+        _p17_annos_close(r["eval"]["annos_eager"], single,
+                         f"distributed Evaluator rank {i}, eager")
         want = split + (n_batches - split if i == 0 else 0)
         got = r["eval"]["launches"]
         if (got["nms_keep_mask"] != want or got["rpn_sep_block"] != want
@@ -2649,13 +2904,212 @@ def _run_parallel(state_cpu, smi, root, t17):
               f"clouds at batch {P17_EVAL_BATCH} ({split} batches split, the "
               f"remainder on rank 0), {n_det} detections equal to the "
               f"single-rank card Evaluator's; kernel launches {got} for the "
-              f"{want} batches this rank ran; {r['eval']['s']:.2f} s")
+              f"{want} batches this rank ran, replayed from "
+              f"{r['eval']['graphs']} captured graph(s) (the first call at a "
+              f"shape runs eagerly); {r['eval']['s']:.2f} s for the first "
+              f"run (its captures included), {r['eval']['s_replayed']:.2f} s "
+              f"for it again replayed, {r['eval']['s_eager']:.2f} s for the "
+              f"same run eagerly after them [{smi}]")
     print(f"phase 17 (parallel): {time.perf_counter() - t17:.1f} s, the "
           f"two-rank spawn {s2:.1f} s [{smi}]")
     shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phase 21 (``--ranks N``, N cards): the captured mesh paths over N NCCL
+# ranks, one per card
+
+P21_TRAIN_CLOUDS = 16  # train clouds per rank: 8 steps of 2 per rank
+P21_EVAL_CLOUDS = 18   # eval batches of one cloud per rank, a remainder
+
+
+def _p21_meshes(world):
+    """Every rank on the data axis, every rank a band, and 2 x world/2 (at
+    an odd world 1 x world)."""
+    d = 2 if world % 2 == 0 else 1
+    return (("data", (("data", world),)), ("spatial", (("spatial", world),)),
+            ("2d", (("data", d), ("spatial", world // d))))
+
+
+def _p21_cfg(root, world):
+    """The Trainer's config of phase 21: ``P21_TRAIN_CLOUDS`` train clouds
+    per rank at two per rank and step, its Evaluator over the first
+    ``P21_EVAL_CLOUDS`` val clouds at one per rank and batch."""
+    import pickle
+
+    with open(f"{root}/kitti_infos_val.pkl", "rb") as f:
+        infos = pickle.load(f)
+    val = os.path.join(root, "kitti_infos_val_p21.pkl")
+    with open(val, "wb") as f:
+        pickle.dump(infos[:P21_EVAL_CLOUDS], f, 2)
+    cfg = _train_cfg(root, os.path.join(root, "runs_p21"),
+                     P21_TRAIN_CLOUDS * world)
+    for key, value in (("train_input.batch_size", 2 * world),
+                       ("runtime.num_devices", world),
+                       ("eval_input.info_path", val),
+                       ("eval_input.batch_size", world)):
+        cfg = cfg.override(key, value)
+    return cfg
+
+
+def _p21_trainer(cfg, state_cpu, device):
+    """One epoch of a ``Trainer`` over the NCCL ranks from ``state_cpu``
+    with its eval: the captured step (checked) between the Trainer's eager
+    collectives, and
+    the distributed ``Evaluator`` replaying its per-rank graphs (checked)
+    between its eager gathers and broadcasts. Returns the losses, the
+    epoch's and the eval's seconds, this rank's NMS launches in the eval,
+    the sha256 of the variables after the epoch, and on rank 0 the
+    variables and the results directory."""
+    from pillars_torch.cuda_graph import CapturedInference
+    from pillars_torch.train.loop import CapturedTrainStep
+    from pillars_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device=device)
+    trainer.state, _ = _train_state(trainer.detector, state_cpu)
+    inner_step, inner_eval = trainer.step_fn, trainer.evaluator.evaluate
+    if not isinstance(inner_step, CapturedTrainStep):
+        raise AssertionError("the NCCL Trainer's step is not captured")
+    if not isinstance(trainer.evaluator.infer, CapturedInference):
+        raise AssertionError("the NCCL Trainer's Evaluator does not replay "
+                             "graphs")
+    losses, evals = [], []
+
+    def step_fn(state, batch):
+        state, metrics = inner_step(state, batch)
+        losses.append(metrics.loss)
+        return state, metrics
+
+    def evaluate(*args, **kwargs):
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = inner_eval(*args, **kwargs)
+        torch.cuda.synchronize()
+        evals.append((_read_counts(), time.perf_counter() - t0, out[4]))
+        return out
+
+    trainer.step_fn, trainer.evaluator.evaluate = step_fn, evaluate
+    t0 = time.perf_counter()
+    trainer.train(epochs=1)
+    torch.cuda.synchronize()
+    (launches, eval_s, score), = evals
+    variables = {k: v.detach().cpu() for k, v in trainer.variables().items()}
+    return {"losses": [float(t) for t in losses],
+            "seconds": time.perf_counter() - t0 - eval_s,
+            "eval_s": eval_s, "launches": launches, "score": score,
+            "graphs": len(inner_step.graphs),
+            "variables_sha": _digest(variables),
+            **({"variables": variables, "results": trainer.dirs["results"]}
+               if trainer.is_main else {})}
+
+
+def _p21_rank(rank, device, spec_file):
+    """One of phase 21's NCCL ranks (module level: the spawned children
+    import this script); rank 0 alone prints."""
+    import pickle
+
+    from pillars_torch.config import Config
+    from pillars_torch.weights import from_jax_variables, load_params
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cudnn.deterministic = True
+    with open(spec_file, "rb") as f:
+        spec = pickle.load(f)
+    cfg = _with_split(Config.default(), spec["root"])
+    state_cpu = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
+    out = {"captured": _p17_captured(cfg, state_cpu, spec["batches"], device,
+                                     _p21_meshes(spec["world"]))}
+    torch.backends.cudnn.deterministic = False  # as users train
+    out["trainer"] = _p21_trainer(spec["tcfg"], state_cpu, device)
+    torch.save(out, os.path.join(os.path.dirname(spec_file),
+                                 f"rank{rank}.pt"))
+
+
+def run_mesh_ranks(world, smi):
+    """Phase 21 over ``world`` NCCL ranks, one per card: the captured mesh
+    paths of ``_p17_captured`` over the meshes of ``_p21_meshes`` (two
+    clouds per data rank), their parameters equal on every rank, and a
+    ``Trainer`` epoch with its distributed ``Evaluator``, whose detections
+    must equal a single-rank card ``Evaluator``'s on the same variables."""
+    import pickle
+
+    from pillars_torch.config import Config
+    from pillars_torch.models.detector import PillarsDetector
+    from pillars_torch.train.trainer import Evaluator
+
+    t21 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hard_data_")
+    try:
+        make_hard_split(root)
+        cfg = _with_split(Config.default(), root)
+        meshes = _p21_meshes(world)
+        batches = {name: _train_batches(cfg, 3, 2 * dict(shape).get("data", 1))
+                   for name, shape in meshes}
+        tcfg = _p21_cfg(root, world)
+        ranks, seconds = _p17_spawn(
+            root, "nccl", world, "nccl",
+            {"root": root, "batches": batches, "tcfg": tcfg}, _p21_rank)
+        print(f"phase 21: {world} NCCL ranks spawned and run in "
+              f"{seconds:.1f} s [{smi}]")
+        for name, _ in meshes:
+            shas = {r["captured"][name]["params_sha"] for r in ranks}
+            if len(shas) != 1:
+                raise AssertionError(f"{name} mesh: the ranks' parameters "
+                                     f"differ after the captured steps")
+        _p17_captured_lines(ranks[0]["captured"], smi, meshes, world)
+
+        tr = [r["trainer"] for r in ranks]
+        steps = P21_TRAIN_CLOUDS // 2
+        for i, t in enumerate(tr):
+            if len(t["losses"]) != steps or not np.isfinite(t["losses"]).all():
+                raise AssertionError(f"Trainer rank {i}: losses {t['losses']}")
+            if t["graphs"] != 1:
+                raise AssertionError(f"Trainer rank {i}: {t['graphs']} "
+                                     f"captured step graphs")
+        if len({t["variables_sha"] for t in tr}) != 1:
+            raise AssertionError("the Trainer's variables differ between "
+                                 "the ranks after the epoch")
+        split = P21_EVAL_CLOUDS // world
+        rest = -(-(P21_EVAL_CLOUDS - split * world) // world)
+        for i, t in enumerate(tr):
+            want = split + (rest if i == 0 else 0)
+            if (t["launches"]["nms_keep_mask"] != want
+                    or t["launches"]["rpn_sep_block"]):
+                raise AssertionError(f"Trainer eval rank {i}: launches "
+                                     f"{t['launches']}, {want} batches ran "
+                                     f"there")
+        with open(os.path.join(tr[0]["results"], "result_0.pkl"), "rb") as f:
+            annos = pickle.load(f)
+        ecfg = tcfg.override("runtime.num_devices", 1)
+        det = PillarsDetector(ecfg)
+        single, _ = Evaluator(ecfg, det).run(
+            det.state_to_device(tr[0]["variables"]), progress=False)
+        n_det = _p17_annos_close(annos, single, "the NCCL Trainer's eval")
+        if not n_det:
+            raise AssertionError("the NCCL Trainer's eval: no detection to "
+                                 "compare")
+        print(f"Trainer over {world} NCCL ranks, one per card, from "
+              f"weights_59.pkl: epoch 0 on {P21_TRAIN_CLOUDS * world} "
+              f"hard train clouds, {steps} captured steps of global B="
+              f"{2 * world} in {tr[0]['seconds']:.2f} s on rank 0 "
+              f"({steps * 2 * world / tr[0]['seconds']:.1f} clouds/s, the "
+              f"first call and capture included), loss first "
+              f"{tr[0]['losses'][0]:.4f} last {tr[0]['losses'][-1]:.4f}; "
+              f"variables equal on every rank after it; its distributed "
+              f"Evaluator over {P21_EVAL_CLOUDS} val clouds at one cloud per "
+              f"rank ({split} batches split, the remainder on rank 0) in "
+              f"{tr[0]['eval_s']:.2f} s, NMS launches per rank "
+              f"{[t['launches']['nms_keep_mask'] for t in tr]} = the batches "
+              f"each ran, score {tr[0]['score']:.4f}, {n_det} detections "
+              f"equal to a single-rank card Evaluator's on the same "
+              f"variables [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 21 ({world} NCCL ranks): {time.perf_counter() - t21:.1f} s "
+          f"[{smi}]")
 
 # --------------------------------------------------------------------------
 # phase 18: the captured inference (pillars_torch/cuda_graph.py)
@@ -3765,6 +4219,9 @@ def main(argv=None):
     p.add_argument("--train-clouds", type=int, default=300,
                    help="train clouds of the Trainer phase (600: the "
                         "recipe's whole split, 300 steps per epoch)")
+    p.add_argument("--ranks", type=int,
+                   help="run only phase 21: the captured mesh paths over N "
+                        "NCCL ranks on N cards")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3783,6 +4240,12 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    if args.ranks:
+        run_mesh_ranks(args.ranks, smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from pillars_torch.config import Config
     from pillars_torch.weights import from_jax_variables, load_params

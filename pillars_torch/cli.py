@@ -15,7 +15,9 @@ asks for the CPU. ``bench`` is not ported yet and says so.
 ``train`` and ``evaluate`` with ``--set runtime.num_devices=N`` (N > 1)
 start N ranks (pillars_torch/parallel/launch.py): N NCCL ranks on N cards
 (fewer cards raise), or with ``--device cpu`` N gloo ranks on the CPU. Rank
-0 prints and writes; the others print nothing.
+0 prints and writes; the others print nothing. On the cards the train step
+replays a captured CUDA graph with its NCCL collectives inside, and the
+evaluation's per-rank inference its own graph; on the CPU both run eagerly.
 """
 
 from __future__ import annotations

@@ -42,6 +42,17 @@ train/bn_recal.py) and the profiled stages
   every replay adds that to the wrappers' counts; the capture itself adds
   nothing.
 
+- Collectives: a body may hold NCCL collectives (a train step over a mesh,
+  a spatial band's halo exchange), which the graph captures with the rest:
+  the process group's stream forks from the capturing stream and joins it
+  again within each collective. The eager first call creates the NCCL
+  communicators the body uses, so the capture makes none. Every rank calls
+  at the same shapes in the same order, so all capture at the same call and
+  replay their collectives in the same order; eager collectives may run on
+  the same communicators between replays. Which bodies are captured is
+  decided when the callable is built (``PillarsDetector.captures``): never
+  a body with a gloo collective, which copies through host memory.
+
 Nothing falls back: a capture or a replay that fails raises. Calls come from
 one thread at a time, on the stream that is current there.
 """

@@ -61,6 +61,7 @@ from pillars_torch.ops.scatter import scatter_to_canvas_batched
 from pillars_torch.ops.targets import TargetAssignment, assign_targets_batched
 from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
                                         make_point_voxelizer, make_voxelizer)
+from pillars_torch.parallel.collectives import graph_safe
 from pillars_torch.parallel.spatial import (gather_canvas, halo_exchange,
                                             shard_canvas)
 
@@ -345,10 +346,9 @@ class PillarsDetector:
         self.grad_scale = 1.0
         if mesh is not None:
             self._bind_mesh(mesh)
-        # the state copy that make_inference_fn's graphs read: on the card
-        # without a mesh (cuda_graph.py)
-        self.graph_state = (StaticState() if dev.type == "cuda"
-                            and mesh is None else None)
+        # the state copy that make_inference_fn's graphs read, where the
+        # inference body is captured (cuda_graph.py)
+        self.graph_state = StaticState() if self.captures(False) else None
 
     def _bind_mesh(self, mesh):
         rt = self.config.runtime
@@ -371,6 +371,19 @@ class PillarsDetector:
         # gradient (sum); the data ranks each a whole one (mean)
         self.grad_scale = (mesh.axis_size(self.spatial_axis) if banded
                            else 1) / mesh.size
+
+    def captures(self, train: bool) -> bool:
+        """The rule of the captured paths (``make_inference_fn``, and
+        ``make_train_step`` for ``train``), on the card: a body without a
+        collective (no mesh, or inference without a spatial band, since
+        eval-mode BNs reduce nothing) is captured whatever the backend; a
+        body with collectives only where a graph can hold them
+        (``parallel/collectives.py::graph_safe``: NCCL; every axis group
+        has the world's backend). The CPU runs every body eagerly."""
+        collectives = self.mesh is not None and (
+            train or self.network.spatial is not None)
+        return self.device.type == "cuda" and (
+            not collectives or graph_safe(self.mesh.group()))
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator, batch_size: int = 1
@@ -662,16 +675,19 @@ class PillarsDetector:
         """fn(state, points [B, MAXPTS, D], num_valid [B], rect [B, 4, 4],
         trv2c [B, 4, 4]) -> Predictions, on this detector's device.
 
-        On the card without a mesh, the counterpart of the JAX package's
-        ``jax.jit``: a :class:`pillars_torch.cuda_graph.CapturedInference`
-        that replays one captured CUDA graph per input shape, its inputs
-        arrays or tensors anywhere (a pinned host tensor is copied without
-        blocking the host; the caller then leaves it alone until the batch
-        is done). Elsewhere (the CPU, or a mesh, whose collectives a graph
-        cannot hold) the eager function, which runs the body op by op; a
-        tensor is copied to the card without blocking the host, an array
-        through a pageable, blocking copy. Either has the eager function as
-        its ``eager`` attribute (the eager one itself), which tests use to
+        On the card, the counterpart of the JAX package's ``jax.jit``: a
+        :class:`pillars_torch.cuda_graph.CapturedInference` that replays one
+        captured CUDA graph per input shape, its inputs arrays or tensors
+        anywhere (a pinned host tensor is copied without blocking the host;
+        the caller then leaves it alone until the batch is done). On a mesh
+        too (:meth:`captures`): a data-only mesh's body holds no collective,
+        and a spatial band's halo exchanges and heads' gather are captured
+        over NCCL. The CPU, and a band whose collectives run over gloo
+        (which copies through host memory, where a graph cannot follow),
+        get the eager function, which runs the body op by op; a tensor is
+        copied to the card without blocking the host, an array through a
+        pageable, blocking copy. Either has the eager function as its
+        ``eager`` attribute (the eager one itself), which tests use to
         compare the two."""
         thr = (self.config.eval_input.anchor_area_threshold
                if anchor_area_threshold is None else anchor_area_threshold)

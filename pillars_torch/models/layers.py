@@ -238,7 +238,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self._moments(
                 xf.sum(dim=axes), (xf * xf).sum(dim=axes),
-                xf.new_tensor(float(x.numel() // x.shape[1])))
+                torch.full((), float(x.numel() // x.shape[1]),
+                           dtype=xf.dtype, device=xf.device))
         self._record(mean, var)
         shape = [1, -1] + [1] * (x.ndim - 2)
         inv = torch.rsqrt(var + self.eps)

@@ -22,6 +22,16 @@ device). Gloo takes CUDA tensors for every collective used here
 (all_reduce, all_gather, broadcast, broadcast_object_list: checked on an
 H100 with torch 2.11), copying them through host memory itself, so every
 route here is the same call on every backend.
+
+CUDA graphs (pillars_torch/cuda_graph.py). An NCCL collective is a kernel
+(or a device copy) on the process group's stream, joined to the caller's
+stream by events, and a graph captures it; a gloo collective copies through
+host memory, which a graph cannot hold. :func:`graph_safe` says which
+bodies may be captured. The differentiable collectives above make no host
+sync and build no tensor from host data: their host values (the group's
+size and this rank's index in it) are fixed for the group, and the output
+lists of their all-gathers come from the caller's allocator (the graph's
+pool during a capture).
 """
 
 from __future__ import annotations
@@ -30,6 +40,12 @@ from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+def graph_safe(group) -> bool:
+    """Whether a CUDA graph can hold a collective over ``group``: an NCCL
+    group's, not gloo's."""
+    return dist.get_backend(group) == "nccl"
 
 
 class _AllReduceSum(torch.autograd.Function):

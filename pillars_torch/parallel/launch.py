@@ -7,7 +7,11 @@ package runs in one process over N devices.
   each and tears the group down. A rank that raises stops the others, and
   ``spawn`` raises.
 - :func:`init_from_env` joins the process group that ``torchrun`` describes
-  in the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ...).
+  in the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ...). Its
+  caller tears the group down: drop the captured callables first (the
+  ``Trainer``, the steps, the inference functions; ``gc.collect()``), since
+  NCCL's teardown waits until every CUDA graph that holds its collectives
+  is destroyed.
 
 The backend follows the device: NCCL for ``cuda``, one card per rank (the
 rank's ``cuda:<rank>``), asking for more cards than exist raises; gloo for
@@ -19,6 +23,7 @@ its collectives through host memory.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import shutil
 import tempfile
@@ -68,8 +73,16 @@ def _entry(rank, fn, world_size, backend, init_method, device, threads,
                             world_size=world_size, rank=rank, timeout=TIMEOUT)
     try:
         fn(rank, dev, *args)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        if backend != "nccl":  # see below; the failed frames hold graphs
+            dist.destroy_process_group()
+        raise
+    # NCCL's teardown waits until every CUDA graph that holds its
+    # collectives is destroyed: free the captured callables that ``fn``
+    # left in reference cycles first, or the rank never exits. A rank that
+    # raised leaves its communicators to the process's exit instead.
+    gc.collect()
+    dist.destroy_process_group()
 
 
 def spawn(fn: Callable, world_size: int, args: tuple = (), device="cpu",

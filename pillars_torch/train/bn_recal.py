@@ -29,8 +29,9 @@ def build_recal_fn(cfg: Config, momentum: float = 0.9, device=None):
     On the card, the counterpart of the JAX package's ``jax.jit`` of this
     step: a :class:`CapturedRecal` replaying one captured graph per batch
     shape, which writes the new statistics in place into its static tensors
-    and returns those. Elsewhere the eager step. Either has the eager step
-    as its ``eager`` attribute."""
+    and returns those; the recal detector has no mesh, so this holds on
+    every rank of a distributed ``Evaluator`` too. On the CPU the eager
+    step. Either has the eager step as its ``eager`` attribute."""
     from pillars_torch.models.detector import PillarsDetector
 
     cfg2 = (cfg.override("model.pfn.bn_momentum", momentum)
@@ -45,7 +46,7 @@ def build_recal_fn(cfg: Config, momentum: float = 0.9, device=None):
         return recal_body(det, state, points, num_points)
 
     step.eager = step
-    if det.device.type != "cuda" or det.mesh is not None:
+    if not det.captures(True):
         return step
     return CapturedRecal(det, step)
 

@@ -2,15 +2,17 @@
 
 One body per step, on device tensors, with no host sync and no host
 constant: voxelization, anchors mask, target assignment, forward in train
-mode, loss, backward, optimizer update (:func:`train_body`). On the card
-without a mesh, :func:`make_train_step` returns the counterpart of the JAX
-package's ``jax.jit(step, donate_argnums=(0,))``: a
-:class:`CapturedTrainStep` that replays one captured CUDA graph per batch
-shape (pillars_torch/cuda_graph.py), its state donated: the state it returns
-holds the graph's static tensors, updated in place by every step. Elsewhere
-(the CPU, or a mesh, whose collectives a graph cannot hold) the step runs
-the same body op by op, and the state is passed in and a new one returned;
-it changes none of the tensors it was handed.
+mode, loss, backward, optimizer update (:func:`train_body`). On the card,
+:func:`make_train_step` returns the counterpart of the JAX package's
+``jax.jit(step, donate_argnums=(0,))``: a :class:`CapturedTrainStep` that
+replays one captured CUDA graph per batch shape
+(pillars_torch/cuda_graph.py), its state donated: the state it returns holds
+the graph's static tensors, updated in place by every step. Over a mesh of
+NCCL ranks too, the collectives inside the graph, as XLA puts them inside
+the jitted program over a ``Mesh``. The CPU, and a mesh over gloo (whose
+collectives copy through host memory, which a graph cannot hold), run the
+same body op by op; the state is then passed in and a new one returned, and
+none of the tensors handed in changes.
 
 Over several ranks (the detector's ``mesh``, pillars_torch/parallel/), each
 rank passes its block of the global batch (``parallel.shard_batch``); the
@@ -245,10 +247,15 @@ def make_train_step(detector: PillarsDetector, opt: AdamW,
     step: ``step(state, tm_state, batch) -> (state, tm_state, StepMetrics,
     running-values dict)``.
 
-    On the card without a mesh a :class:`CapturedTrainStep`, whose returned
-    states hold its static tensors (``donate=False``: copies of them);
-    elsewhere the eager step. Either has the eager step as its ``eager``
-    attribute (the eager one itself)."""
+    On the card a :class:`CapturedTrainStep`, whose returned states hold
+    its static tensors (``donate=False``: copies of them), unless a
+    collective of the body runs over gloo (``PillarsDetector.captures``):
+    then, and on the CPU, the eager step. Either has the eager step as its
+    ``eager`` attribute (the eager one itself). Over a mesh, every rank
+    takes the same steps at the same batch shapes, so every rank captures
+    at the same call and replays its collectives in the same order; the
+    mesh's host constants (``grad_scale``, the data ranks) are fixed, and
+    the graph holds them."""
     thr = (detector.config.train_input.anchor_area_threshold
            if anchor_area_threshold is None else anchor_area_threshold)
     dev = detector.device
@@ -274,7 +281,7 @@ def make_train_step(detector: PillarsDetector, opt: AdamW,
             return new_state, new_tm, out.metrics, values
 
     step.eager = step
-    if dev.type != "cuda" or detector.mesh is not None:
+    if not detector.captures(True):
         return step
     return CapturedTrainStep(detector, opt, thr, with_metrics, donate, step)
 

@@ -58,7 +58,7 @@ class Evaluator:
     ``eval_input.bn_recal_batches`` > 0 refreshes its BN statistics first
     (train/bn_recal.py).
 
-    On one card the inference replays captured CUDA graphs, one per batch
+    On the card the inference replays captured CUDA graphs, one per batch
     shape (``PillarsDetector.make_inference_fn``); a new batch shape is
     captured at its first batch. So does the recalibration step
     (``train/bn_recal.py``), which updates the statistics in place.
@@ -69,8 +69,10 @@ class Evaluator:
     launching the NMS kernel) and the blocks are gathered in batch order;
     a batch that does not split runs on rank 0 and its predictions are
     broadcast. Every rank returns the same annos; the AP is computed on
-    rank 0 and broadcast. This path runs the eager inference function beside
-    its collectives."""
+    rank 0 and broadcast. Each rank's inference holds no collective (the
+    gather and the broadcast come after it), so it replays its own graphs
+    whatever the backend, the remainder batch on rank 0 too; the
+    collectives run eagerly between the replays."""
 
     def __init__(self, cfg: Config, detector: PillarsDetector,
                  measure_time: bool = False, buckets=None):
@@ -105,8 +107,8 @@ class Evaluator:
                 device=self.device)
             self.infer = self._bucketed_infer
         else:
-            self.infer = self._inference_fn(detector.make_inference_fn(
-                cfg.eval_input.anchor_area_threshold))
+            self.infer = detector.make_inference_fn(
+                cfg.eval_input.anchor_area_threshold)
 
     def _split(self, b: int) -> bool:
         """Whether a batch of ``b`` clouds splits over the data ranks."""
@@ -142,14 +144,9 @@ class Evaluator:
             return Predictions(*(_from_wire(broadcast_(
                 _to_wire(t), 0, group), t.dtype) for t in preds))
 
-    def _inference_fn(self, fn):
-        """``fn``, or its eager function over data ranks: the distributed
-        path stays eager beside its collectives."""
-        return fn if self.mesh is None else fn.eager
-
     def _bucketed_infer(self, variables, points, num_points, rect, trv2c):
         # points was pre-sliced to an exact bucket width in _device_put
-        return self._inference_fn(self._bucketed._fn(points.shape[1]))(
+        return self._bucketed._fn(points.shape[1])(
             variables, points, num_points, rect, trv2c)
 
     def _device_put(self, batch):
@@ -349,12 +346,13 @@ class Trainer:
     own Trainer on its device; the global batch size must split over the
     ranks.
 
-    On one card the step replays a captured CUDA graph per batch shape
-    (``make_train_step``), and ``state`` holds its static tensors, updated
-    in place by every step (donated, as the JAX package's jitted step is);
-    the per-epoch eval and the checkpoints read them. Each replay bumps
-    their versions, so the eval's captured inference copies the newest
-    weights."""
+    On the card the step replays a captured CUDA graph per batch shape
+    (``make_train_step``), over NCCL ranks with its collectives inside, and
+    ``state`` holds its static tensors, updated in place by every step
+    (donated, as the JAX package's jitted step is); the per-epoch eval and
+    the checkpoints read them. Each replay bumps their versions, so the
+    eval's captured inference copies the newest weights. Over gloo ranks
+    the step runs eagerly."""
 
     def __init__(self, cfg: Config, use_wandb: bool = False, device=None):
         self.cfg = cfg

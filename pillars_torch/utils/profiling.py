@@ -228,7 +228,7 @@ def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
 
 
 def device_busy(fn: Callable[[], object], iters: int,
-                must_have: str = ""):
+                must_have: str = "", group=None):
     """(host wall ms per call, device ms per call summed over kernels,
     kernels by device time [(name, calls per call, device ms per call)],
     CUDA graph launches per call) from torch.profiler over ``iters`` warm
@@ -236,7 +236,11 @@ def device_busy(fn: Callable[[], object], iters: int,
     path's do. A trace now and then
     comes back without kernels and is taken again; raises when three in a
     row hold no CUDA kernel, or none whose name contains ``must_have``, so
-    that a time that was not measured is never reported as 0."""
+    that a time that was not measured is never reported as 0. ``group``: a
+    process group whose ranks all profile calls of ``fn`` that hold
+    collectives; they take a trace again only together, so every rank
+    makes the same calls."""
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -254,8 +258,13 @@ def device_busy(fn: Callable[[], object], iters: int,
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
-        if any(must_have in e.key and e.self_device_time_total > 0
-               for e in kernels):
+        found = any(must_have in e.key and e.self_device_time_total > 0
+                    for e in kernels)
+        if group is not None:
+            flag = torch.tensor([int(found)], device="cuda")
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+            found = bool(flag.item())
+        if found:
             break
     else:
         raise RuntimeError(

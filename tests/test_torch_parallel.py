@@ -41,7 +41,16 @@ Counterparts, with their tolerances:
   criteria of tests/torch_parity.py (against the single-process bf16-f32
   gap);
 - ``runtime.spatial_axis`` without a mesh that defines it raises; more
-  NCCL ranks than cards raise.
+  NCCL ranks than cards raise;
+- the captured paths over a data mesh and 2 bands (the 2-rank spawn's
+  ``capture`` cases, under the stand-in graph of
+  tests/test_torch_train_capture.py): two captured steps bit-equal to two
+  eager steps, donated as without a mesh; the train bodies and the band's
+  inference body free of host syncs and host data with their collectives
+  inside (test_torch_capture.py's dispatch check); the band's captured
+  inference equal to eager; the captured data-parallel step's metrics
+  within 1e-6 relative of the port's single-process step, whose metrics
+  are within 1e-5 relative (+1e-6) of the JAX package's step.
 """
 
 import pathlib
@@ -85,6 +94,7 @@ SMALL_2D = (("model.voxel.max_voxels", 1024),   # test_spatial_train's
 SPATIAL = (("runtime.spatial_axis", "spatial"),)
 REMAT = (("model.rpn.remat", True),)
 REMAT_BF16 = (("model.rpn.remat_bf16", True),)
+POINT_MAJOR = (("model.pfn.dense_cell", False),)  # inference runs the band
 HEAD_TOL = 1e-5
 JAX_RTOL, JAX_ATOL = 1e-3, 1e-4
 GRAD_L2_PORT, GRAD_L2_JAX = 1e-3, 1e-2
@@ -203,10 +213,18 @@ def runs2(inputs, tmp_path_factory):
                                  ["grads"]),
                                 (REMAT + SPATIAL, ["grads"]),
                                 (REMAT + REMAT_BF16 + SPATIAL, ["grads"]))]
-    for case in cases[2:]:
+    # the captured paths (tests/test_torch_parallel_capture.py's subject)
+    cases += [dict(overrides=TRAIN_OVERRIDES + extra, mesh=mesh,
+                   state=_arrays(inputs["dp_state"]),
+                   batch=inputs["dp_batch"], ops=["capture"])
+              for extra, mesh in (((), (("data", 2),)),
+                                  (SPATIAL + POINT_MAJOR,
+                                   (("spatial", 2),)))]
+    for case in cases[2:4]:
         case["mesh"] = (("spatial", 2),)
     out = spawn_cases(str(tmp_path_factory.mktemp("ranks2")), 2, cases)
-    return dict(zip(("float32", "bfloat16", "remat", "remat_bf16"), out))
+    return dict(zip(("float32", "bfloat16", "remat", "remat_bf16",
+                     "capture_data", "capture_spatial"), out))
 
 
 # ----------------------------------------------------------------------
@@ -537,3 +555,88 @@ def test_more_ranks_than_cards_raise(monkeypatch):
     with pytest.raises(ValueError, match="2 NCCL ranks need 2 cards"):
         launch.spawn(print, 2, device="cuda")
     launch.check_devices(2, "cuda", "gloo")  # gloo ranks may share a card
+
+
+# ----------------------------------------------------------------------
+# the captured paths over a mesh, with the stand-in graph of
+# tests/test_torch_train_capture.py (the spawn's "capture" cases; the rule
+# that picks them and the card are in tests/test_torch_parallel_capture.py)
+
+def _equal_trees(got, want, label):
+    if isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), label
+    elif isinstance(want, dict):
+        assert got.keys() == want.keys(), label
+        for k in want:
+            _equal_trees(got[k], want[k], f"{label}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            _equal_trees(g, w, f"{label}/{i}")
+    else:
+        assert got == want, label
+
+
+@pytest.mark.parametrize("mesh", ["data", "spatial"])
+def test_captured_steps_over_a_mesh_match_eager(mesh, runs2):
+    """Two captured steps (the first call, then a replay) against two eager
+    steps from the same state, bit for bit on every rank (the same ops in
+    the same order, collectives included), donated as without a mesh: the
+    state returned holds the static tensors, the last one returned is not
+    copied in again, the state handed in stays as it was."""
+    for rank, r in enumerate(runs2[f"capture_{mesh}"]):
+        c = r["capture"]
+        assert c["eager_is_eager"]  # the CPU takes the eager step
+        _equal_trees(c["captured"], c["eager"], f"rank {rank} metrics")
+        _equal_trees(c["captured_state"], c["eager_state"],
+                     f"rank {rank} state")
+        assert int(c["captured"][1].num_positives) > 0
+        assert c["donated"] and c["untouched"]
+        assert c["copies"] == [1, 1] and c["replays"] == 1
+    first, second = (r["capture"] for r in runs2[f"capture_{mesh}"])
+    _equal_trees(second["captured_state"].params,
+                 first["captured_state"].params, "ranks")
+
+
+@pytest.mark.parametrize("mesh,body", [("data", "train_sync"),
+                                       ("spatial", "train_sync"),
+                                       ("spatial", "infer_sync")])
+def test_mesh_bodies_are_sync_free(mesh, body, runs2):
+    """The data-parallel and 2-band train bodies (flat gradient and loss
+    all-reduces, the BNs' statistics, halo exchanges, the heads' gather)
+    and the 2-band inference body replay with no host sync and no tensor
+    made from host data (test_torch_capture.py's dispatch check)."""
+    for r in runs2[f"capture_{mesh}"]:
+        assert r["capture"][body] == [], r["capture"][body]
+
+
+def test_captured_spatial_inference_matches_eager(runs2):
+    """2 bands, point-major: the captured inference (first call and a
+    replay) equals the eager function on each rank, and the ranks agree."""
+    outs = [r["capture"]["infer"] for r in runs2["capture_spatial"]]
+    for first, replay, eager in outs:
+        _equal_trees(first, eager, "first call")
+        _equal_trees(replay, eager, "replay")
+    _equal_trees(outs[1][2], outs[0][2], "ranks")
+    assert bool(outs[0][2].valid.any())
+
+
+def test_captured_data_parallel_step_matches_single_process(inputs, runs2):
+    """The captured data-parallel step's metrics within
+    test_data_parallel_f32_step_matches_single_process's tolerance of the
+    port's single-process step, and that step's within
+    test_sharded_train_step_matches_replicated's of the JAX package's."""
+    _, steps = _port_grads(TRAIN_OVERRIDES, inputs["dp_state"],
+                           inputs["dp_batch"])
+    _, jm, _ = _jax_step(TRAIN_OVERRIDES, inputs["dp_state"],
+                         inputs["dp_batch"])
+    want = steps[0]["metrics"]
+    for r in runs2["capture_data"]:
+        m = r["capture"]["captured"][0]
+        for name, g, w in zip(m._fields, m, want):
+            np.testing.assert_allclose(float(g), float(w), rtol=DP_LOSS_RTOL,
+                                       atol=1e-9, err_msg=name)
+    for name in jm._fields:
+        np.testing.assert_allclose(float(getattr(want, name)),
+                                   float(getattr(jm, name)), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)

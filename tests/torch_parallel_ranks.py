@@ -6,7 +6,7 @@ imports this module by name, so it imports the port and nothing of JAX.
 A case is a dict: ``overrides`` of ``Config.default()``, the ``mesh`` as
 ((axis, size), ...), the network ``state`` as arrays, a global ``batch`` of
 arrays, the ``ops`` to run ("forward", "postprocess", "grads", "steps",
-"metrics")
+"metrics", "capture")
 and ``n_steps``. Each rank writes what it computed to ``rank<r>.pt``
 beside the pickled cases.
 """
@@ -27,14 +27,18 @@ def _config(overrides):
     return cfg
 
 
-def _detach(tree):
+def _detach(tree, clone=False):
+    """Every tensor of ``tree`` detached on the CPU (``clone``: copied, a
+    snapshot of tensors that a later step writes in place)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        t = tree.detach().cpu()
+        return t.clone() if clone else t
     if isinstance(tree, dict):
-        return {k: _detach(v) for k, v in tree.items()}
+        return {k: _detach(v, clone) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_detach(v) for v in tree) if not hasattr(
-            tree, "_fields") else type(tree)(*(_detach(v) for v in tree))
+        parts = (_detach(v, clone) for v in tree)
+        return (type(tree)(*parts) if hasattr(tree, "_fields")
+                else type(tree)(parts))
     return tree
 
 
@@ -71,8 +75,9 @@ def run_cases(rank, device, cases_file):
     with open(cases_file, "rb") as f:
         cases = pickle.load(f)
     out = [run_case(rank, device, case) for case in cases]
-    torch.save(_detach(out), os.path.join(os.path.dirname(cases_file),
-                                          f"rank{rank}.pt"))
+    # clones: a captured call's outputs are views of one packed buffer
+    torch.save(_detach(out, clone=True),
+               os.path.join(os.path.dirname(cases_file), f"rank{rank}.pt"))
 
 
 def run_case(rank, device, case):
@@ -137,8 +142,92 @@ def run_case(rank, device, case):
             step = make_train_step(det, opt, with_metrics=True)
             _, _, _, out["metric_values"] = step(
                 ts, TrainMetricsState.init(device), batch)
+        elif op == "capture":
+            out["capture"] = _captured_against_eager(det, cfg, state, batch)
         else:
             raise ValueError(op)
+    return out
+
+
+def _captured_against_eager(det, cfg, state, batch):
+    """The captured paths over this rank's mesh, with the stand-in graph of
+    tests/test_torch_train_capture.py (the capture runs the body and
+    restores the state it wrote; a replay reruns the body, collectives and
+    all): two steps of a ``CapturedTrainStep`` against two eager steps from
+    the same state, its donation, and its body replayed under the sync
+    check of tests/test_torch_capture.py; on a spatial band the inference
+    body too, under the check and through a ``CapturedInference`` against
+    the eager function."""
+    import functools
+
+    from pillars_torch import cuda_graph
+    from pillars_torch.models.detector import Predictions
+    from pillars_torch.train.loop import (CapturedTrainStep, TrainState,
+                                          make_train_step, split_state)
+    from pillars_torch.train.optim import AdamW
+
+    threads = torch.get_num_threads()
+    from test_torch_capture import _SyncCheck
+    from test_torch_train_capture import _Capture
+    torch.set_num_threads(threads)  # those modules set their own
+
+    saved = cuda_graph._capture_graph, cuda_graph._run_on_side_stream
+    capture = _Capture()
+    cuda_graph._capture_graph = capture
+    cuda_graph._run_on_side_stream = lambda run, device: run()
+    try:
+        params, stats = split_state(state)
+        opt = AdamW(cfg.train.optimizer, cfg.train_input.batch_size)
+        ts = TrainState(0, params, stats, opt.init(params))
+        before = _detach(params, clone=True)
+        eager = make_train_step(det, opt)
+        step = CapturedTrainStep(det, opt,
+                                 cfg.train_input.anchor_area_threshold,
+                                 False, True, eager)
+        capture.states.append(step.static)
+        out = {"eager_is_eager": eager.eager is eager, "eager": [],
+               "captured": [], "copies": []}
+        want, got = ts, ts
+        for _ in range(2):
+            want, m_want = eager(want, batch)
+            got, m_got = step(got, batch)
+            out["eager"].append(m_want)
+            out["captured"].append(m_got)
+            out["copies"].append(step.static.copies)
+        # the state returned holds the static tensors, which the replay
+        # under the check below writes again
+        out["eager_state"] = want
+        out["captured_state"] = _detach(got, clone=True)
+        out["donated"] = all(got.params[k] is
+                             step.static.tensors[f"params/{k}"]
+                             for k in got.params)
+        out["untouched"] = all(torch.equal(params[k], v)
+                               for k, v in before.items())
+        (graph,) = step.graphs.values()
+        out["replays"] = graph.graph.replays
+        check = _SyncCheck()
+        with check:
+            graph.graph.replay()
+        out["train_sync"] = check.found
+        if det.network.spatial is not None:  # a band: its inference
+            thr = cfg.eval_input.anchor_area_threshold
+            pts = torch.as_tensor(batch["points"])
+            num = torch.as_tensor(batch["num_points"])
+            eye = torch.eye(4).expand(pts.shape[0], 4, 4)
+            fn = det.make_inference_fn(thr)
+            static = cuda_graph.StaticState()
+            captured = cuda_graph.CapturedInference(
+                functools.partial(det._infer, thr=thr, folded=static),
+                fn.eager, static, "cpu", Predictions)
+            out["infer"] = [captured(state, pts, num, eye, eye),
+                            captured(state, pts, num, eye, eye),
+                            fn.eager(state, pts, num, eye, eye)]
+            check = _SyncCheck()
+            with torch.inference_mode(), check:
+                det._infer(state, pts, num, eye, eye, thr)
+            out["infer_sync"] = check.found
+    finally:
+        cuda_graph._capture_graph, cuda_graph._run_on_side_stream = saved
     return out
 
 
