@@ -59,6 +59,7 @@ one thread at a time, on the stream that is current there.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -358,9 +359,22 @@ def _run_on_side_stream(run: Callable, device):
 
 def _capture_graph(run: Callable):
     """(graph, what ``run()`` returned during its capture into the shared
-    pool)."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=graph_pool(),
-                          capture_error_mode="thread_local"):
-        out = run()
+    pool). Python's cyclic collector runs before the capture and is held
+    off during it (its state restored after, also on an error): captured
+    callables sit in reference cycles, and a collection in mid-capture
+    destroys a dead one's graph on the capturing thread, a call that a
+    capture does not permit, which invalidates it
+    (``cudaErrorStreamCaptureInvalidated``; ``chip_smoke.py`` phase 19's
+    capture stress counts such captures with and without this)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=graph_pool(),
+                              capture_error_mode="thread_local"):
+            out = run()
+    finally:
+        if enabled:
+            gc.enable()
     return graph, out

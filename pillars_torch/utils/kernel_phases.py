@@ -1,20 +1,26 @@
-"""Where the fused RPN block kernel's time goes, layer by layer, on the card.
+"""Where a fused RPN block kernel's time goes, layer by layer, on the card.
 
-    python -m pillars_torch.utils.kernel_phases [--batch 1] [--flush-l2]
-                                                [--out FILE]
+    python -m pillars_torch.utils.kernel_phases [--dtype float32|bfloat16]
+        [--kernel NAME] [--batch 1] [--flush-l2] [--out FILE]
 
-builds ``csrc/rpn_sep_block.cu`` with ``-DRPN_PHASE_CLOCKS`` (one thread of
-CTA 0 stamps ``clock64()`` at the phase boundaries of every layer), runs the
-three d435i blocks in one launch on random inputs and folded weights (NumPy
-seed 0) and prints, per layer, the SM cycles CTA 0 spent on: issuing the
-copies of its input halo (and, in a block's first layer, of its weights);
-waiting for them; the depthwise (and issuing the next layer's weight
-prefetch); the pointwise product; the reduction, bias, ReLU and stores; and
-the grid barrier. The stamps cost a few hundred cycles per layer, so the
-launch is also timed without them. ``--flush-l2`` writes 256 MB between two
-launches, so that the kernel finds its weights and input in device memory
-as it does inside the inference path, where hundreds of other kernels run
-between two clouds. Needs a card; the numbers name it.
+builds the kernel that ``--dtype`` launches (``ops/rpn_cuda.py``
+``KERNELS``: ``csrc/rpn_sep_block.cu`` for either dtype; ``--kernel
+bfloat16_tc`` the bfloat16 kernel with its product on the tensor cores,
+``csrc/rpn_sep_chain_bf16.cu``) with ``-DRPN_PHASE_CLOCKS`` (one thread of
+CTA 0 stamps ``clock64()`` at the phase boundaries of every layer), runs
+the three d435i blocks in one launch on random inputs in that dtype and
+folded weights (NumPy seed 0) and prints, per layer, the SM cycles CTA 0
+spent on: issuing the copies of its input halo (and, in a block's first
+layer, of its weights); waiting for them; the depthwise (and issuing the
+next layer's weight prefetch); the pointwise product (``bfloat16_tc``: the
+tensor-core product, to its slowest warp); the cross-warp reduction (not
+in ``bfloat16_tc``), bias, ReLU and stores; and the grid barrier, and the
+SM clock those cycles ran at (the span over the stamped launch's device
+time: a lower bound). The stamps cost a few hundred cycles per layer, so
+the launch is also timed without them. ``--flush-l2`` writes 256 MB
+between two launches, so that the kernel finds its weights and input in
+device memory as it does inside the inference path, where hundreds of
+other kernels run between two clouds. Needs a card; the numbers name it.
 """
 
 from __future__ import annotations
@@ -63,6 +69,10 @@ def main():
     from pillars_torch.utils.profiling import cuda_ms, device_busy
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--kernel", choices=tuple(rpn_cuda.KERNELS),
+                    help="a kernel of that dtype other than its own")
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--flush-l2", action="store_true",
                     help="write 256 MB between launches (cold L2)")
@@ -72,7 +82,10 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    dtype = getattr(torch, args.dtype)
+    kernel = rpn_cuda.kernel_name(dtype, args.kernel)
     x, blocks = d435i_blocks(Config.default().model, args.batch)
+    x = x.to(dtype)
     n_layers = sum(b.num_layers + 1 for b in blocks)
 
     flush = (torch.empty(64 << 20, device="cuda") if args.flush_l2 else None)
@@ -80,7 +93,7 @@ def main():
     def run(defines=()):
         if flush is not None:
             flush.zero_()
-        return rpn_cuda.fused_sep_chain(x, blocks, defines)
+        return rpn_cuda.fused_sep_chain(x, blocks, defines, kernel)
 
     def kernel_ms(defines=()):
         rows = device_busy(lambda: run(defines), 50)[2]
@@ -90,7 +103,8 @@ def main():
     device_ms = kernel_ms()
     stamped_ms = kernel_ms(DEFINES)
     torch.cuda.synchronize()
-    read = _build.load("rpn_sep_block", DEFINES).rpn_phase_clocks
+    read = _build.load(rpn_cuda.KERNELS[kernel][1],
+                       DEFINES).rpn_phase_clocks
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
     buf = (ctypes.c_longlong * (n_layers * (len(PHASES) + 1)))()
@@ -103,11 +117,13 @@ def main():
     span = int(stamps[-1, -2] - stamps[0, 0])
 
     print(card)
-    print(f"three blocks, B={args.batch}, one launch: {device_ms * 1e3:.2f} us "
+    print(f"{kernel} kernel, three blocks, B={args.batch}, one launch: "
+          f"{device_ms * 1e3:.2f} us "
           f"device time{' after an L2 flush' if args.flush_l2 else ''} "
           f"({plain_ms * 1e3:.2f} us per back-to-back call); with "
           f"the stamps {stamped_ms * 1e3:.2f} us, {span} SM cycles from the "
-          f"first stamp to the last")
+          f"first stamp to the last (at least {span / stamped_ms / 1e6:.3f} "
+          f"GHz)")
     print(f"{'layer':>5} " + " ".join(f"{p:>9}" for p in PHASES))
     for i, row in enumerate(cycles):
         print(f"{i:>5} " + " ".join(f"{int(c):>9}" for c in row))
@@ -118,7 +134,8 @@ def main():
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps({
-            "card": card, "batch": args.batch, "flush_l2": args.flush_l2,
+            "card": card, "kernel": kernel, "batch": args.batch,
+            "flush_l2": args.flush_l2,
             "device_ms": device_ms,
             "call_ms": plain_ms, "stamped_device_ms": stamped_ms,
             "span_cycles": span, "phases": PHASES,

@@ -373,3 +373,41 @@ def test_bf16_chain_takes_the_twin_on_the_cpu():
             rpn_cuda.fused_sep_block.launches_bf16) == before
     assert got[0].dtype == torch.bfloat16
     assert torch.equal(got[0], fused_sep_block_plain(x, layers, 1, 2))
+
+
+@pytest.mark.parametrize("dtype,kernel,want", [
+    (torch.float32, None, "float32"), (torch.bfloat16, None, "bfloat16"),
+    (torch.bfloat16, "bfloat16_tc", "bfloat16_tc"),
+    (torch.float32, "bfloat16", ValueError),
+    (torch.bfloat16, "float32", ValueError),
+    (torch.float32, "bfloat16_tc", ValueError),
+    (torch.bfloat16, "bfloat16_wgmma", ValueError)])
+def test_kernel_names(dtype, kernel, want):
+    """Each dtype launches its own kernel unless the call names another
+    that takes the same dtype (the bfloat16 kernel on the tensor cores);
+    a kernel of another dtype or no kernel at all raises, on the CPU as on
+    the card, before the twin."""
+    raw = _random_layers(7, 8, 8, 0)
+    layers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
+    x = torch.zeros(1, 6, 8, 8, dtype=dtype)
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            rpn_cuda.kernel_name(dtype, kernel)
+        with pytest.raises(ValueError):
+            rpn_cuda.fused_sep_chain(x, [pack_block(layers, 0, 1)],
+                                     kernel=kernel)
+        return
+    assert rpn_cuda.kernel_name(dtype, kernel) == want
+    assert rpn_cuda.KERNELS[want][0] == dtype
+    got = rpn_cuda.fused_sep_chain(x, [pack_block(layers, 0, 1)],
+                                   kernel=kernel)
+    assert torch.equal(got[0], fused_sep_block_plain(x, layers, 0, 1))
+
+
+def test_every_kernel_source_is_built():
+    """Each kernel names a source that ``ops/_build.py`` compiles with the
+    others (one nvcc per source at once)."""
+    from pillars_torch.ops import _build
+
+    assert {src for _, src, _ in rpn_cuda.KERNELS.values()} <= set(
+        _build.sources())

@@ -24,10 +24,17 @@ on the CPU, where nothing can be captured:
   and after captured steps a detector's inference graphs and fold cache
   read the new weights;
 - the profiled stages of ``PillarsDetector.profile_stages``, each a graph
-  of its own, give the eager inference's predictions.
+  of its own, give the eager inference's predictions;
+- ``cuda_graph._capture_graph`` itself, with stand-ins for the CUDA graph
+  and its capture context: a dead reference cycle is collected before the
+  capture, the body runs with Python's cyclic collector off, and the
+  collector's state is restored after it, also when the body raises.
 
 The card's half is ``tests/test_torch_train_cuda.py``.
 """
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -332,3 +339,55 @@ def test_profiled_stages_give_the_eager_predictions(name, monkeypatch):
         want = det.postprocess(det.apply(state, vox), amask, rect, trv2c)
     for g, w in zip(calls["t_whole"](*args), want):
         assert torch.equal(g, w)
+
+
+class _StandInGraph:
+    pass
+
+
+class _StandInCapture:
+    """``torch.cuda.graph`` on the CPU: a context that captures nothing."""
+
+    def __init__(self, graph, pool=None, capture_error_mode="global"):
+        assert isinstance(graph, _StandInGraph)
+        assert capture_error_mode == "thread_local"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _Cycle:
+    pass
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_capture_holds_the_collector_off(enabled, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _StandInCapture)
+    monkeypatch.setattr(cuda_graph, "graph_pool", lambda: None)
+
+    def body():
+        return gc.isenabled(), dead() is None
+
+    def failing():
+        raise RuntimeError("the body failed")
+
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        cycle = _Cycle()
+        cycle.me = cycle
+        dead = weakref.ref(cycle)
+        del cycle
+        graph, out = cuda_graph._capture_graph(body)
+        assert isinstance(graph, _StandInGraph)
+        assert out == (False, True)  # collector off, the cycle collected
+        assert gc.isenabled() is enabled
+        with pytest.raises(RuntimeError, match="the body failed"):
+            cuda_graph._capture_graph(failing)
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()
