@@ -104,17 +104,14 @@ Phases, none of whose failures is caught:
    (3, 1, 1) z-squash) card vs CPU, heads within ``HEAD_RTOL``, launch
    counts, ms per cloud and the peak device memory of a call;
 15. ``runtime.compute_dtype=bfloat16`` (the criteria of
-   tests/torch_parity.py): both bfloat16 fused RPN chain kernels, the
-   path's (``csrc/rpn_sep_block.cu``, its product on the CUDA cores) and
-   the one whose product runs on the tensor cores
-   (``csrc/rpn_sep_chain_bf16.cu``, ``bfloat16_tc``), against their twin
-   at the d435i block shapes, B in {1, 2}, one block per launch and the
-   three chained in one launch (each element within one bf16 step, or near
-   0 within ``BLOCK_RTOL`` of the max; the share of elements that differ
-   and the largest |diff| of the max); the two and the float32 kernel in
-   turns at B=1 and B=2 (float32, bfloat16_tc, bfloat16, then back), µs
-   per call and device µs per launch; the
-   dense-cell and fast paths in
+   tests/torch_parity.py): the bfloat16 variant of the fused RPN chain
+   kernel against its twin at the d435i block shapes, B in {1, 2}, one
+   block per launch and the three chained in one launch (each element
+   within one bf16 step, or near 0 within ``BLOCK_RTOL`` of the max; the
+   share of elements that differ and the largest |diff| of the max); it
+   and the float32 kernel in turns at B=1 and B=2 (float32, bfloat16,
+   then back), µs per call and device µs per launch; the dense-cell and
+   fast paths in
    bfloat16 from ``weights_59.pkl`` on phase 4's clouds (launch counts:
    NMS once per batch, the bfloat16 chain once per batch on the fast path;
    heads card vs CPU within 0.7 of the CPU's bf16-f32 rms gap; predictions
@@ -220,9 +217,7 @@ Phases, none of whose failures is caught:
    captured ``STRESS_ROUNDS`` times each, the step before dropped into a
    reference cycle, with Python's collector at thresholds (1, 1, 1), then
    ``STRESS_FORCED_ROUNDS`` times each with a collection forced inside the
-   capture, through the port's ``cuda_graph._capture_graph`` and through
-   the parent's (which left the collector running): the invalidated
-   captures of each, none allowed for the port's;
+   capture: no capture may be invalidated;
 20. ``configs/kitti_3class.yaml`` (Car / Pedestrian / Cyclist, the 432 x 496
    grid, 1.29M anchors, NMS 1000 -> 300) from its trained checkpoint
    benchmarks/kitti3_synth/weights_73.pkl, run after phase 14: the split of
@@ -279,6 +274,7 @@ chain kernel in float32 and in bfloat16), then, as the last line,
 the port is not beside this script.
 """
 
+import gc
 import json
 import os
 import pathlib
@@ -1921,12 +1917,9 @@ def _parity():
 
 
 def check_rpn_kernel_bf16(mcfg, f32):
-    """15.1: both bfloat16 chain kernels against their twin on the card,
-    the path's (``bfloat16``, the product on the CUDA cores) and
-    ``bfloat16_tc`` (the product on the tensor cores), timed in turns with
-    the float32 kernel (``f32``: phase 3's entry) at B=1 and B=2. Returns
-    the kernel line's entry: the path's kernel, the other's numbers
-    beside."""
+    """15.1: the bfloat16 chain kernel against its twin on the card, timed
+    in turns with the float32 kernel (``f32``: phase 3's entry) at B=1 and
+    B=2. Returns the kernel line's entry."""
     from pillars_torch.models.rpn import _Block
     from pillars_torch.ops import rpn_cuda
     from pillars_torch.ops.rpn_blocks import (FoldedLayer,
@@ -1954,42 +1947,36 @@ def check_rpn_kernel_bf16(mcfg, f32):
         return torch.from_numpy(np.maximum(rng.randn(*shape), 0).astype(
             np.float32)).cuda().to(bf)
 
-    # per kernel: (share of a tensor's elements that differ from the twin,
-    # bf16 steps, max |diff|, max |diff| / max |twin|), worst over checks
-    worst = {k: (0.0, 0, 0.0, 0.0) for k in ("bfloat16", "bfloat16_tc")}
+    # (share of a tensor's elements that differ from the twin, bf16 steps,
+    # max |diff|, max |diff| / max |twin|), worst over the checks
+    worst = (0.0, 0, 0.0, 0.0)
     with torch.inference_mode():
         for b in (1, 2):
             checks = []
-            for kernel in worst:
-                # the three blocks in one launch, each held against the
-                # twin fed what the kernel's block before it wrote
-                x = relu_input(b, *shapes[0][:3])
-                got = rpn_cuda.fused_sep_chain(x, packed, kernel=kernel)
-                torch.cuda.synchronize()
-                for i, (h, w, cin, cout, n, s) in enumerate(shapes):
-                    checks.append((kernel, f"chain block{i + 1} B={b}",
-                                   got[i],
-                                   fused_sep_block_plain(x, layers[i], n, s)))
-                    x = got[i]
+            # the three blocks in one launch, each held against the twin
+            # fed what the kernel's block before it wrote
+            x = relu_input(b, *shapes[0][:3])
+            got = rpn_cuda.fused_sep_chain(x, packed)
+            torch.cuda.synchronize()
+            for i, (h, w, cin, cout, n, s) in enumerate(shapes):
+                checks.append((f"chain block{i + 1} B={b}", got[i],
+                               fused_sep_block_plain(x, layers[i], n, s)))
+                x = got[i]
             for i, (h, w, cin, cout, n, s) in enumerate(shapes):
                 x = relu_input(b, h, w, cin)
-                want = fused_sep_block_plain(x, layers[i], n, s)
-                for kernel in worst:
-                    checks.append((kernel, f"block{i + 1} B={b} "
-                                   f"{h}x{w}x{cin}->{cout}",
-                                   rpn_cuda.fused_sep_chain(
-                                       x, packed[i:i + 1], kernel=kernel)[0],
-                                   want))
+                checks.append((f"block{i + 1} B={b} {h}x{w}x{cin}->{cout}",
+                               rpn_cuda.fused_sep_block(x, layers[i], n, s),
+                               fused_sep_block_plain(x, layers[i], n, s)))
             torch.cuda.synchronize()
-            for kernel, label, g, want in checks:
+            for label, g, want in checks:
                 if g.dtype != bf or want.dtype != bf:
                     raise AssertionError(f"{label}: not bfloat16")
                 share, steps = tp.bf16_rounded_close(
-                    g, want, BLOCK_RTOL, f"{kernel} {label}")
+                    g, want, BLOCK_RTOL, f"rpn_sep_block bf16 {label}")
                 err = (g.float() - want.float()).abs().max().item()
                 rel = err / want.float().abs().max().item()
-                worst[kernel] = tuple(max(a, c) for a, c in zip(
-                    worst[kernel], (share, steps, err, rel)))
+                worst = tuple(max(a, c) for a, c in zip(
+                    worst, (share, steps, err, rel)))
 
         xs = [relu_input(1, h, w, cin) for h, w, cin, *_ in shapes]
         unfused = [_Block(cin, cout, n, s, mcfg.rpn.bn_eps, True,
@@ -2012,17 +1999,15 @@ def check_rpn_kernel_bf16(mcfg, f32):
         plain_ms = cuda_ms(twin_chain, 20)
         cudnn_ms = cuda_ms(cudnn_chain, 200)
         _, cudnn_dev_ms, cudnn_rows, _ = device_busy(cudnn_chain, 50)
-        # the three chain kernels in turns on the same inputs: warm events
-        # per call, and the device time per launch from the kernel's own
-        # profiler rows (a trace may miss a launch)
+        # the chain kernel in both dtypes, in turns, on the same inputs:
+        # warm events per call, and the device time per launch from the
+        # kernel's own profiler rows (a trace may miss a launch)
         times = {}
         for b in (1, 2):
             x = relu_input(b, *shapes[0][:3])
-            for kernel in ("float32", "bfloat16_tc", "bfloat16",
-                           "bfloat16", "bfloat16_tc", "float32"):
-                xd = x.to(rpn_cuda.KERNELS[kernel][0])
-                call = (lambda xd=xd, kernel=kernel:
-                        rpn_cuda.fused_sep_chain(xd, packed, kernel=kernel))
+            for kernel in ("float32", "bfloat16", "bfloat16", "float32"):
+                xd = x.to(getattr(torch, kernel))
+                call = lambda xd=xd: rpn_cuda.fused_sep_chain(xd, packed)
                 ms = cuda_ms(call, 200)
                 _, _, rows, _ = device_busy(call, 50, "rpn_sep_chain")
                 mine = [(c, t) for name, c, t in rows
@@ -2035,12 +2020,12 @@ def check_rpn_kernel_bf16(mcfg, f32):
     n_bytes = sum(nb for _, nb in work)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
-    for kernel, (share, steps, err, rel) in worst.items():
-        print(f"rpn {kernel} against the twin: every element within one "
-              f"bf16 step or within {BLOCK_RTOL} of its max; at most "
-              f"{share:.2e} of a tensor's elements differ, at most {steps} "
-              f"steps (near 0), max |diff| {err:.3e}, {rel:.3e} of the "
-              f"tensor's max")
+    share, steps, err, rel = worst
+    print(f"rpn_sep_block bf16 against the twin: every element within one "
+          f"bf16 step or within {BLOCK_RTOL} of its max; at most "
+          f"{share:.2e} of a tensor's elements differ, at most {steps} "
+          f"steps (near 0), max |diff| {err:.3e}, {rel:.3e} of the "
+          f"tensor's max")
     for (b, kernel), runs in sorted(times.items()):
         print(f"rpn three blocks B={b} {kernel} kernel (one launch, two runs"
               f" in turns): "
@@ -2059,12 +2044,12 @@ def check_rpn_kernel_bf16(mcfg, f32):
     same_call = {k: {f"B{b}": [{"ms": ms, "device_ms": dev}
                                for ms, dev, _ in times[(b, k)]]
                      for b in (1, 2)}
-                 for k in ("float32", "bfloat16", "bfloat16_tc")}
+                 for k in ("float32", "bfloat16")}
     return {"name": "rpn_sep_chain_bf16", "route": "cuda",
             "source": "pillars_torch/csrc/rpn_sep_block.cu",
             "replaces": "pillars_tpu/ops/rpn_pallas.py:77",
             "dtype": "bfloat16", "launches": None,
-            "max_abs_err": worst["bfloat16"][2],
+            "max_abs_err": err,
             "ms": best[(1, "bfloat16")][0], "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2074,18 +2059,7 @@ def check_rpn_kernel_bf16(mcfg, f32):
             "same_call": same_call,
             "unfused_cudnn_ms": cudnn_ms,
             "unfused_cudnn_device_ms": cudnn_dev_ms,
-            "max_share_differing": worst["bfloat16"][0],
-            "max_rel_diff": worst["bfloat16"][3],
-            "tensor_cores": {
-                "kernel": "bfloat16_tc",
-                "source": "pillars_torch/csrc/rpn_sep_chain_bf16.cu",
-                "on_the_path": False, "max_abs_err": worst["bfloat16_tc"][2],
-                "max_share_differing": worst["bfloat16_tc"][0],
-                "max_rel_diff": worst["bfloat16_tc"][3],
-                "ms": best[(1, "bfloat16_tc")][0],
-                "device_ms": best[(1, "bfloat16_tc")][1],
-                "ms_b2": best[(2, "bfloat16_tc")][0],
-                "device_ms_b2": best[(2, "bfloat16_tc")][1]}}
+            "max_share_differing": share, "max_rel_diff": rel}
 
 
 def run_bf16_paths(state_cpu, batches, on_card, f32_times):
@@ -3412,6 +3386,17 @@ def run_captured(state_cpu, smi):
               f"{roof['bound_ms']:.4f} ms ({roof['bound_by']}: "
               f"{roof['flops']:.4g} FLOP, {roof['bytes']:.4g} B, "
               f"utils/roofline.py) [{smi}]")
+    # the full collection that cuda_graph._capture_graph runs before each
+    # capture, timed on this process's heap (the capture seconds above
+    # include it)
+    collect_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        gc.collect()
+        collect_s.append(time.perf_counter() - t)
+    result["gc_collect_s"] = collect_s
+    print(f"captured: the collection before each capture takes {collect_s} s "
+          f"on this heap ({len(gc.get_objects())} objects tracked)")
     result["pool_mib"] = pool_mib()
     print(f"phase 18 (captured inference): graph pool {result['pool_mib']:.1f}"
           f" MiB; {time.perf_counter() - t18:.1f} s [{smi}]")
@@ -3748,30 +3733,16 @@ def _stage_sums(state_cpu, smi):
     return out
 
 
-# the capture stress: fresh captured steps per variant and port of
-# ``_capture_graph``, with Python's collector at thresholds (1, 1, 1), and
-# then with a collection forced inside the capture
+# the capture stress: fresh captured steps per variant, with Python's
+# collector at thresholds (1, 1, 1), and then with a collection forced
+# inside the capture
 STRESS_ROUNDS = 20
 STRESS_FORCED_ROUNDS = 2
-
-
-def _parent_capture_graph(run):
-    """``cuda_graph._capture_graph`` as it was before it held Python's
-    collector off: the collector runs during the capture. The stress's
-    reference."""
-    from pillars_torch import cuda_graph
-
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=cuda_graph.graph_pool(),
-                          capture_error_mode="thread_local"):
-        out = run()
-    return graph, out
 
 
 def _forcing_collection(capture):
     """``capture`` with a collection run at the start of the captured body:
     what the collector may do there at any allocation."""
-    import gc
 
     def forced(run):
         return capture(lambda: (gc.collect(), run())[1])
@@ -3784,14 +3755,11 @@ def capture_stress(root):
     ``weights_59.pkl`` on phase 10's first batch, a fresh f32 and a fresh
     bf16 captured step (``make_train_step`` on one detector each) captured
     in turns, ``STRESS_ROUNDS`` times each, the step before left in a
-    reference cycle (as phase 19's loop drops its steps); first through the
-    port's ``_capture_graph``, then through the parent's, each with the
-    collector's thresholds at (1, 1, 1), and each also for
-    ``STRESS_FORCED_ROUNDS`` rounds with a collection forced inside the
-    capture. Returns the invalidated captures per port and variant and the
-    errors' first lines."""
-    import gc
-
+    reference cycle (as phase 19's loop drops its steps), with the
+    collector's thresholds at (1, 1, 1); then ``STRESS_FORCED_ROUNDS``
+    rounds with a collection forced inside the capture. A capture that
+    fails raises: none may. Returns the captures per mode and variant and
+    the seconds they took."""
     from pillars_torch import cuda_graph
     from pillars_torch.config import Config
     from pillars_torch.train.loop import batch_to_device, make_train_step
@@ -3806,64 +3774,36 @@ def capture_stress(root):
         step, _, state = _train_steps(c, state_cpu)
         setups[name] = (step.detector, step.opt, state)
         del step
-    ports = (("port", cuda_graph._capture_graph),
-             ("parent", _parent_capture_graph))
+    capture = cuda_graph._capture_graph
     result, t0 = {}, time.perf_counter()
-    stale_pools = []  # pools left recording by a failed capture, kept alive
     thresholds = gc.get_threshold()
     try:
-        for port, capture in ports:
-            for mode, rounds, fn in (
-                    ("thresholds", STRESS_ROUNDS, capture),
-                    ("forced", STRESS_FORCED_ROUNDS,
-                     _forcing_collection(capture))):
-                cuda_graph._capture_graph = fn
-                counts = {name: 0 for name in setups}
-                errors = {}
-                gc.set_threshold(1, 1, 1)
-                for _ in range(rounds):
-                    for name, (det, opt, state) in setups.items():
-                        # the step before is dropped here, into its cycle
-                        step = make_train_step(det, opt)
-                        step.cycle = step
-                        stream = torch.cuda.current_stream()
-                        try:
-                            step(_clone_state(state), batch)
-                        except RuntimeError as e:
-                            if "captur" not in str(e):
-                                raise
-                            # a failed capture leaves its capture stream
-                            # current and the allocator recording into the
-                            # graph pool (torch.cuda.graph's exit raised),
-                            # so that no later capture into that pool can
-                            # begin: the current stream back, and the
-                            # captures after it into a new pool
-                            torch.cuda.set_stream(stream)
-                            stale_pools.append(cuda_graph._pool)
-                            cuda_graph._pool = None
-                            counts[name] += 1
-                            first = str(e).strip().splitlines()[0][:160]
-                            errors[first] = errors.get(first, 0) + 1
-                            print(f"capture stress {port} {mode} {name}: "
-                                  f"{first}", file=sys.stderr, flush=True)
-                gc.set_threshold(*thresholds)
-                del step
-                torch.cuda.synchronize()
-                result[f"{port}_{mode}"] = {
-                    "rounds": rounds, "invalidated": counts,
-                    "errors": errors}
+        for mode, rounds, fn in (
+                ("thresholds", STRESS_ROUNDS, capture),
+                ("forced", STRESS_FORCED_ROUNDS, _forcing_collection(capture))):
+            cuda_graph._capture_graph = fn
+            gc.set_threshold(1, 1, 1)
+            for _ in range(rounds):
+                for det, opt, state in setups.values():
+                    # the step before is dropped here, into its cycle
+                    step = make_train_step(det, opt)
+                    step.cycle = step
+                    step(_clone_state(state), batch)
+            gc.set_threshold(*thresholds)
+            del step
+            torch.cuda.synchronize()
+            result[mode] = {name: rounds for name in setups}
     finally:
         gc.set_threshold(*thresholds)
-        cuda_graph._capture_graph = ports[0][1]
+        cuda_graph._capture_graph = capture
     result["seconds"] = time.perf_counter() - t0
     return result
 
 
 def _run_capture_stress(root, smi):
-    """Phase 19's capture stress in a child process (``--capture-stress``):
-    a capture that fails there leaves nothing behind in this one. Fails
-    unless the port's captures all held, under the thresholds and the
-    forced collection."""
+    """Phase 19's capture stress in a child process (``--capture-stress``),
+    whose heap holds the stress's steps and little else. Fails unless every
+    capture held, under the thresholds and the forced collection."""
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--capture-stress",
@@ -3872,17 +3812,11 @@ def _run_capture_stress(root, smi):
         raise AssertionError(f"capture stress: exit {proc.returncode}\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     r = json.loads(proc.stdout.strip().splitlines()[-1])
-    for key, v in r.items():
-        if key != "seconds":
-            print(f"capture stress {key}: {v['rounds']} rounds of a fresh "
-                  f"f32 and bf16 step, invalidated captures "
-                  f"{v['invalidated']}; errors {v['errors']}")
+    for mode in ("thresholds", "forced"):
+        print(f"capture stress {mode}: fresh captured steps {r[mode]}, "
+              f"0 invalidated")
     print(f"capture stress: {r['seconds']:.1f} s in the child, "
           f"{time.perf_counter() - t:.1f} s with its start [{smi}]")
-    for mode in ("thresholds", "forced"):
-        if any(r[f"port_{mode}"]["invalidated"].values()):
-            raise AssertionError(f"capture stress: the port's captures were "
-                                 f"invalidated ({mode}): {r}")
     return r
 
 

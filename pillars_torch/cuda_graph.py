@@ -365,7 +365,12 @@ def _capture_graph(run: Callable):
     destroys a dead one's graph on the capturing thread, a call that a
     capture does not permit, which invalidates it
     (``cudaErrorStreamCaptureInvalidated``; ``chip_smoke.py`` phase 19's
-    capture stress counts such captures with and without this)."""
+    capture stress). Holding the collector off is the repair; the full
+    collection before it frees dead callables' graphs and their memory
+    first, so that not even a collection called inside ``run`` finds one.
+    A collection of the young generations alone does not reach them: the
+    callables have aged into the oldest. It costs about 0.2 s per capture
+    on a large heap, once per shape (PERF.md §6)."""
     gc.collect()
     enabled = gc.isenabled()
     gc.disable()

@@ -1,29 +1,23 @@
-"""Wrappers of the fused RPN block kernels (``csrc/rpn_sep_block.cu``,
-``csrc/rpn_sep_chain_bf16.cu``).
+"""Wrappers of the fused RPN block kernel (``csrc/rpn_sep_block.cu``).
 
-The port of pillars_tpu/ops/rpn_pallas.py::fused_sep_block. A kernel runs a
-chain of blocks in one launch: :func:`fused_sep_chain` gives it packed
+The port of pillars_tpu/ops/rpn_pallas.py::fused_sep_block. The kernel runs
+a chain of blocks in one launch: :func:`fused_sep_chain` gives it packed
 blocks (the RPN's three), :func:`fused_sep_block` one block as folded
 layers. A float32 input runs the float32 kernel; a bfloat16 input the
 bfloat16 one (bfloat16 in and out, float32 inside each block, the Pallas
-kernel under ``runtime.compute_dtype=bfloat16``), both in
-``rpn_sep_block.cu`` with their products on the CUDA cores; any other
-dtype raises. ``kernel="bfloat16_tc"`` launches the bfloat16 kernel whose
-pointwise product runs on the tensor cores (three TF32 passes,
-``rpn_sep_chain_bf16.cu``): it computes the same function and is slower
-on the H100 in turns (PERF.md §6), so the path does not take it. A
-CUDA tensor launches a kernel (or raises); a CPU tensor takes the plain
+kernel under ``runtime.compute_dtype=bfloat16``); any other dtype raises. A
+CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin :func:`pillars_torch.ops.rpn_blocks.fused_sep_block_plain`.
 ``fused_sep_block.launches`` counts kernel launches of either wrapper and
-any kernel, ``fused_sep_block.launches_bf16`` those of a bfloat16 kernel
-among them.
+either dtype, ``fused_sep_block.launches_bf16`` those of the bfloat16
+kernel among them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -31,33 +25,14 @@ from pillars_torch.ops import _build
 from pillars_torch.ops.rpn_blocks import (FoldedLayer, PackedBlock,
                                           fused_sep_block_plain, pack_block)
 
-MAX_BLOCKS = 4  # blocks per launch (kMaxBlocks in the sources)
+MAX_BLOCKS = 4  # blocks per launch (kMaxBlocks in the source)
 DTYPES = (torch.float32, torch.bfloat16)
-# kernel name -> (input dtype, source in csrc/, C entry point); the first
-# of each dtype is the one a call takes unless it names another
-KERNELS = {
-    "float32": (torch.float32, "rpn_sep_block", "rpn_sep_chain"),
-    "bfloat16": (torch.bfloat16, "rpn_sep_block", "rpn_sep_chain_bf16"),
-    "bfloat16_tc": (torch.bfloat16, "rpn_sep_chain_bf16",
-                    "rpn_sep_chain_bf16_tc"),
-}
-
-
-def kernel_name(dtype: torch.dtype, kernel: Optional[str] = None) -> str:
-    """The kernel a ``dtype`` input launches: ``kernel`` if given (it must
-    take that dtype), else the dtype's own."""
-    if kernel is None:
-        return next(k for k, v in KERNELS.items() if v[0] == dtype)
-    if kernel not in KERNELS or KERNELS[kernel][0] != dtype:
-        raise ValueError(f"kernel {kernel!r} does not take {dtype}")
-    return kernel
 
 
 @functools.cache
-def _fn(kernel: str, defines: Tuple[str, ...] = ()):
-    _, source, entry = KERNELS[kernel]
-    fn = getattr(_build.load(source, defines), entry)
-    bf16 = KERNELS[kernel][0] == torch.bfloat16
+def _fn(defines: Tuple[str, ...] = (), bf16: bool = False):
+    lib = _build.load("rpn_sep_block", defines)
+    fn = lib.rpn_sep_chain_bf16 if bf16 else lib.rpn_sep_chain
     int_p, ptr_p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         int_p, int_p, int_p, ptr_p, ptr_p] + [ctypes.c_void_p] * (
@@ -85,9 +60,9 @@ def _check_block(block: PackedBlock, h: int, w: int, cin: int,
 
 
 def _launch(x: torch.Tensor, blocks: Sequence[PackedBlock],
-            couts: Sequence[int], kernel: str,
+            couts: Sequence[int],
             defines: Tuple[str, ...]) -> List[torch.Tensor]:
-    """One launch of ``kernel`` for up to MAX_BLOCKS validated blocks."""
+    """One kernel launch for up to MAX_BLOCKS validated blocks."""
     b, h, w, cin = x.shape
     bf16 = x.dtype == torch.bfloat16
     outs = []
@@ -108,32 +83,29 @@ def _launch(x: torch.Tensor, blocks: Sequence[PackedBlock],
         *(t.data_ptr() for t in ts))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _fn(kernel, defines)(
+        err = _fn(defines, bf16)(
             x.data_ptr(), *x.shape, n, ints(couts),
             ints([blk.num_layers for blk in blocks]),
             ints([blk.stride for blk in blocks]), ptrs(outs),
             ptrs([blk.packed for blk in blocks]), *scratch_ptrs, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel} RPN block kernel launch failed: CUDA "
-                           f"error {err} (1 also when a tile's buffers exceed "
-                           f"the SM's shared memory: fewer channels fit)")
+        raise RuntimeError(f"rpn_sep_block kernel launch failed: CUDA error "
+                           f"{err} (1 also when a tile's buffers exceed the "
+                           f"SM's shared memory: fewer channels fit)")
     fused_sep_block.launches += 1
     fused_sep_block.launches_bf16 += bf16
     return outs
 
 
 def fused_sep_chain(x: torch.Tensor, blocks: Sequence[PackedBlock],
-                    defines: Tuple[str, ...] = (),
-                    kernel: Optional[str] = None) -> List[torch.Tensor]:
+                    defines: Tuple[str, ...] = ()) -> List[torch.Tensor]:
     """x [B, H, W, C_in] NHWC, float32 or bfloat16, through ``blocks`` one
     after the other -> every block's output [B, H_i, W_i, C_i] in x's dtype,
-    in one launch per MAX_BLOCKS blocks. ``kernel`` names one of
-    ``KERNELS`` for x's dtype (default: the dtype's own); ``defines`` builds
-    and launches it with these ``-D`` flags (its instrumentation, see
+    in one launch per MAX_BLOCKS blocks. ``defines`` builds and launches the
+    kernel with these ``-D`` flags (its instrumentation, see
     utils/kernel_phases.py)."""
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    kernel = kernel_name(x.dtype, kernel)
     if x.device.type == "cpu":
         outs = []
         for blk in blocks:
@@ -162,7 +134,7 @@ def fused_sep_chain(x: torch.Tensor, blocks: Sequence[PackedBlock],
     outs = []
     for i in range(0, len(blocks), MAX_BLOCKS):
         outs += _launch(x, blocks[i:i + MAX_BLOCKS], couts[i:i + MAX_BLOCKS],
-                        kernel, tuple(defines))
+                        tuple(defines))
         x = outs[-1]
     return outs
 

@@ -1,26 +1,23 @@
-"""Where a fused RPN block kernel's time goes, layer by layer, on the card.
+"""Where the fused RPN block kernel's time goes, layer by layer, on the card.
 
     python -m pillars_torch.utils.kernel_phases [--dtype float32|bfloat16]
-        [--kernel NAME] [--batch 1] [--flush-l2] [--out FILE]
+        [--batch 1] [--flush-l2] [--out FILE]
 
-builds the kernel that ``--dtype`` launches (``ops/rpn_cuda.py``
-``KERNELS``: ``csrc/rpn_sep_block.cu`` for either dtype; ``--kernel
-bfloat16_tc`` the bfloat16 kernel with its product on the tensor cores,
-``csrc/rpn_sep_chain_bf16.cu``) with ``-DRPN_PHASE_CLOCKS`` (one thread of
+builds ``csrc/rpn_sep_block.cu`` with ``-DRPN_PHASE_CLOCKS`` (one thread of
 CTA 0 stamps ``clock64()`` at the phase boundaries of every layer), runs
-the three d435i blocks in one launch on random inputs in that dtype and
-folded weights (NumPy seed 0) and prints, per layer, the SM cycles CTA 0
-spent on: issuing the copies of its input halo (and, in a block's first
-layer, of its weights); waiting for them; the depthwise (and issuing the
-next layer's weight prefetch); the pointwise product (``bfloat16_tc``: the
-tensor-core product, to its slowest warp); the cross-warp reduction (not
-in ``bfloat16_tc``), bias, ReLU and stores; and the grid barrier, and the
-SM clock those cycles ran at (the span over the stamped launch's device
-time: a lower bound). The stamps cost a few hundred cycles per layer, so
-the launch is also timed without them. ``--flush-l2`` writes 256 MB
-between two launches, so that the kernel finds its weights and input in
-device memory as it does inside the inference path, where hundreds of
-other kernels run between two clouds. Needs a card; the numbers name it.
+the three d435i blocks in one launch of the kernel that ``--dtype``
+launches, on random inputs in that dtype and folded weights (NumPy seed
+0), and prints, per layer, the SM cycles CTA 0 spent on: issuing the
+copies of its input halo (and, in a block's first layer, of its weights);
+waiting for them; the depthwise (and issuing the next layer's weight
+prefetch); the pointwise product; the cross-warp reduction, bias, ReLU and
+stores; and the grid barrier, and the SM clock those cycles ran at (the
+span over the stamped launch's device time: a lower bound). The stamps
+cost a few hundred cycles per layer, so the launch is also timed without
+them. ``--flush-l2`` writes 256 MB between two launches, so that the
+kernel finds its weights and input in device memory as it does inside the
+inference path, where hundreds of other kernels run between two clouds.
+Needs a card; the numbers name it.
 """
 
 from __future__ import annotations
@@ -71,8 +68,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
-    ap.add_argument("--kernel", choices=tuple(rpn_cuda.KERNELS),
-                    help="a kernel of that dtype other than its own")
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--flush-l2", action="store_true",
                     help="write 256 MB between launches (cold L2)")
@@ -83,7 +78,6 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     dtype = getattr(torch, args.dtype)
-    kernel = rpn_cuda.kernel_name(dtype, args.kernel)
     x, blocks = d435i_blocks(Config.default().model, args.batch)
     x = x.to(dtype)
     n_layers = sum(b.num_layers + 1 for b in blocks)
@@ -93,7 +87,7 @@ def main():
     def run(defines=()):
         if flush is not None:
             flush.zero_()
-        return rpn_cuda.fused_sep_chain(x, blocks, defines, kernel)
+        return rpn_cuda.fused_sep_chain(x, blocks, defines)
 
     def kernel_ms(defines=()):
         rows = device_busy(lambda: run(defines), 50)[2]
@@ -103,8 +97,7 @@ def main():
     device_ms = kernel_ms()
     stamped_ms = kernel_ms(DEFINES)
     torch.cuda.synchronize()
-    read = _build.load(rpn_cuda.KERNELS[kernel][1],
-                       DEFINES).rpn_phase_clocks
+    read = _build.load("rpn_sep_block", DEFINES).rpn_phase_clocks
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
     buf = (ctypes.c_longlong * (n_layers * (len(PHASES) + 1)))()
@@ -117,7 +110,7 @@ def main():
     span = int(stamps[-1, -2] - stamps[0, 0])
 
     print(card)
-    print(f"{kernel} kernel, three blocks, B={args.batch}, one launch: "
+    print(f"{args.dtype} kernel, three blocks, B={args.batch}, one launch: "
           f"{device_ms * 1e3:.2f} us "
           f"device time{' after an L2 flush' if args.flush_l2 else ''} "
           f"({plain_ms * 1e3:.2f} us per back-to-back call); with "
@@ -134,7 +127,7 @@ def main():
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps({
-            "card": card, "kernel": kernel, "batch": args.batch,
+            "card": card, "dtype": args.dtype, "batch": args.batch,
             "flush_l2": args.flush_l2,
             "device_ms": device_ms,
             "call_ms": plain_ms, "stamped_device_ms": stamped_ms,

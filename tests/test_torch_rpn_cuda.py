@@ -1,6 +1,5 @@
-"""The fused RPN block kernels (csrc/rpn_sep_block.cu, float32 and
-bfloat16; csrc/rpn_sep_chain_bf16.cu, bfloat16 with the product on the
-tensor cores) against their plain twin, on the card.
+"""The fused RPN block kernel (csrc/rpn_sep_block.cu) against its plain twin,
+on the card.
 
 Marked ``cuda``: these skip without a GPU. On a machine with a card and no
 JAX run ``python -m pytest --noconftest tests/test_torch_rpn_cuda.py``
@@ -10,8 +9,7 @@ Tolerance: max |kernel - twin| <= 1e-5 * max |twin|; the same f32 products
 summed in another order (the kernel's FMAs, the twin's matmul). bfloat16 in
 and out: each rounds its f32 result once, so an element is within one
 bfloat16 step of the twin's, or, near 0 where a step is finer than the f32
-sums' own difference, within the same 1e-5 * max |twin|. The tensor-core
-kernel built with one TF32 pass in place of three must fail that check.
+sums' own difference, within the same 1e-5 * max |twin|.
 """
 
 import numpy as np
@@ -157,10 +155,10 @@ def test_kernel_rejects_bad_inputs(cuda_rpn):
                                  _layers(1, 6, 8, 0), 0, 1)
 
 
-# the bfloat16 kernel's own cases besides: K padded to a multiple of 8
-# (C_in 4, 12, 20; C_out 20 in every layer), pixel tiles that are not a
-# multiple of 16 pixels, and B = 8 at the three d435i block shapes (several
-# tiles per CTA, channel tiles changing between them)
+# the bfloat16 kernel's own cases besides: channel counts that are not a
+# multiple of 8 (C_in 4, 12, 20; C_out 20 in every layer), odd and ragged
+# pixel tiles, and B = 8 at the three d435i block shapes (several tiles per
+# CTA, channel tiles changing between them)
 BF16_SHAPES = SHAPES + [
     (2, 9, 11, 4, 8, 1, 1), (1, 10, 14, 12, 16, 2, 2),
     (3, 6, 10, 20, 20, 2, 1), (8, 64, 80, 128, 64, 3, 1),
@@ -168,16 +166,11 @@ BF16_SHAPES = SHAPES + [
 ]
 
 
-BF16_KERNELS = ["bfloat16", "bfloat16_tc"]
-
-
 # bfloat16 in and out, float32 inside each block: kernel and twin round
 # float32 results that agree within REL_TOL of their max once each
-@pytest.mark.parametrize("kernel", BF16_KERNELS)
 @pytest.mark.parametrize("b,h,w,cin,cout,n,stride", BF16_SHAPES)
-def test_bf16_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride,
-                                   kernel):
-    from pillars_torch.ops.rpn_blocks import fused_sep_block_plain, pack_block
+def test_bf16_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride):
+    from pillars_torch.ops.rpn_blocks import fused_sep_block_plain
     from torch_parity import bf16_rounded_close
 
     layers = _layers(b * 100 + n, cin, cout, n)
@@ -185,11 +178,7 @@ def test_bf16_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride,
         b, h, w, cin), 0).astype(np.float32)).cuda().to(torch.bfloat16)
     before = (cuda_rpn.fused_sep_block.launches,
               cuda_rpn.fused_sep_block.launches_bf16)
-    if kernel == "bfloat16":  # the path's, through the block wrapper
-        got = cuda_rpn.fused_sep_block(x, layers, n, stride)
-    else:
-        got = cuda_rpn.fused_sep_chain(x, [pack_block(layers, n, stride)],
-                                       kernel=kernel)[0]
+    got = cuda_rpn.fused_sep_block(x, layers, n, stride)
     torch.cuda.synchronize()
     assert (cuda_rpn.fused_sep_block.launches,
             cuda_rpn.fused_sep_block.launches_bf16) == (before[0] + 1,
@@ -197,39 +186,10 @@ def test_bf16_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride,
     want = fused_sep_block_plain(x, layers, n, stride)
     assert got.dtype == want.dtype == torch.bfloat16
     assert got.shape == want.shape == (b, h // stride, w // stride, cout)
-    bf16_rounded_close(got, want, REL_TOL,
-                       f"{kernel} {b}x{h}x{w}x{cin}->{cout}")
+    bf16_rounded_close(got, want, REL_TOL, f"bf16 {b}x{h}x{w}x{cin}->{cout}")
 
 
-def _bf16_case(shape):
-    """(x bfloat16 on the card, the packed block, its twin's output)."""
-    from pillars_torch.ops.rpn_blocks import fused_sep_block_plain, pack_block
-
-    b, h, w, cin, cout, n, stride = shape
-    layers = _layers(b * 100 + n, cin, cout, n)
-    x = torch.from_numpy(np.maximum(np.random.RandomState(b).randn(
-        b, h, w, cin), 0).astype(np.float32)).cuda().to(torch.bfloat16)
-    return x, pack_block(layers, n, stride), fused_sep_block_plain(
-        x, layers, n, stride)
-
-
-@pytest.mark.parametrize("shape", SHAPES[:6], ids=str)
-def test_one_tf32_pass_fails_the_check(cuda_rpn, shape):
-    """The tensor-core kernel built with -DRPN_TF32_ONE_PASS (a_hi b_hi
-    alone, in place of the three passes) at the d435i block shapes: the
-    check the kernel passes rejects it, so the check binds."""
-    from torch_parity import bf16_rounded_close
-
-    x, block, want = _bf16_case(shape)
-    got = cuda_rpn.fused_sep_chain(x, [block], ("RPN_TF32_ONE_PASS",),
-                                   "bfloat16_tc")[0]
-    torch.cuda.synchronize()
-    with pytest.raises(AssertionError):
-        bf16_rounded_close(got, want, REL_TOL, f"one TF32 pass {shape}")
-
-
-@pytest.mark.parametrize("kernel", BF16_KERNELS)
-def test_bf16_chain_matches_single_blocks(cuda_rpn, kernel):
+def test_bf16_chain_matches_single_blocks(cuda_rpn):
     """Three bfloat16 blocks in one launch give, bit for bit, what three
     launches of one block give (each block reads the bfloat16 output of
     the one before)."""
@@ -240,10 +200,11 @@ def test_bf16_chain_matches_single_blocks(cuda_rpn, kernel):
               for i, (cin, cout, n, s) in enumerate(shapes)]
     x = torch.from_numpy(np.maximum(np.random.RandomState(7).randn(
         2, 12, 20, 16), 0).astype(np.float32)).cuda().to(torch.bfloat16)
-    got = cuda_rpn.fused_sep_chain(x, blocks, kernel=kernel)
+    got = cuda_rpn.fused_sep_chain(x, blocks)
     y = x
     for g, blk in zip(got, blocks):
-        y = cuda_rpn.fused_sep_chain(y, [blk], kernel=kernel)[0]
+        y = cuda_rpn.fused_sep_block(y, blk.layers, blk.num_layers,
+                                     blk.stride)
         assert g.dtype == torch.bfloat16 and torch.equal(g, y)
 
 
@@ -294,11 +255,3 @@ def test_kernel_rejects_other_dtypes(cuda_rpn):
         with pytest.raises(TypeError):
             cuda_rpn.fused_sep_chain(x, [])
         assert cuda_rpn.fused_sep_block.launches == before
-
-
-def test_kernel_must_take_the_dtype(cuda_rpn):
-    x = torch.zeros(1, 6, 8, 8, device="cuda")
-    with pytest.raises(ValueError):
-        cuda_rpn.fused_sep_chain(x, [], kernel="bfloat16_tc")
-    with pytest.raises(ValueError):
-        cuda_rpn.fused_sep_chain(x.bfloat16(), [], kernel="float32")
