@@ -247,7 +247,15 @@ Phases, none of whose failures is caught:
    ``K3_TRAIN_CLOUDS`` clouds and its eval: the step count from 11100 on,
    the rate equal to the schedule's, the mean loss below ``K3_LOSS_GATE``,
    the eval's NMS launches equal to its batches, the aggregate AP above
-   ``K3_AP_FLOOR``.
+   ``K3_AP_FLOOR``;
+22. the port's headline benchmark as a user runs it: ``python -m
+   pillars_torch.cli bench`` in a child process for ``BENCH_RUNS`` (the
+   dense cell and the fast path in float32, the fast path in bfloat16),
+   ``BENCH_ITERS`` timed calls each: every child exits 0 and prints one
+   JSON line with the JAX benchmark's keys, a finite rate and the card's
+   name, its calls replay a captured graph, and the kernels' launches per
+   timed call are one NMS everywhere and one fused chain on the fast path
+   (bfloat16's counted as such); the lines and the launch counts printed.
 
 21. only with ``--ranks N`` (and then alone): the captured mesh paths over
    N NCCL ranks, one per card, from ``weights_59.pkl`` on the regenerated
@@ -4331,6 +4339,52 @@ def run_kitti3(smi):
     return out, launches, nms
 
 
+# --------------------------------------------------------------------------
+# phase 22: pillars-torch bench, one child process per path and dtype
+BENCH_RUNS = (("dense", "float32"), ("fast", "float32"),
+              ("fast", "bfloat16"))
+BENCH_ITERS = 1000
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mfu", "bound")
+
+
+def run_bench(smi):
+    """22: ``pillars-torch bench`` for each of ``BENCH_RUNS``."""
+    t22 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for path, dtype in BENCH_RUNS:
+        label = f"bench --path {path} --dtype {dtype}"
+        out = subprocess.run(
+            [sys.executable, "-m", "pillars_torch.cli", "bench", "--path",
+             path, "--dtype", dtype, "--iters", str(BENCH_ITERS)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"{label}: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        lines = out.stdout.strip().splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"{label}: {len(lines)} lines of output")
+        r = json.loads(lines[0])
+        missing = [k for k in BENCH_KEYS if k not in r]
+        if (missing or not np.isfinite(r["value"]) or r["value"] <= 0
+                or r["device"]["name"] != torch.cuda.get_device_name(0)
+                or not r["detail"]["captured"]):
+            raise AssertionError(f"{label}: missing {missing} or a bad "
+                                 f"line: {lines[0]}")
+        launches = r["detail"]["launches_per_call"]
+        fast = path == "fast"
+        want = {"nms_keep_mask.launches": 1.0,
+                "fused_sep_block.launches": float(fast),
+                "fused_sep_block.launches_bf16": float(
+                    fast and dtype == "bfloat16")}
+        if launches != want:
+            raise AssertionError(f"{label}: launches per timed call "
+                                 f"{launches}, want {want}")
+        print(f"{label}: {lines[0]}")
+        print(f"{label}: launches per timed call {launches} (one cloud per "
+              f"call; {smi})")
+    print(f"phase 22 (bench): {time.perf_counter() - t22:.1f} s")
+
+
 def main(argv=None):
     import argparse
 
@@ -4413,6 +4467,7 @@ def main(argv=None):
     kitti = run_kitti_second(smi)
     kitti3, kitti3_launches, nms["k1000"] = run_kitti3(smi)
     run_captured(state_cpu, smi)
+    run_bench(smi)
     nms["launches"] = dense["nms_keep_mask"]
     rpn["launches"] = fast["rpn_sep_block"]
     # kernel 2 in both dtypes, each a kernel of its own: the bfloat16

@@ -8,9 +8,11 @@
     pillars-torch sample-val-data --val-info INFOS.pkl ...
     pillars-torch capture --root DIR [--mode predefined|unannotated|annotate]
     pillars-torch visualize --root DATASET [--result result_<epoch>.pkl]
+    pillars-torch bench [--path dense|fast] [--dtype float32|bfloat16] ...
 
 Every command that runs the detector runs it on the card; ``--device cpu``
-asks for the CPU. ``bench`` is not ported yet and says so.
+asks for the CPU. ``bench`` is the port's headline benchmark
+(pillars_torch/bench.py): the captured batch-1 inference rate, one JSON line.
 
 ``train`` and ``evaluate`` with ``--set runtime.num_devices=N`` (N > 1)
 start N ranks (pillars_torch/parallel/launch.py): N NCCL ranks on N cards
@@ -27,12 +29,6 @@ import json
 import os
 import sys
 from typing import List, Optional
-
-# subcommands of the JAX package's CLI that a later slice of the port brings
-_NOT_PORTED = {
-    "bench": "the benchmark slice (bench_torch.py)",
-}
-
 
 def _load_config(args):
     from pillars_torch.config import Config
@@ -368,13 +364,6 @@ def cmd_visualize(args):
     print(f"rendered {count} frames to {args.out}")
 
 
-def cmd_not_ported(args):
-    raise SystemExit(
-        f"pillars-torch {args.cmd}: not ported yet; it comes with "
-        f"{_NOT_PORTED[args.cmd]}. The JAX package has it: "
-        f"pillars-tpu {args.cmd}")
-
-
 def main(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser(prog="pillars-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -514,13 +503,15 @@ def main(argv: Optional[List[str]] = None):
     sp.add_argument("--min-score", type=float, default=0.45)
     sp.set_defaults(fn=cmd_visualize)
 
-    for name, slice_ in _NOT_PORTED.items():
-        sp = sub.add_parser(name, help=f"not ported yet ({slice_})")
-        sp.set_defaults(fn=cmd_not_ported)
+    sp = sub.add_parser("bench",
+                        help="the headline benchmark: batch-1 inference "
+                             "rate on the card, one JSON line")
+    from pillars_torch import bench
 
-    args, rest = p.parse_known_args(argv)
-    if rest and args.cmd not in _NOT_PORTED:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    bench.add_arguments(sp)
+    sp.set_defaults(fn=bench.main)
+
+    args = p.parse_args(argv)
     return args.fn(args)
 
 

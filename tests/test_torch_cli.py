@@ -224,9 +224,24 @@ def test_sample_val_data_matches_jax(dataset):
 
 @pytest.mark.parametrize("cmd", ["bench"])
 def test_later_slices_say_so(cmd):
-    out = cli(cmd, "--config", "configs/pedestrian_d435i.yaml")
-    assert out.returncode != 0
-    assert f"pillars-torch {cmd}: not ported yet" in out.stderr
+    """The subcommand that came with the last slice of the port runs: on
+    the CPU when asked for, its JSON line on stdout; without a card and
+    without ``--device cpu`` it fails and says why."""
+    import math
+
+    import torch
+
+    out = cli(cmd, "--device", "cpu", "--path", "fast", "--dtype",
+              "bfloat16", "--n-clouds", "1", "--iters", "1")
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert math.isfinite(result["value"]) and result["value"] > 0
+    assert (result["detail"]["path"], result["detail"]["dtype"]) == (
+        "fast", "bfloat16")
+    if not torch.cuda.is_available():
+        out = cli(cmd, "--n-clouds", "1", "--iters", "1")
+        assert out.returncode != 0
+        assert "no CUDA device is available" in out.stderr
 
 
 def test_capture_synthetic_matches_jax(tmp_path):

@@ -55,6 +55,7 @@ sys.meta_path.insert(0, Block())
 import pillars_torch.models.detector, pillars_torch.ops.nms_cuda
 import pillars_torch.ops.rpn_cuda
 import pillars_torch.cli, pillars_torch.infer, pillars_torch.native
+import pillars_torch.bench
 import pillars_torch.data.stream, pillars_torch.data.pipeline
 import pillars_torch.data.synthetic, pillars_torch.data.kitti_infos
 import pillars_torch.train.trainer, pillars_torch.eval.kitti_ap
@@ -108,6 +109,7 @@ def test_weights_load_where_jax_cannot_import():
 def test_every_port_module_is_checked():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     for must in ("pillars_torch/cli.py", "pillars_torch/infer.py",
+                 "pillars_torch/bench.py",
                  "pillars_torch/data/stream.py",
                  "pillars_torch/train/trainer.py",
                  "pillars_torch/train/loop.py", "pillars_torch/train/optim.py",
