@@ -257,6 +257,27 @@ Phases, none of whose failures is caught:
    timed call are one NMS everywhere and one fused chain on the fast path
    (bfloat16's counted as such); the lines and the launch counts printed.
 
+23. ``configs/transfer_learning.yaml`` (stage 2 of the two-stage recipe:
+   ``freeze_patterns`` pfn and block1-block3, lr 0.005, no GT sampling)
+   from ``weights_59.pkl`` on the hard split, B=2, full width: (a) the
+   captured step for 3 steps (the first call, then replays), each against
+   the eager step from the same state by phase 19's criteria, the 67
+   frozen leaves bit-equal to the checkpoint's after them; the 15
+   trainable leaves' gradients, differentiated alone as the step does,
+   against ``forward_backward``'s every-leaf gradients (bit-equal under
+   cuDNN's deterministic mode, ``GRAD_RTOL`` under its defaults); one
+   step card against CPU by phase 10's tolerances; (b) the captured
+   transfer step and ``Config.default()``'s captured step on the same
+   weights and batch in turns (transfer, full, transfer, full): ms per
+   step, host wall, launches, device ms, idle share, capture s, graph
+   pool, each first call's and each eager step's peak memory, and the
+   eager transfer step's launches and device ms by stage; (c) a
+   ``Trainer`` epoch from ``train.load_weights`` on phase 11's 300 train
+   clouds with its eval on the 150 hard val clouds, beside the golden AP
+   of the checkpoint: losses finite, AP above ``AP1_FLOOR``, the frozen
+   leaves bit-equal to the loaded weights after the epoch, the eval's NMS
+   launches equal to its batches (the kernel line's ``transfer_eval``).
+
 21. only with ``--ranks N`` (and then alone): the captured mesh paths over
    N NCCL ranks, one per card, from ``weights_59.pkl`` on the regenerated
    hard split, two clouds per data rank: the checks of phase 17's NCCL
@@ -620,6 +641,195 @@ def _clouds(max_points, batch, n_clouds, n=19200):
             pts[c, b, :n, 1] = rng.uniform(-2.56, 2.56, n)
             pts[c, b, :n, 2] = rng.uniform(-3.0, 3.0, n)
     return pts, np.full((batch,), n, np.int32)
+
+
+# --------------------------------------------------------------------------
+# phase 23: configs/transfer_learning.yaml, the captured fine-tune step
+TL_CONFIG = CONFIGS / "transfer_learning.yaml"
+TL_TRAINABLE = 15  # of the 82 parameter tensors: the deconvs and the heads
+
+
+def _tl_config(root):
+    """``transfer_learning.yaml`` on the hard split under ``root``, from
+    ``weights_59.pkl`` (the stage-1 checkpoint)."""
+    from pillars_torch.config import Config
+
+    return (_with_split(Config.from_yaml(str(TL_CONFIG)), root)
+            .override("train.load_weights", str(WEIGHTS)))
+
+
+def _frozen_against_every_leaf(det, state, batch, thr):
+    """The trainable leaves' gradients of ``batch`` at ``state``, taken
+    with only those leaves differentiated (the transfer step's) and with
+    every leaf (``forward_backward``'s): (max of each leaf's |diff| over
+    its max, the leaves not bit-equal, whether the loss parts are)."""
+    from pillars_torch.train.loop import gradients
+
+    names = list(state.opt_state.mu)
+    part = gradients(det, state.params, state.batch_stats, batch, thr, names)
+    full = gradients(det, state.params, state.batch_stats, batch, thr)
+    if list(part.grads) != names or len(full.grads) != len(state.params):
+        raise AssertionError(f"transfer gradients: {len(part.grads)} and "
+                             f"{len(full.grads)} leaves")
+    err = max(_max_rel(part.grads[k], full.grads[k].cpu()) for k in names)
+    differ = [k for k in names if not torch.equal(part.grads[k],
+                                                  full.grads[k])]
+    loss_equal = all(torch.equal(a, b) for a, b in zip(part.loss, full.loss))
+    return err, differ, loss_equal
+
+
+def _first_call_mib(step, state, on_card):
+    """The captured step's first call (the body on a side stream, then its
+    capture): (the state it returns, the peak device memory it allocated
+    above what was allocated before, MiB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, on_card)
+    torch.cuda.synchronize()
+    return state, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def _tl_parity(cfg, state_cpu, batches, smi):
+    """23a: the captured transfer step against the eager one, the frozen
+    leaves after it, the trainable gradients against every leaf's, one
+    step card against CPU."""
+    from pillars_torch.models.detector import PillarsDetector
+
+    thr = cfg.train_input.anchor_area_threshold
+    step, _, state = _train_steps(cfg, state_cpu)
+    trainable = list(state.opt_state.mu)
+    frozen = [k for k in state.params if k not in state.opt_state.mu]
+    if len(trainable) != TL_TRAINABLE:
+        raise AssertionError(f"transfer: {len(trainable)} trainable leaves")
+    lr = float(step.opt.schedule(0))
+    worst, bitwise, state = _replays_against_eager(
+        "captured transfer step", step, state, batches, lr)
+    moved = [k for k in frozen
+             if not torch.equal(state.params[k].cpu(), state_cpu[k])]
+    if moved:
+        raise AssertionError(f"transfer: frozen leaves moved {moved}")
+    if any(torch.equal(state.params[k].cpu(), state_cpu[k])
+           for k in trainable):
+        raise AssertionError("transfer: a trainable leaf did not move")
+    n_frozen = sum(state_cpu[k].numel() for k in frozen)
+    n_all = sum(state_cpu[k].numel() for k in state.params)
+    print(f"captured transfer step B=2 full width, 3 steps (the first call, "
+          f"then replays) each against the eager step from the same state: "
+          f"loss parts, rate and positives equal; new BN statistics max rel "
+          f"{worst['stats']:.3e}, moments {worst['mu']:.3e} / "
+          f"{worst['nu']:.3e} of each leaf's max (tol {GRAD_RTOL}), "
+          f"parameters {worst['params_over_lr']:.3e} rates (tol 2); "
+          f"bit-equal: {bitwise}; {len(frozen)} frozen leaves "
+          f"({n_frozen} of {n_all} elements) bit-equal to weights_59.pkl's, "
+          f"{len(trainable)} trainable moved [{smi}]")
+
+    det = step.detector
+    fresh, _ = _train_state(det, state_cpu)
+    det_err, det_differ, det_loss = _deterministic(
+        lambda: _frozen_against_every_leaf(det, fresh, batches[0], thr))
+    err, differ, loss_equal = _frozen_against_every_leaf(det, fresh,
+                                                         batches[0], thr)
+    print(f"transfer gradients, {len(trainable)} trainable leaves "
+          f"differentiated alone against forward_backward's every leaf: "
+          f"cuDNN deterministic: loss parts bit-equal {det_loss}, "
+          f"{len(det_differ)} leaves not bit-equal {det_differ}, max "
+          f"{det_err:.3e} of each leaf's max; cuDNN's defaults: loss parts "
+          f"bit-equal {loss_equal}, {len(differ)} not bit-equal, max "
+          f"{err:.3e} (tol {GRAD_RTOL}) [{smi}]")
+    if det_differ or not det_loss:
+        raise AssertionError(f"transfer gradients under cuDNN's "
+                             f"deterministic mode: {det_differ}")
+    if not err <= GRAD_RTOL:
+        raise AssertionError(f"transfer gradients: {err} of max")
+
+    det_cpu = PillarsDetector(cfg, device="cpu")
+    state_h, _ = _train_state(det_cpu, state_cpu)
+    host = {k: v.cpu() for k, v in batches[0].items()}
+    line = _step_close(det, det_cpu, fresh, state_h, host, thr,
+                       names=trainable)
+    print(f"transfer step B=2 full width, card vs CPU: {line}")
+    return {**worst, "bitwise": bitwise, "frozen_leaves": len(frozen),
+            "frozen_elements": n_frozen, "elements": n_all,
+            "grad_max_rel_deterministic": det_err,
+            "grad_max_rel": err, "grad_leaves_differing": differ}
+
+
+def _tl_turns(cfg, full_cfg, state_cpu, on_card, smi):
+    """23b: the captured transfer step and ``Config.default()``'s captured
+    step from the same weights on the same batch, in turns (transfer,
+    full, transfer, full); each first call's peak memory and each eager
+    step's peak above the state."""
+    steps, first, eager_mib = {}, {}, {}
+    for name, c in (("transfer", cfg), ("full", full_cfg)):
+        step, eager, state = _train_steps(c, state_cpu)
+        eager_mib[name] = _eager_peak_mib(eager, _clone_state(state),
+                                          on_card)
+        state, first[name] = _first_call_mib(step, state, on_card)
+        steps[name] = (step, state)
+    turns = []
+    for name in ("transfer", "full", "transfer", "full"):
+        step, state = steps[name]
+        t = _time_train_step(step, _clone_state(state), on_card, True)
+        t.update(step=name, first_call_peak_mib=first[name],
+                 eager_peak_mib=eager_mib[name])
+        turns.append(t)
+        print(f"{name} step B=2 full width in turns: {_step_line(t)}; "
+              f"first call peak {first[name]:.1f} MiB above what was "
+              f"allocated, eager step peak {eager_mib[name]:.1f} MiB above "
+              f"the state [{smi}]")
+    return turns
+
+
+def run_transfer(state_cpu, smi, root):
+    """Phase 23: configs/transfer_learning.yaml from ``weights_59.pkl``
+    on the hard split; returns its numbers and the eval's NMS launches."""
+    from pillars_torch.config import Config
+    from pillars_torch.train.loop import batch_to_device
+    from pillars_torch.train.optim import trainable_names
+
+    t23 = time.perf_counter()
+    cfg = _tl_config(root)
+    t0 = time.perf_counter()
+    host = _train_batches(cfg, 10)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / 10
+    batches = [batch_to_device(b, CARD) for b in host[:3]]
+    result = {"loader_ms_per_batch": loader_ms,
+              "parity": _tl_parity(cfg, state_cpu, batches, smi)}
+    full = _with_split(Config.default(), root)
+    result["turns"] = _tl_turns(cfg, full, state_cpu, batches[0], smi)
+    result["stages"] = _train_stages(cfg, state_cpu, batches[0],
+                                     result["turns"], smi,
+                                     label="transfer step")
+
+    golden = json.loads(GOLDEN.read_text())["aggregate"]
+    out = os.path.join(root, "runs_transfer")
+    r = _trainer_epoch(_train_cfg(root, out, 300, cfg=cfg), 0, params=True)
+    trainable = trainable_names(r["params"],
+                                cfg.train.optimizer.freeze_patterns)
+    frozen = [k for k in r["params"] if k not in trainable]
+    moved = [k for k in frozen if not torch.equal(r["params"][k],
+                                                  state_cpu[k])]
+    print(f"Trainer transfer_learning.yaml from weights_59.pkl, "
+          f"{_epoch_line(r, 0, 300)} (weights_59.pkl itself: golden "
+          f"{golden:.3f}); losses finite {r['finite']}; {len(frozen)} "
+          f"frozen leaves bit-equal to the loaded weights: {not moved}; the "
+          f"loader makes one batch in {loader_ms:.1f} ms on one thread "
+          f"[{smi}]")
+    if not r["finite"]:
+        raise AssertionError("transfer Trainer: a loss is not finite")
+    if not r["ap"] > AP1_FLOOR:
+        raise AssertionError(f"transfer Trainer: aggregate AP {r['ap']} not "
+                             f"above {AP1_FLOOR}")
+    if moved or len(frozen) != len(r["params"]) - TL_TRAINABLE:
+        raise AssertionError(f"transfer Trainer: frozen leaves moved "
+                             f"{moved}")
+    result["trainer"] = {k: v for k, v in r.items()
+                         if k not in ("dirs", "params")}
+    result["seconds"] = time.perf_counter() - t23
+    print(f"phase 23 (transfer learning): {result['seconds']:.1f} s [{smi}]")
+    print("transfer: " + json.dumps(result))
+    return result
 
 
 def _reset_counts():
@@ -1195,17 +1405,22 @@ def _rel_l2(got, want):
 
 
 def _step_close(det, det_cpu, state, state_h, batch, thr, grad_l2=None,
-                fb_h=None):
+                fb_h=None, names=None):
     """One batch's targets, loss parts, gradients and new BN statistics on
     the card (``det``, ``state``) against the CPU's (``fb_h``, computed
     unless given); returns the line that says how close. The gradients are
     held to ``GRAD_RTOL`` of each leaf's max or, with ``grad_l2``, by each
-    leaf's relative L2."""
-    from pillars_torch.train.loop import forward_backward
+    leaf's relative L2. ``names``: the leaves to differentiate, as the
+    train step does (default every one)."""
+    from pillars_torch.train.loop import batch_to_device, gradients
 
-    fb = forward_backward(det, state, batch, thr)
+    def fb_of(d, st):
+        return gradients(d, st.params, st.batch_stats,
+                         batch_to_device(batch, d.device), thr, names)
+
+    fb = fb_of(det, state)
     if fb_h is None:
-        fb_h = forward_backward(det_cpu, state_h, batch, thr)
+        fb_h = fb_of(det_cpu, state_h)
     torch.cuda.synchronize()
     if not torch.equal(fb.targets.labels.cpu(), fb_h.targets.labels):
         raise AssertionError("train step: labels differ between card and CPU")
@@ -1368,6 +1583,17 @@ def _step_turns(cfg, state_cpu, on_card, host=None):
             for v in ("eager", "captured", "captured", "eager")]
 
 
+def _eager_peak_mib(eager, state, on_card):
+    """Peak device memory of an eager step above the state (MiB)."""
+    eager(state, on_card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager(state, on_card)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
 def _step_memory(cfg, state_cpu, on_card, host=None):
     """Peak device memory of an eager step above the state with
     ``rpn.remat`` off and on (MiB)."""
@@ -1375,13 +1601,7 @@ def _step_memory(cfg, state_cpu, on_card, host=None):
     for remat in (False, True):
         _, eager, state = _train_steps(
             cfg.override("model.rpn.remat", remat), state_cpu, host)
-        eager(state, on_card)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        eager(state, on_card)
-        torch.cuda.synchronize()
-        peak[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        peak[remat] = _eager_peak_mib(eager, state, on_card)
     return {"peak_mib_remat_off": peak[False],
             "peak_mib_remat_on": peak[True]}
 
@@ -1420,13 +1640,15 @@ def _train_cfg(root, out, n_clouds, cfg=None):
             .override("train_input.info_path", train_info))
 
 
-def _trainer_epoch(cfg, epoch, resume=None, eager=False):
+def _trainer_epoch(cfg, epoch, resume=None, eager=False, params=False):
     """Epoch ``epoch`` of a new ``Trainer(cfg)`` (from ``PillarsDetector.
-    init``, or resumed from ``resume``: an earlier result's
-    weights_temp.pkl, or a (checkpoint path, step) pair) with its eval: the
-    losses and rates of its steps, its NMS launches and its times; its
-    captured step, or with ``eager`` the eager one. Gates: the state on the
-    card, the eval's NMS launches equal to its batches."""
+    init``, or ``train.load_weights``, or resumed from ``resume``: an
+    earlier result's weights_temp.pkl, or a (checkpoint path, step) pair)
+    with its eval: the losses and rates of its steps, whether all were
+    finite, its NMS launches and its times, and with ``params`` the
+    parameters after the epoch; its captured step, or with ``eager`` the
+    eager one. Gates: the state on the card, the eval's NMS launches equal
+    to its batches."""
     from pillars_torch.train.loop import CapturedTrainStep
     from pillars_torch.train.trainer import Trainer
 
@@ -1478,13 +1700,17 @@ def _trainer_epoch(cfg, epoch, resume=None, eager=False):
                              f"{[e[1] for e in evals]} for {batches} "
                              f"batches")
     loss = torch.stack(losses).float().cpu()
-    return {"dirs": trainer.dirs, "steps": trainer.state.step,
-            "n_steps": len(losses), "seconds": seconds,
-            "first_loss": float(loss[0]), "last50": float(loss[-50:].mean()),
-            "mean_loss": float(loss.mean()), "first_rate": float(rates[0]),
-            "ap": evals[0][0], "eval_seconds": evals[0][2],
-            "nms_launches": evals[0][1],
-            "recal_batches": len(trainer.evaluator._recal_batches or ())}
+    out = {"dirs": trainer.dirs, "steps": trainer.state.step,
+           "n_steps": len(losses), "seconds": seconds,
+           "first_loss": float(loss[0]), "last50": float(loss[-50:].mean()),
+           "mean_loss": float(loss.mean()), "first_rate": float(rates[0]),
+           "finite": bool(torch.isfinite(loss).all()),
+           "ap": evals[0][0], "eval_seconds": evals[0][2],
+           "nms_launches": evals[0][1],
+           "recal_batches": len(trainer.evaluator._recal_batches or ())}
+    if params:
+        out["params"] = {k: v.cpu() for k, v in trainer.state.params.items()}
+    return out
 
 
 def _epoch_line(r, epoch, n_clouds):
@@ -3602,13 +3828,10 @@ def _gradients_graph(det, state, batch, thr):
     return err, differ
 
 
-def _deterministic_replay(cfg, state_cpu, batches, algorithms, cudnn):
-    """The f32 step with ``torch.use_deterministic_algorithms(algorithms,
-    warn_only=True)`` and ``cudnn.deterministic = cudnn``: whether two eager
-    steps from one state agree bit for bit, whether replays then equal
-    eager bit for bit, and the ops PyTorch names as nondeterministic."""
-    import warnings
-
+def _deterministic(fn, algorithms=True, cudnn=True):
+    """``fn()`` with ``torch.use_deterministic_algorithms(algorithms,
+    warn_only=True)``, ``cudnn.deterministic = cudnn`` and cuDNN's
+    benchmark off; the flags restored after."""
     flags = (torch.are_deterministic_algorithms_enabled(),
              torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
@@ -3616,21 +3839,35 @@ def _deterministic_replay(cfg, state_cpu, batches, algorithms, cudnn):
     torch.backends.cudnn.deterministic = cudnn
     torch.backends.cudnn.benchmark = False
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            step, eager, state = _train_steps(cfg, state_cpu)
-            a = eager(_clone_state(state), batches[0])[0]
-            b = eager(_clone_state(state), batches[0])[0]
-            reproducible = all(torch.equal(a.params[k], b.params[k])
-                               for k in a.params)
-            _, bitwise, _ = _replays_against_eager(
-                "deterministic f32", step, state, batches,
-                float(step.opt.schedule(0)))
-            torch.cuda.synchronize()
+        return fn()
     finally:
         torch.use_deterministic_algorithms(flags[0])
         torch.backends.cudnn.deterministic = flags[1]
         torch.backends.cudnn.benchmark = flags[2]
+
+
+def _deterministic_replay(cfg, state_cpu, batches, algorithms, cudnn):
+    """The f32 step with ``torch.use_deterministic_algorithms(algorithms,
+    warn_only=True)`` and ``cudnn.deterministic = cudnn``: whether two eager
+    steps from one state agree bit for bit, whether replays then equal
+    eager bit for bit, and the ops PyTorch names as nondeterministic."""
+    import warnings
+
+    def run():
+        step, eager, state = _train_steps(cfg, state_cpu)
+        a = eager(_clone_state(state), batches[0])[0]
+        b = eager(_clone_state(state), batches[0])[0]
+        reproducible = all(torch.equal(a.params[k], b.params[k])
+                           for k in a.params)
+        _, bitwise, _ = _replays_against_eager(
+            "deterministic f32", step, state, batches,
+            float(step.opt.schedule(0)))
+        torch.cuda.synchronize()
+        return reproducible, bitwise
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reproducible, bitwise = _deterministic(run, algorithms, cudnn)
     return {"eager_reproducible": reproducible, "replay_bitwise": bitwise,
             "nondeterministic_ops": _nondeterministic_ops(caught)}
 
@@ -4461,13 +4698,14 @@ def main(argv=None):
         print(f"phase 16 (bf16 training): {time.perf_counter() - t16:.1f} s")
         parallel = run_parallel(state_cpu, smi, root)
         run_captured_train(state_cpu, smi, root)
+        second_dense = run_second_dense(smi)
+        kitti = run_kitti_second(smi)
+        kitti3, kitti3_launches, nms["k1000"] = run_kitti3(smi)
+        run_captured(state_cpu, smi)
+        run_bench(smi)
+        transfer = run_transfer(state_cpu, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    second_dense = run_second_dense(smi)
-    kitti = run_kitti_second(smi)
-    kitti3, kitti3_launches, nms["k1000"] = run_kitti3(smi)
-    run_captured(state_cpu, smi)
-    run_bench(smi)
     nms["launches"] = dense["nms_keep_mask"]
     rpn["launches"] = fast["rpn_sep_block"]
     # kernel 2 in both dtypes, each a kernel of its own: the bfloat16
@@ -4487,6 +4725,7 @@ def main(argv=None):
         **{k: v["nms_keep_mask"] for k, v in serving.items()},
         "train_eval": sum(r["nms_launches"] for r in trainer_runs),
         "train_eval_bf16": bf16_trainer["nms_launches"],
+        "transfer_eval": transfer["trainer"]["nms_launches"],
         **{k: sum(c["nms_keep_mask"] for c in v)
            for k, v in second_paths.items()},
         **{f"{k}_bf16": v["nms_keep_mask"] for k, v in bf16.items()},

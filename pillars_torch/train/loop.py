@@ -17,7 +17,8 @@ none of the tensors handed in changes.
 Over several ranks (the detector's ``mesh``, pillars_torch/parallel/), each
 rank passes its block of the global batch (``parallel.shard_batch``); the
 train-mode BNs reduce their statistics over the ranks, and after the
-backward ONE all-reduce over a flat buffer of every gradient leaf sums them
+backward ONE all-reduce over a flat buffer of every gradient leaf (of the
+trainable parameters: a frozen one takes no gradient) sums them
 over the spatial ranks and averages them over the data ranks. AdamW then
 runs alike on every rank, so the parameters stay identical. Loss parts
 (each rank's divided by its own batch) are averaged and ``num_positives``
@@ -33,7 +34,7 @@ Batch layout (dense, padded; NumPy arrays or tensors):
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -145,10 +146,18 @@ def forward_backward(detector: PillarsDetector, state: TrainState, batch,
 
 def gradients(detector: PillarsDetector, params: Dict[str, torch.Tensor],
               batch_stats: Dict[str, torch.Tensor],
-              batch: Dict[str, torch.Tensor], thr: float) -> Gradients:
+              batch: Dict[str, torch.Tensor], thr: float,
+              names: Optional[Sequence[str]] = None) -> Gradients:
     """:func:`forward_backward`'s body on a batch on the device: no host
     sync, no host constant (what a graph captures), and over a mesh the
-    collectives."""
+    collectives.
+
+    ``names``: the parameters to differentiate (default every one); the
+    others go in as constants, so the backward stops at the first layer
+    that holds a named parameter, as XLA drops what optax's
+    ``set_to_zero`` never reads (``freeze_patterns``). ``grads`` holds the
+    named leaves alone, and over a mesh only they are summed. The frozen
+    layers' BN statistics are updated all the same."""
     with torch.no_grad():
         with record_function("voxelize"):
             vox = detector.voxelize_batch(batch["points"],
@@ -160,19 +169,21 @@ def gradients(detector: PillarsDetector, params: Dict[str, torch.Tensor],
             targets = detector.assign_targets(
                 batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
                 amask)
+    names = list(params) if names is None else list(names)
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
+                  for k, v in params.items() if k in names}
         with record_function("forward"):
-            preds, new_stats = detector.apply({**leaves, **batch_stats},
-                                              vox, train=True)
+            preds, new_stats = detector.apply(
+                {**params, **leaves, **batch_stats}, vox, train=True)
         with record_function("loss"):
             out = detector.loss(preds, targets.labels, targets.bbox_targets)
         with record_function("backward"):
-            grads = torch.autograd.grad(out.loss, list(leaves.values()),
+            grads = torch.autograd.grad(out.loss,
+                                        [leaves[k] for k in names],
                                         allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(params.items(), grads)}
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, grads)}
     out = LossOutput(*(t.detach() for t in out))
     n_pos = (targets.labels > 0).sum(dtype=torch.int32)
     if detector.mesh is not None:
@@ -207,8 +218,10 @@ def train_body(detector: PillarsDetector, opt: AdamW, thr: float,
                ) -> StepOutput:
     """One step on device tensors, the same for the eager and the captured
     step. ``counts``: int32 [2] on the device, the state's step (the rate
-    of the metrics) and Adam's count (the update's)."""
-    fb = gradients(detector, params, batch_stats, batch, thr)
+    of the metrics) and Adam's count (the update's). Only the leaves that
+    Adam moves (``mu``'s: every one unless ``freeze_patterns``) are
+    differentiated."""
+    fb = gradients(detector, params, batch_stats, batch, thr, names=mu)
     with record_function("adamw"):
         new_params, new_mu, new_nu = opt.step(fb.grads, mu, nu, params,
                                               counts[1])

@@ -47,8 +47,8 @@ from pillars_torch import cuda_graph
 from pillars_torch.config import Config as TorchConfig
 from pillars_torch.models.detector import PillarsDetector as TorchDetector
 from pillars_torch.models.detector import Predictions
-from torch_parity import (compare_predictions, d435i_clouds, fast_config,
-                          small_config)
+from torch_parity import (SMALL_OVERRIDES, compare_predictions,
+                          d435i_clouds, fast_config, small_config)
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -122,6 +122,16 @@ def _bf16(cfg):
     return cfg.override("runtime.compute_dtype", "bfloat16")
 
 
+def _transfer_learning():
+    """configs/transfer_learning.yaml (its train body differentiates only
+    the leaves that ``freeze_patterns`` leaves trainable)."""
+    cfg = TorchConfig.from_yaml(str(ROOT / "configs"
+                                    / "transfer_learning.yaml"))
+    for key, value in SMALL_OVERRIDES:
+        cfg = cfg.override(key, value)
+    return cfg
+
+
 # every single-process inference config, at the widths of the other tests
 CONFIGS = {
     "dense_cell": lambda: small_config(TorchConfig),
@@ -135,6 +145,7 @@ CONFIGS = {
     "second_d435i": lambda: _reduced_second("second_d435i"),
     "kitti_second": _kitti_second,
     "kitti_3class": _kitti_3class,
+    "transfer_learning": _transfer_learning,
 }
 
 

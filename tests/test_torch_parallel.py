@@ -39,7 +39,9 @@ Counterparts, with their tolerances:
   parts within 1e-6 relative, gradients within 1e-5 of each leaf's max,
   new BN statistics within 1e-6 of each one's max; bfloat16 by the training
   criteria of tests/torch_parity.py (against the single-process bf16-f32
-  gap);
+  gap); under configs/transfer_learning.yaml's ``freeze_patterns`` the
+  step's flat all-reduce carries the 15 trainable gradient leaves alone,
+  each within 1e-5 of its max of the single-process gradients;
 - ``runtime.spatial_axis`` without a mesh that defines it raises; more
   NCCL ranks than cards raise;
 - the captured paths over a data mesh and 2 bands (the 2-rank spawn's
@@ -94,6 +96,8 @@ SMALL_2D = (("model.voxel.max_voxels", 1024),   # test_spatial_train's
 SPATIAL = (("runtime.spatial_axis", "spatial"),)
 REMAT = (("model.rpn.remat", True),)
 REMAT_BF16 = (("model.rpn.remat_bf16", True),)
+FREEZE = (("train.optimizer.freeze_patterns",
+           ["pfn", "block1", "block2", "block3"]),)
 POINT_MAJOR = (("model.pfn.dense_cell", False),)  # inference runs the band
 HEAD_TOL = 1e-5
 JAX_RTOL, JAX_ATOL = 1e-3, 1e-4
@@ -220,11 +224,15 @@ def runs2(inputs, tmp_path_factory):
               for extra, mesh in (((), (("data", 2),)),
                                   (SPATIAL + POINT_MAJOR,
                                    (("spatial", 2),)))]
+    # configs/transfer_learning.yaml's freeze over the data ranks
+    cases.append(dict(overrides=TRAIN_OVERRIDES + FREEZE,
+                      mesh=(("data", 2),), state=_arrays(inputs["dp_state"]),
+                      batch=inputs["dp_batch"], ops=["flat_reduce"]))
     for case in cases[2:4]:
         case["mesh"] = (("spatial", 2),)
     out = spawn_cases(str(tmp_path_factory.mktemp("ranks2")), 2, cases)
     return dict(zip(("float32", "bfloat16", "remat", "remat_bf16",
-                     "capture_data", "capture_spatial"), out))
+                     "capture_data", "capture_spatial", "frozen"), out))
 
 
 # ----------------------------------------------------------------------
@@ -469,6 +477,48 @@ def test_data_parallel_f32_step_matches_single_process(inputs, runs2):
     m, want = got[1]["steps"][0]["metrics"], steps[0]["metrics"]
     for name, g, w in zip(m._fields, m, want):
         np.testing.assert_allclose(float(g), float(w), rtol=DP_LOSS_RTOL,
+                                   atol=1e-9, err_msg=name)
+
+
+def test_data_parallel_step_under_the_freeze(inputs, runs2):
+    """configs/transfer_learning.yaml's ``freeze_patterns`` over 2 data
+    ranks: the step's flat all-reduce of the gradients carries the 15
+    trainable leaves alone, in the same order on both ranks, and each
+    within 1e-5 of its max of the single-process gradients; after the step
+    both ranks hold the same parameters, the frozen ones the state's bit
+    for bit and the trainable ones the single-process step's by the 2 x 2
+    mesh test's criterion (Adam's first step divides each gradient by its
+    own magnitude, which turns the gradients' f32 noise into a few ulps of
+    a parameter where a gradient is near 0)."""
+    over = TRAIN_OVERRIDES + FREEZE
+    fb, steps = _port_grads(over, inputs["dp_state"], inputs["dp_batch"])
+    start = split_state(inputs["dp_state"])[0]
+    outs = [r["flat_reduce"] for r in runs2["frozen"]]
+    trainable = outs[0]["trainable"]
+    assert len(trainable) == 15 and len(start) > 15
+    for o in outs:
+        assert o["trainable"] == trainable
+        grads, losses = o["calls"]  # the gradients, then the loss parts
+        assert len(grads) == len(trainable)
+        assert len(losses) == len(fb.loss) + 1  # and num_positives
+        for k, g in zip(trainable, grads):
+            w = fb.grads[k]
+            np.testing.assert_allclose(
+                g.numpy(), w.numpy(), rtol=0,
+                atol=DP_GRAD_TOL * float(w.abs().max()), err_msg=k)
+    _same_on_every_rank(outs, "params")
+    want = steps[0]["params"]
+    for k, p in outs[0]["params"].items():
+        if k not in trainable:
+            assert torch.equal(p, start[k]) and torch.equal(want[k], p), k
+            continue
+        assert not torch.equal(want[k], start[k]), k
+        g, w = p.numpy(), want[k].numpy()
+        bad = np.abs(g - w) > 2e-5 + 2e-3 * np.abs(w)
+        assert bad.mean() <= 0.01, (k, int(bad.sum()), bad.size)
+    m, w = outs[0]["metrics"], steps[0]["metrics"]
+    for name, g, v in zip(m._fields, m, w):
+        np.testing.assert_allclose(float(g), float(v), rtol=DP_LOSS_RTOL,
                                    atol=1e-9, err_msg=name)
 
 

@@ -14,8 +14,10 @@ on the CPU, where nothing can be captured:
 - the wrappers with a stand-in for the graph (the capture runs the body
   and restores the state it wrote, as a capture executes nothing; a replay
   reruns it): captured steps against the eager step from the same state,
-  bit for bit (the same ops on the CPU), with and without metrics; the
-  donation (the state returned holds the static tensors, a state other
+  bit for bit (the same ops on the CPU), with and without metrics, and
+  under configs/transfer_learning.yaml's freeze, whose graph writes back
+  only the trainable parameters (the frozen static tensors keep their
+  values and versions); the donation (the state returned holds the static tensors, a state other
   than the last one returned is copied in, ``donate=False`` returns
   copies, the state handed in stays as it was); the recal step against the
   eager one;
@@ -205,6 +207,35 @@ def test_captured_steps_match_eager_steps(with_metrics, capture):
     assert all(torch.equal(state.params[k], v) for k, v in before.items())
     assert all(got.params[k] is step.static.tensors[f"params/{k}"]
                for k in got.params)
+
+
+def test_captured_transfer_step_writes_only_the_trainable_leaves(capture):
+    """configs/transfer_learning.yaml: the captured steps equal the eager
+    ones, the graph writes back the trainable parameters alone, and the
+    frozen leaves' static tensors keep their values and their versions."""
+    cfg = CONFIGS["transfer_learning"]()
+    det, state, step = _captured(cfg, capture)
+    trainable = set(state.opt_state.mu)
+    assert 0 < len(trainable) < len(state.params)
+    batches = [_batch(cfg, 40 + i) for i in range(3)]
+    want = got = state
+    for i, batch in enumerate(batches):
+        want, m_want = step.eager(want, batch)
+        got, m_got = step(got, batch)
+        for name, g, w in zip(m_want._fields, m_got, m_want):
+            assert torch.equal(g, w), name
+        if i == 0:
+            versions = {k: got.params[k]._version for k in got.params
+                        if k not in trainable}
+    _equal_states(got, want)
+    assert {k for k in step._written if k.startswith("params/")} == {
+        f"params/{k}" for k in trainable}
+    for k, v in state.params.items():
+        if k in trainable:
+            assert not torch.equal(got.params[k], v), k
+        else:
+            assert torch.equal(got.params[k], v), k
+            assert got.params[k]._version == versions[k], k
 
 
 def test_donation(capture):

@@ -6,7 +6,7 @@ imports this module by name, so it imports the port and nothing of JAX.
 A case is a dict: ``overrides`` of ``Config.default()``, the ``mesh`` as
 ((axis, size), ...), the network ``state`` as arrays, a global ``batch`` of
 arrays, the ``ops`` to run ("forward", "postprocess", "grads", "steps",
-"metrics", "capture")
+"metrics", "flat_reduce", "capture")
 and ``n_steps``. Each rank writes what it computed to ``rank<r>.pt``
 beside the pickled cases.
 """
@@ -142,11 +142,40 @@ def run_case(rank, device, case):
             step = make_train_step(det, opt, with_metrics=True)
             _, _, _, out["metric_values"] = step(
                 ts, TrainMetricsState.init(device), batch)
+        elif op == "flat_reduce":  # one step, its flat all-reduces seen
+            out["flat_reduce"] = _step_with_flat_reduces(det, cfg, state,
+                                                         batch)
         elif op == "capture":
             out["capture"] = _captured_against_eager(det, cfg, state, batch)
         else:
             raise ValueError(op)
     return out
+
+
+def _step_with_flat_reduces(det, cfg, state, batch):
+    """One train step with ``all_reduce_flat`` of the train loop watched:
+    for each call the tensors it summed (their count and what it returned),
+    and the parameters after the step."""
+    from pillars_torch.train import loop
+    from pillars_torch.train.optim import AdamW
+
+    calls, inner = [], loop.all_reduce_flat
+
+    def watched(tensors, *args, **kwargs):
+        summed = inner(list(tensors), *args, **kwargs)
+        calls.append([t.clone() for t in summed])
+        return summed
+
+    params, stats = loop.split_state(state)
+    opt = AdamW(cfg.train.optimizer, cfg.train_input.batch_size)
+    ts = loop.TrainState(0, params, stats, opt.init(params))
+    loop.all_reduce_flat = watched
+    try:
+        ts, metrics = loop.make_train_step(det, opt)(ts, batch)
+    finally:
+        loop.all_reduce_flat = inner
+    return {"calls": calls, "trainable": list(ts.opt_state.mu),
+            "params": ts.params, "metrics": metrics}
 
 
 def _captured_against_eager(det, cfg, state, batch):
