@@ -1,0 +1,3 @@
+"""device_idle_frac.serve: see _common.py."""
+
+from port_bench.metrics._common import device_idle_frac as read  # noqa: F401

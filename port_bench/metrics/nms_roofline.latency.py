@@ -1,0 +1,3 @@
+"""nms_roofline.latency: see _common.py."""
+
+from port_bench.metrics._common import nms_roofline as read  # noqa: F401
