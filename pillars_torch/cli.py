@@ -3,6 +3,7 @@
     pillars-torch train --config cfg.yaml [--set key=value ...] [--resume ck]
     pillars-torch evaluate --config cfg.yaml --checkpoint weights.pkl
     pillars-torch stream --config cfg.yaml --checkpoint weights.pkl --hz 120
+                         [--trace FILE]
     pillars-torch create-data --root DATASET --num-train N [--num-test M]
     pillars-torch synth-data --root DIR ...
     pillars-torch sample-val-data --val-info INFOS.pkl ...
@@ -280,6 +281,7 @@ def cmd_synth_data(args):
 def cmd_stream(args):
     from pillars_torch.data.stream import run_stream
     from pillars_torch.infer import parse_bucket_arg
+    from pillars_torch.utils import tracing
 
     cfg = _load_config(args)
     buckets = parse_bucket_arg(args.buckets, cfg.model.voxel.max_points)
@@ -293,6 +295,9 @@ def cmd_stream(args):
         if args.source != "synthetic":
             raise SystemExit(
                 "--num-streams > 1 supports only --source synthetic")
+    if args.trace:
+        # before the detector: the builds, the capture and its device marks
+        tracing.enable()
     det, state = _detector_and_state(args, cfg, "stream")
     if args.num_streams > 1:
         from pillars_torch.data.stream import run_multi_stream
@@ -300,17 +305,22 @@ def cmd_stream(args):
                                  num_streams=args.num_streams, hz=args.hz,
                                  duration_s=args.duration,
                                  window=args.window)
-        print(json.dumps(stats))
-        return
-    publisher = None
-    if args.viz_dir:
-        from pillars_torch.viz.publisher import make_publisher
+    else:
+        publisher = None
+        if args.viz_dir:
+            from pillars_torch.viz.publisher import make_publisher
 
-        publisher = make_publisher("offline", out_dir=args.viz_dir)
-    stats = run_stream(cfg, det, state, hz=args.hz,
-                       duration_s=args.duration,
-                       source=args.source, window=args.window,
-                       buckets=buckets, publisher=publisher)
+            publisher = make_publisher("offline", out_dir=args.viz_dir)
+        stats = run_stream(cfg, det, state, hz=args.hz,
+                           duration_s=args.duration,
+                           source=args.source, window=args.window,
+                           buckets=buckets, publisher=publisher)
+    if args.trace:
+        stats["spans"] = {k: {"count": v["count"], "total_ms": v["ns"] / 1e6,
+                              "max_ms": v["max_ns"] / 1e6}
+                          for k, v in sorted(tracing.snapshot().items())}
+        stats["counters"] = tracing.counters()
+        tracing.dump(args.trace)
     print(json.dumps(stats))
 
 
@@ -454,6 +464,10 @@ def main(argv: Optional[List[str]] = None):
                     help="record the reference RVIZ topic stream "
                          "(debug_points + bb_pred_guess_1) per frame to "
                          "this directory via the OfflinePublisher")
+    sp.add_argument("--trace", default=None, metavar="FILE",
+                    help="turn tracing on: the stats gain the span totals "
+                         "and counters, and FILE the spans as a Chrome "
+                         "trace")
     sp.set_defaults(fn=cmd_stream)
 
     sp = sub.add_parser(

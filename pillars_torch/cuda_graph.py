@@ -41,6 +41,14 @@ train/bn_recal.py) and the profiled stages
   replay does not run. Each graph records what its capture launched, and
   every replay adds that to the wrappers' counts; the capture itself adds
   nothing.
+- Tracing (utils/tracing.py): a call is the span ``graph.call``, with the
+  children ``graph.state_load`` (:class:`CapturedInference`),
+  ``graph.stage_inputs``, ``graph.replay`` (the launch) and
+  ``graph.outputs`` (the clone and its views), or ``graph.capture`` at a
+  new shape; the counters ``graph.replays``, ``graph.captures`` and
+  ``graph.state_copies`` count always. An inference graph captured while
+  tracing is on holds the body's device marks, read between its replays
+  (``graph.read_marks``).
 
 - Collectives: a body may hold NCCL collectives (a train step over a mesh,
   a spatial band's halo exchange), which the graph captures with the rest:
@@ -59,6 +67,7 @@ one thread at a time, on the stream that is current there.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -68,6 +77,7 @@ import torch
 from torch.autograd.graph import increment_version
 
 from pillars_torch.ops import nms_cuda, rpn_cuda
+from pillars_torch.utils import tracing
 
 # (wrapper, attribute) of every kernel launch count a graph replays
 COUNTERS = ((nms_cuda.nms_keep_mask, "launches"),
@@ -164,6 +174,7 @@ class StaticState:
             self._src[k] = (state[k], None if state[k].is_inference()
                             else state[k]._version)
         self.copies += 1
+        tracing.count("graph.state_copies")
         if self._blocks is not None:
             self._refold()
 
@@ -221,6 +232,7 @@ class _Graph(NamedTuple):
     layout: Tuple[Tuple[torch.dtype, Tuple[int, ...], int], ...]
     launches: Tuple[int, ...]          # per replay, in COUNTERS order
     seconds: float                     # eager first call + capture
+    marks: Optional[tracing.DeviceMarks]  # captured while tracing was on
 
 
 class CapturedCall:
@@ -233,33 +245,54 @@ class CapturedCall:
     ``dtypes``: the dtype of each static input (None: the first call's).
     ``context``: the grad mode the call stages, captures and replays in
     (``torch.inference_mode``, or ``torch.no_grad`` for a body that takes
-    gradients itself). ``graphs`` maps each input shape to its graph."""
+    gradients itself). ``marks``: a capture while tracing is on collects
+    the body's device marks (utils/tracing.py). ``graphs`` maps each input
+    shape to its graph."""
 
     def __init__(self, body: Callable, device, dtypes=None,
-                 context: Callable = torch.inference_mode):
+                 context: Callable = torch.inference_mode,
+                 marks: bool = False):
         self.body = body
         self.device = torch.device(device)
         self.dtypes = dtypes
         self.context = context
+        self.marks = marks
         self.graphs: Dict[Tuple, _Graph] = {}
 
     def __call__(self, *inputs) -> List[torch.Tensor]:
+        with tracing.span("graph.call"):
+            return self.run(*inputs)
+
+    def run(self, *inputs) -> List[torch.Tensor]:
+        """The call without its ``graph.call`` span (for a caller that
+        opens it around more)."""
         key = tuple(tuple(np.shape(x)) for x in inputs)
         with self.context():
             g = self.graphs.get(key)
             if g is None:
-                return self._capture(key, inputs)
-            for dst, x in zip(g.inputs, inputs):
-                _stage(dst, x)
-            g.graph.replay()
+                with tracing.span("graph.capture"):
+                    return self._capture(key, inputs)
+            with tracing.span("graph.stage_inputs"):
+                for dst, x in zip(g.inputs, inputs):
+                    _stage(dst, x)
+            if g.marks is not None:
+                with tracing.span("graph.read_marks"):
+                    g.marks.before_replay()
+            with tracing.span("graph.replay"):
+                g.graph.replay()
+            if g.marks is not None:
+                g.marks.after_replay()
+            tracing.count("graph.replays")
             _set_counts(a + b for a, b in zip(_read_counts(), g.launches))
             if g.packed is None:
                 return []
-            flat = g.packed.clone()
-        outs, offset = [], 0
-        for dtype, shape, nbytes in g.layout:
-            outs.append(flat[offset:offset + nbytes].view(dtype).view(shape))
-            offset += nbytes
+            with tracing.span("graph.outputs"):
+                flat = g.packed.clone()
+                outs, offset = [], 0
+                for dtype, shape, nbytes in g.layout:
+                    outs.append(flat[offset:offset + nbytes].view(dtype)
+                                .view(shape))
+                    offset += nbytes
         return outs
 
     def _capture(self, key, inputs):
@@ -283,13 +316,18 @@ class CapturedCall:
 
         first = _run_on_side_stream(run, self.device)
         before = _read_counts()
-        graph, (outs, packed) = _capture_graph(run_packed)
+        with (tracing.capturing_marks() if self.marks
+              else contextlib.nullcontext(())) as marks:
+            graph, (outs, packed) = _capture_graph(run_packed)
         launches = tuple(a - b for a, b in zip(_read_counts(), before))
         _set_counts(before)  # a capture launches nothing
         layout = tuple((t.dtype, tuple(t.shape), t.numel() * t.element_size())
                        for t in outs)
-        self.graphs[key] = _Graph(graph, static, packed, layout, launches,
-                                  time.perf_counter() - t0)
+        batch = key[0][0] if key and key[0] else 1
+        self.graphs[key] = _Graph(
+            graph, static, packed, layout, launches, time.perf_counter() - t0,
+            tracing.DeviceMarks(marks, batch) if marks else None)
+        tracing.count("graph.captures")
         return first
 
 
@@ -314,13 +352,16 @@ class CapturedInference:
         self.output_type = output_type
         self.call = CapturedCall(
             lambda *x: body(state.tensors, *x), device,
-            (torch.float32, torch.int32, torch.float32, torch.float32))
+            (torch.float32, torch.int32, torch.float32, torch.float32),
+            marks=True)
         self.graphs = self.call.graphs
 
     def __call__(self, state, points, num_valid, rect, trv2c):
-        with torch.inference_mode():
-            self.state.load(state, self.device)
-        return self.output_type(*self.call(points, num_valid, rect, trv2c))
+        with tracing.span("graph.call"):
+            with tracing.span("graph.state_load"), torch.inference_mode():
+                self.state.load(state, self.device)
+            return self.output_type(*self.call.run(points, num_valid, rect,
+                                                   trv2c))
 
 
 def replay_ms(call: CapturedCall, iters: int) -> float:

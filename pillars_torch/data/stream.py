@@ -26,6 +26,28 @@ for that batch's event only and stamps the latency when the data is there.
 On the card each dispatch replays the captured CUDA graph of its input
 shape (pillars_torch/cuda_graph.py); the warm-up call before the sources
 start captures it.
+
+Tracing (pillars_torch/utils/tracing.py). Each turn of either loop is the
+span ``stream.loop``, with the dispatch's sequence number as the request
+id, so that every moment of the dispatching thread's turn has an owner.
+Inside it:
+
+- ``stream.take``: the mailbox wait (in the multi-stream loop the poll
+  rounds and their sleeps);
+- ``stream.dispatch``, with ``stream.stage`` (the copy into the pinned
+  buffer), the detector's ``graph.call`` and ``fetch.enqueue``, and
+  ``stream.submit`` (the hand-off of the fetch to a worker thread);
+- ``stream.result_wait``: the dispatching thread blocked on the oldest
+  fetch (whose ``fetch.wait`` runs on its worker thread);
+- ``stream.handoff``: from the fetch's result being ready on its worker
+  thread to the dispatching thread holding it (with a window above 1 it
+  includes the result's wait for its turn);
+- ``stream.consume``: the score filter, ``on_detections`` and the
+  publisher.
+
+The last three carry the request id of the dispatch they consume. The
+counters ``stream.dispatches``, ``stream.fresh_slots`` and
+``stream.frames_skipped`` count always.
 """
 
 from __future__ import annotations
@@ -38,21 +60,29 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from pillars_torch.utils import tracing
+
 
 class LatestFrameMailbox:
-    """Single-slot, lock-protected latest-value mailbox."""
+    """Single-slot, lock-protected latest-value mailbox. Each frame is
+    stamped (``time.perf_counter``) when it is published; after a
+    :meth:`take`, ``published_at`` holds the stamp of the frame taken, for
+    the taking thread to read."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._frame = None
+        self._stamp = None
         self._seq = 0
         self._taken_seq = 0
         self._cv = threading.Condition(self._lock)
         self._closed = False
+        self.published_at: Optional[float] = None
 
     def publish(self, frame) -> None:
         with self._cv:
             self._frame = frame
+            self._stamp = time.perf_counter()
             self._seq += 1
             self._cv.notify()
 
@@ -75,6 +105,7 @@ class LatestFrameMailbox:
                 return None, 0
             skipped = self._seq - self._taken_seq - 1
             self._taken_seq = self._seq
+            self.published_at = self._stamp
             return self._frame, skipped
 
     @property
@@ -244,9 +275,21 @@ class _Staging:
         return t.numpy(), t
 
 
-def _fetch(fetch, t0):
+def _fetch(fetch):
+    """On a worker thread: the fetched predictions, and when they were
+    there (``perf_counter_ns``)."""
     out = fetch.result()
-    return out, (time.perf_counter() - t0) * 1e3
+    return out, time.perf_counter_ns()
+
+
+def _handed_over(fut, rid):
+    """The dispatching thread takes a fetch's result (spans
+    ``stream.result_wait`` and ``stream.handoff``)."""
+    with tracing.span("stream.result_wait", rid=rid):
+        out, t_ready = fut.result()
+    tracing.interval("stream.handoff", t_ready, time.perf_counter_ns(),
+                     rid=rid)
+    return out, t_ready * 1e-9
 
 
 def run_stream(cfg, detector, variables, hz: float = 120.0,
@@ -254,7 +297,8 @@ def run_stream(cfg, detector, variables, hz: float = 120.0,
                on_detections: Optional[Callable] = None,
                window: int = 8,
                buckets: Optional[Sequence[int]] = None,
-               publisher=None) -> Dict:
+               publisher=None,
+               source_fn: Optional[Callable] = None) -> Dict:
     """Pull frames from the mailbox through the detector as fast as they
     arrive; report throughput / latency / drop statistics.
 
@@ -262,7 +306,13 @@ def run_stream(cfg, detector, variables, hz: float = 120.0,
     flight, their device->host fetches are awaited on a small thread pool,
     and results are consumed (latency stats + ``on_detections``) strictly in
     dispatch order. The bounded window keeps memory honest while the card
-    works ahead of the consumer.
+    works ahead of the consumer. A frame's latency runs from its
+    publication into the mailbox to its predictions on the host, so it
+    includes the time the frame waited in the mailbox.
+
+    ``source_fn(mailbox)``, where given, starts the producer in place of
+    ``source`` (as ``run_multi_stream``'s does per stream); it closes the
+    mailbox to end the run.
 
     ``buckets`` enables bucketed dispatch (pillars_torch.infer): each frame
     runs through the smallest point-count bucket that holds it instead of
@@ -304,7 +354,9 @@ def run_stream(cfg, detector, variables, hz: float = 120.0,
             torch.cuda.synchronize(device)
 
     mailbox = LatestFrameMailbox()
-    if source == "synthetic":
+    if source_fn is not None:
+        producer = source_fn(mailbox)
+    elif source == "synthetic":
         producer = synthetic_source(mailbox, hz, duration_s)
     elif source.startswith("replay:"):
         producer = replay_source(mailbox, hz, duration_s,
@@ -321,50 +373,65 @@ def run_stream(cfg, detector, variables, hz: float = 120.0,
     t_start = time.perf_counter()
     window = max(1, int(window))
     fetchers = ThreadPoolExecutor(max_workers=window)
-    inflight = deque()  # futures, dispatch order
+    inflight = deque()  # (future, shown cloud, request id, publication)
     staging = _Staging(window, 1, maxpts, device)
 
     def consume(entry):
         nonlocal processed
-        fut, frame_pts = entry
-        out, lat_ms = fut.result()
-        latencies.append(lat_ms)
-        processed += 1
-        keep = None
-        if on_detections is not None or publisher is not None:
-            keep = out.valid[0] & (out.scores[0] >= min_score)
-        if on_detections is not None:
-            on_detections(out.boxes_lidar[0][keep], out.scores[0][keep])
-        if publisher is not None:
-            from pillars_torch.viz.publisher import publish_reference_topics
+        fut, frame_pts, rid, t_pub = entry
+        out, t_ready = _handed_over(fut, rid)
+        with tracing.span("stream.consume", rid=rid):
+            latencies.append((t_ready - t_pub) * 1e3)
+            processed += 1
+            keep = None
+            if on_detections is not None or publisher is not None:
+                keep = out.valid[0] & (out.scores[0] >= min_score)
+            if on_detections is not None:
+                on_detections(out.boxes_lidar[0][keep], out.scores[0][keep])
+            if publisher is not None:
+                from pillars_torch.viz.publisher import \
+                    publish_reference_topics
 
-            publish_reference_topics(
-                publisher, points=frame_pts,
-                pred_boxes=out.boxes_lidar[0][keep],
-                pred_scores=out.scores[0][keep])
+                publish_reference_topics(
+                    publisher, points=frame_pts,
+                    pred_boxes=out.boxes_lidar[0][keep],
+                    pred_scores=out.scores[0][keep])
 
+    seq = 0
     while True:
-        frame, skipped = mailbox.take(timeout=2.0)
-        if frame is None:
-            break
-        skipped_total += skipped
-        t0 = time.perf_counter()
-        n = min(len(frame), maxpts)
-        # the full-width buffer with a zero tail: the bucketed dispatcher
-        # slices it to the smallest bucket that holds n (a view of the same
-        # pinned memory)
-        pts, handed = staging.next()
-        pts[0, :n] = frame[:n, :3]
-        pts[0, n:] = 0.0
-        # num stays a HOST array: the bucketed dispatcher reads it to pick
-        # the bucket, and a device tensor there would cost a blocking copy
-        # back per frame
-        out = infer(variables, handed, np.asarray([n], np.int32), eye, eye)
-        # the publisher outlives the buffer's turn: give it its own copy
-        shown = pts[0, :n].copy() if publisher is not None else None
-        inflight.append((fetchers.submit(_fetch, HostFetch(out), t0), shown))
-        while len(inflight) >= window:
-            consume(inflight.popleft())
+        with tracing.span("stream.loop", rid=seq):
+            with tracing.span("stream.take"):
+                frame, skipped = mailbox.take(timeout=2.0)
+            if frame is None:
+                break
+            t_pub = mailbox.published_at
+            skipped_total += skipped
+            tracing.count("stream.frames_skipped", skipped)
+            with tracing.span("stream.dispatch"):
+                with tracing.span("stream.stage"):
+                    n = min(len(frame), maxpts)
+                    # the full-width buffer with a zero tail: the bucketed
+                    # dispatcher slices it to the smallest bucket that holds n
+                    # (a view of the same pinned memory)
+                    pts, handed = staging.next()
+                    pts[0, :n] = frame[:n, :3]
+                    pts[0, n:] = 0.0
+                # num stays a HOST array: the bucketed dispatcher reads it to
+                # pick the bucket, and a device tensor there would cost a
+                # blocking copy back per frame
+                out = infer(variables, handed, np.asarray([n], np.int32), eye,
+                            eye)
+                # the publisher outlives the buffer's turn: its own copy
+                shown = pts[0, :n].copy() if publisher is not None else None
+                fetch = HostFetch(out)
+                with tracing.span("stream.submit"):
+                    fut = fetchers.submit(_fetch, fetch)
+            tracing.count("stream.dispatches")
+            tracing.count("stream.fresh_slots")
+            inflight.append((fut, shown, seq, t_pub))
+            seq += 1
+            while len(inflight) >= window:
+                consume(inflight.popleft())
     while inflight:
         consume(inflight.popleft())
     fetchers.shutdown()
@@ -399,10 +466,12 @@ def run_multi_stream(cfg, detector, variables, num_streams: int = 4,
     emits no valid detections for that slot).
 
     ``on_detections(stream_idx, boxes_lidar, scores)`` fires per fresh
-    slot, in dispatch order. ``source_fn(mailbox, stream_idx)`` overrides
-    the per-stream producer (default: live synthetic scenes; serving
-    measurements inject :func:`bank_source` so host-side scene synthesis
-    doesn't masquerade as the serving ceiling).
+    slot, in dispatch order. A slot's latency runs from its frame's
+    publication to the batch's predictions on the host.
+    ``source_fn(mailbox, stream_idx)`` overrides the per-stream producer
+    (default: live synthetic scenes; serving measurements inject
+    :func:`bank_source` so host-side scene synthesis doesn't masquerade as
+    the serving ceiling).
 
     No reference counterpart: the reference's production loop is
     single-sensor (train.py:689-861).
@@ -439,51 +508,70 @@ def run_multi_stream(cfg, detector, variables, num_streams: int = 4,
     skipped = np.zeros(N, np.int64)
     latencies = []
     fetchers = ThreadPoolExecutor(max_workers=window)
-    inflight = deque()  # (future, fresh_slots, t0), dispatch order
+    inflight = deque()  # (future, fresh slots, request id), dispatch order
     staging = _Staging(window, N, maxpts, device)
 
     def consume(entry):
-        fut, fresh, t0 = entry
-        out = fut.result()
-        lat_ms = (time.perf_counter() - t0) * 1e3
-        for i in fresh:
-            latencies.append(lat_ms)
-            processed[i] += 1
-            if on_detections is not None:
-                keep = out.valid[i] & (out.scores[i] >= min_score)
-                on_detections(i, out.boxes_lidar[i][keep],
-                              out.scores[i][keep])
+        fut, fresh, rid = entry
+        out, t_ready = _handed_over(fut, rid)
+        with tracing.span("stream.consume", rid=rid):
+            for i, t_pub in fresh:
+                latencies.append((t_ready - t_pub) * 1e3)
+                processed[i] += 1
+                if on_detections is not None:
+                    keep = out.valid[i] & (out.scores[i] >= min_score)
+                    on_detections(i, out.boxes_lidar[i][keep],
+                                  out.scores[i][keep])
+
+    def poll():
+        """Rounds over the mailboxes until one has a fresh frame: [(slot,
+        frame, frames skipped before it, its publication)], or None once
+        every mailbox is closed and empty."""
+        while True:
+            fresh = []
+            for i, mb in enumerate(mailboxes):
+                frame, sk = mb.take(timeout=0)
+                if frame is not None:
+                    fresh.append((i, frame, sk, mb.published_at))
+            if fresh:
+                return fresh
+            if all(mb.closed for mb in mailboxes):
+                return None
+            time.sleep(0.0005)
 
     t_start = time.perf_counter()
+    seq = 0
     while True:
-        fresh = []  # (slot, frame, frames skipped before it)
-        for i, mb in enumerate(mailboxes):
-            frame, sk = mb.take(timeout=0)
-            if frame is not None:
-                fresh.append((i, frame, sk))
-        if not fresh:
-            if all(mb.closed for mb in mailboxes):
+        with tracing.span("stream.loop", rid=seq):
+            with tracing.span("stream.take"):
+                fresh = poll()
+            if fresh is None:
                 break
-            time.sleep(0.0005)
-            continue
-        # a buffer of its own per dispatch in flight: the copy to the card
-        # of an earlier dispatch may still be pending. Stale slots keep
-        # whatever the buffer held and are masked out with num_valid = 0
-        # rather than re-run
-        pts, handed = staging.next()
-        num = np.zeros((N,), np.int32)
-        for i, frame, sk in fresh:
-            n = min(len(frame), maxpts)
-            pts[i, :n] = frame[:n, :3]
-            pts[i, n:] = 0.0
-            num[i] = n
-            skipped[i] += sk
-        t0 = time.perf_counter()
-        out = infer(variables, handed, num, eyes, eyes)
-        inflight.append((fetchers.submit(HostFetch(out).result),
-                         tuple(i for i, _, _ in fresh), t0))
-        while len(inflight) >= window:
-            consume(inflight.popleft())
+            with tracing.span("stream.dispatch"):
+                # a buffer of its own per dispatch in flight: the copy to the
+                # card of an earlier dispatch may still be pending. Stale slots
+                # keep whatever the buffer held and are masked out with
+                # num_valid = 0 rather than re-run
+                with tracing.span("stream.stage"):
+                    pts, handed = staging.next()
+                    num = np.zeros((N,), np.int32)
+                    for i, frame, sk, _ in fresh:
+                        n = min(len(frame), maxpts)
+                        pts[i, :n] = frame[:n, :3]
+                        pts[i, n:] = 0.0
+                        num[i] = n
+                        skipped[i] += sk
+                out = infer(variables, handed, num, eyes, eyes)
+                fetch = HostFetch(out)
+                with tracing.span("stream.submit"):
+                    fut = fetchers.submit(_fetch, fetch)
+            tracing.count("stream.dispatches")
+            tracing.count("stream.fresh_slots", len(fresh))
+            tracing.count("stream.frames_skipped", sum(f[2] for f in fresh))
+            inflight.append((fut, tuple((i, t) for i, _, _, t in fresh), seq))
+            seq += 1
+            while len(inflight) >= window:
+                consume(inflight.popleft())
     while inflight:
         consume(inflight.popleft())
     fetchers.shutdown()

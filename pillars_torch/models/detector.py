@@ -64,6 +64,7 @@ from pillars_torch.ops.voxelize import (VoxelizedPoints, make_cell_voxelizer,
 from pillars_torch.parallel.collectives import graph_safe
 from pillars_torch.parallel.spatial import (gather_canvas, halo_exchange,
                                             shard_canvas)
+from pillars_torch.utils import tracing
 
 
 class Predictions(NamedTuple):
@@ -84,23 +85,30 @@ class HostFetch:
     call :meth:`result`, which waits for THIS batch only (the event, not the
     device: a device-wide synchronize would wait for every later batch too)
     and releases the GIL while it waits. Each fetch owns its pinned
-    buffers. On the CPU the predictions are already there."""
+    buffers. On the CPU the predictions are already there. Tracing: the
+    spans ``fetch.enqueue`` (the pinned buffers, the copies and the event)
+    and ``fetch.wait`` (:meth:`result`, on the thread that calls it, under
+    the request id of the dispatch that made the fetch)."""
 
     def __init__(self, preds: Predictions):
         self.event = None
-        if preds.valid.is_cuda:
-            preds = Predictions(*(
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                    t, non_blocking=True) for t in preds))
-            self.event = torch.cuda.Event()
-            self.event.record()
+        with tracing.span("fetch.enqueue"):
+            self.rid = tracing.current_rid()
+            if preds.valid.is_cuda:
+                preds = Predictions(*(
+                    torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t, non_blocking=True)
+                    for t in preds))
+                self.event = torch.cuda.Event()
+                self.event.record()
         self._host = preds
 
     def result(self) -> Predictions:
         """The predictions as NumPy arrays."""
-        if self.event is not None:
-            self.event.synchronize()
-        return Predictions(*(t.numpy() for t in self._host))
+        with tracing.span("fetch.wait", rid=self.rid):
+            if self.event is not None:
+                self.event.synchronize()
+            return Predictions(*(t.numpy() for t in self._host))
 
 
 def _full_f32():
@@ -220,16 +228,19 @@ class Network(nn.Module):
         cell)."""
         if not self.dense_cell:
             canvas = self.canvas(*inputs)
+            tracing.mark("pfn")
             if canvas_only:
                 return canvas
-            if self.spatial is None:
-                return self.rpn(canvas)
-            return self.banded_rpn(canvas)
+            heads = (self.rpn(canvas) if self.spatial is None
+                     else self.banded_rpn(canvas))
+            tracing.mark("rpn")
+            return heads
         points, num_valid = inputs
         b = points.shape[0]
         nx, ny, nz = self.mcfg.voxel.grid_size
         n_cells = nx * ny * nz
         cv = self.cell_voxelize(points, num_valid)
+        tracing.mark("voxelize")
         flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
         offset = torch.arange(b, dtype=torch.int32,
                               device=points.device)[:, None] * n_cells
@@ -243,7 +254,10 @@ class Network(nn.Module):
         canvas = cell_feats.reshape(b, nz, ny, nx, -1).sum(dim=1)
         dense_grid = (num_points > 0).reshape(b, nz, ny, nx).to(
             torch.float32).sum(dim=1)
-        return self.rpn(canvas), dense_grid
+        tracing.mark("pfn")
+        heads = self.rpn(canvas)
+        tracing.mark("rpn")
+        return heads, dense_grid
 
     def banded_rpn(self, canvas):
         """The RPN over this rank's band of the canvas rows, halos
@@ -510,9 +524,11 @@ class PillarsDetector:
         if folded is None:
             folded = self.folded_blocks
         b1, b2, b3 = fused_rpn_blocks(canvas, state, self.mcfg.rpn, folded)
-        return torch.func.functional_call(
+        heads = torch.func.functional_call(
             self.rpn_tail, _sub_state(state, self.rpn_tail, "rpn."),
             (b1, b2, b3))
+        tracing.mark("rpn")
+        return heads
 
     # ------------------------------------------------------------------
     def postprocess(self, preds: Dict[str, torch.Tensor], anchors_mask,
@@ -660,16 +676,28 @@ class PillarsDetector:
     def _infer(self, state, points, num_valid, rect, trv2c, thr: float,
                folded=None) -> Predictions:
         """The inference body on tensors on this detector's device: what a
-        graph captures (no host sync, no host constant, static shapes)."""
+        graph captures (no host sync, no host constant, static shapes).
+
+        Its device marks (utils/tracing.py ``mark``), each closing the stage
+        of its name: ``start``; ``voxelize`` (the voxelizer); ``pfn`` (PFN
+        and canvas scatter, or SECOND's middle; on the point-major paths the
+        anchors mask, which runs after the voxelizer, counts here; on the
+        dense cell the occupancy grid); ``rpn`` (backbone and heads: the
+        RPN, or the fused blocks and the tail); ``post`` (decode, top-K,
+        NMS, direction; on the dense cell the anchors mask counts here)."""
+        tracing.mark("start")
         if self.dense_cell:
             preds, amask = self._forward_dense(state, points, num_valid, thr)
         else:
             voxelized = self.voxelize_batch(points, num_valid)
+            tracing.mark("voxelize")
             amask = self.anchors_mask_batch(
                 voxelized.coords, voxelized.pillar_mask, thr)
             preds = (self._forward_fast(state, voxelized, folded) if self.fast
                      else self.apply(state, voxelized))
-        return self.postprocess(preds, amask, rect, trv2c)
+        out = self.postprocess(preds, amask, rect, trv2c)
+        tracing.mark("post")
+        return out
 
     def make_inference_fn(self, anchor_area_threshold: Optional[float] = None):
         """fn(state, points [B, MAXPTS, D], num_valid [B], rect [B, 4, 4],

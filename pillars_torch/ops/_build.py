@@ -21,6 +21,8 @@ import subprocess
 import threading
 from typing import Dict, List, Sequence, Tuple
 
+from pillars_torch.utils import tracing
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -86,14 +88,17 @@ def build_all(names: Sequence[str] = (),
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The ctypes library of ``csrc/<name>.cu``, built on first use; with
-    ``defines`` a variant of that one source compiled with ``-D`` each."""
+    ``defines`` a variant of that one source compiled with ``-D`` each.
+    The first load of each library (its build, where there is none yet) is
+    the span ``build.extensions``."""
     key = (name, tuple(defines))
     with _lock:
         lib = _loaded.get(key)
         if lib is None:
-            path = _lib_path(name, defines)
-            if not path.exists():
-                build_all((name,) if defines else (), defines)
-            lib = ctypes.CDLL(str(path))
+            with tracing.span("build.extensions", args={"source": name}):
+                path = _lib_path(name, defines)
+                if not path.exists():
+                    build_all((name,) if defines else (), defines)
+                lib = ctypes.CDLL(str(path))
             _loaded[key] = lib
         return lib

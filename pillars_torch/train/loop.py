@@ -37,7 +37,6 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from pillars_torch.cuda_graph import CapturedCall, StaticState
 from pillars_torch.models.detector import PillarsDetector
@@ -47,12 +46,14 @@ from pillars_torch.parallel.collectives import (all_gather_cat,
                                                 all_reduce_flat)
 from pillars_torch.train import metrics as tm
 from pillars_torch.train.optim import AdamState, AdamW
+from pillars_torch.utils import tracing
 
 # what the step reads of a batch, and the dtypes it reads them in
 BATCH_KEYS = ("points", "num_points", "gt_boxes", "gt_classes", "gt_valid")
 BATCH_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
                 torch.bool)
-# the record_function ranges of the train body, in order
+# the spans of the train body (utils/tracing.py), in order; under
+# torch.profiler each is a record_function range of its name
 TRAIN_STAGES = ("voxelize", "anchors_mask", "assign_targets", "forward",
                 "loss", "backward", "adamw")
 _STAT_LEAVES = ("running_mean", "running_var", "num_batches_tracked")
@@ -159,13 +160,13 @@ def gradients(detector: PillarsDetector, params: Dict[str, torch.Tensor],
     named leaves alone, and over a mesh only they are summed. The frozen
     layers' BN statistics are updated all the same."""
     with torch.no_grad():
-        with record_function("voxelize"):
+        with tracing.span("voxelize"):
             vox = detector.voxelize_batch(batch["points"],
                                           batch["num_points"])
-        with record_function("anchors_mask"):
+        with tracing.span("anchors_mask"):
             amask = detector.anchors_mask_batch(vox.coords, vox.pillar_mask,
                                                 thr)
-        with record_function("assign_targets"):
+        with tracing.span("assign_targets"):
             targets = detector.assign_targets(
                 batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
                 amask)
@@ -173,12 +174,12 @@ def gradients(detector: PillarsDetector, params: Dict[str, torch.Tensor],
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items() if k in names}
-        with record_function("forward"):
+        with tracing.span("forward"):
             preds, new_stats = detector.apply(
                 {**params, **leaves, **batch_stats}, vox, train=True)
-        with record_function("loss"):
+        with tracing.span("loss"):
             out = detector.loss(preds, targets.labels, targets.bbox_targets)
-        with record_function("backward"):
+        with tracing.span("backward"):
             grads = torch.autograd.grad(out.loss,
                                         [leaves[k] for k in names],
                                         allow_unused=True)
@@ -222,7 +223,7 @@ def train_body(detector: PillarsDetector, opt: AdamW, thr: float,
     Adam moves (``mu``'s: every one unless ``freeze_patterns``) are
     differentiated."""
     fb = gradients(detector, params, batch_stats, batch, thr, names=mu)
-    with record_function("adamw"):
+    with tracing.span("adamw"):
         new_params, new_mu, new_nu = opt.step(fb.grads, mu, nu, params,
                                               counts[1])
     metrics = StepMetrics(*fb.loss, learning_rate=opt.schedule(counts[0]),

@@ -42,7 +42,8 @@ STAGES = ("t_full_sample", "t_preprocess", "t_network", "t_predict",
 class StageTimer:
     """Rolling-window wall-clock stage timer (window=10 like the reference;
     pillars_tpu/utils/profiling.py::StageTimer). Host time: a stage that
-    only enqueues work on the card reads as the time to enqueue it."""
+    only enqueues work on the card reads as the time to enqueue it. Each
+    stage is also a span of its name (utils/tracing.py), enabled or not."""
 
     def __init__(self, enabled: bool = True, window: int = 10,
                  sync: bool = False):
@@ -54,12 +55,15 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        if not self.enabled:
+        from pillars_torch.utils import tracing
+
+        with tracing.span(name):
+            if not self.enabled:
+                yield
+                return
+            t0 = time.perf_counter()
             yield
-            return
-        t0 = time.perf_counter()
-        yield
-        self._hist[name].append((time.perf_counter() - t0) * 1e3)
+            self._hist[name].append((time.perf_counter() - t0) * 1e3)
 
     def add(self, name: str, ms: float):
         if self.enabled:
@@ -79,15 +83,19 @@ def profiler_trace(log_dir: str):
     """Trace the block under ``torch.profiler`` (the CPU, and the card's
     kernels where there is one) and write it to ``log_dir`` as a Chrome
     trace, ``trace.json`` (chrome://tracing, Perfetto); the counterpart of
-    the JAX package's ``jax.profiler`` trace. Yields the profiler."""
+    the JAX package's ``jax.profiler`` trace. Tracing is on inside the
+    block, so the program's spans are ranges of the trace. Yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pillars_torch.utils import tracing
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     path = pathlib.Path(log_dir)
     path.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with tracing.tracing_on(), profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(path / "trace.json"))
 
@@ -349,15 +357,17 @@ def train_stage_breakdown(step, state, batch, iters: int
     train step ``step`` (train/loop.py ``TRAIN_STAGES``: voxelize, anchors
     mask, assign_targets, forward, loss, backward, adamw; "other" for the
     rest), over ``iters`` warm steps threaded from ``state`` under
-    torch.profiler (:func:`range_breakdown`)."""
+    torch.profiler (:func:`range_breakdown`), tracing on so that the
+    body's spans open their ranges."""
     from torch.profiler import ProfilerActivity, profile
 
     from pillars_torch.train.loop import TRAIN_STAGES
+    from pillars_torch.utils import tracing
 
     state, _ = step(state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tracing.tracing_on(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
