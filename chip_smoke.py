@@ -19,17 +19,24 @@ Phases, none of whose failures is caught:
      one launch; max |kernel - twin| <= 1e-5 * max |twin|; also timed
      beside the unfused port blocks (cuDNN convs + BN + ReLU), under CUDA
      events and, as device time summed over kernels, under torch.profiler;
+   - eval BatchNorm + ReLU: every BN input of the RPN of
+     ``configs/kitti_3class.yaml`` at B=1 and of the d435i config at B=1
+     and B=8, NCHW, and the fast path's channels-last deconv outputs;
+     max |kernel - twin| <= 1e-6 * max |twin|; kernel and twin (cuDNN's
+     BN, then ``torch.relu``) timed in captured graphs, inputs rotating
+     over 256 MB or more, against 8 bytes an element at 3.35 TB/s, and the
+     kernel's device time under torch.profiler at kitti3's block1;
 4. the dense-cell main path: ``PillarsDetector(Config.default())`` with the
    trained checkpoint ``benchmarks/hard_synth/weights_59.pkl`` through
    ``make_inference_fn`` on d435i-sized clouds (19200 points, NumPy seed 0)
    at B=1 and B=2, with the kernels' launch counts set to 0 before that run
-   and read after it; the head tensors against the same clouds through the
+   and read after it (19 BN + ReLU kernels a batch); the head tensors against the same clouds through the
    port on the CPU, and the card's postprocess fed the CPU's head tensors
    against the CPU's predictions; then the warm ms/cloud at B=1;
 5. the point-major fast path: the same config with ``model.pfn.dense_cell``
    false and ``model.rpn.use_pallas_blocks`` true, the same checkpoint and
    clouds, launch counts set to 0 before and read after (the fused blocks
-   and NMS once each per batch); its head tensors against the port on the
+   and NMS once each per batch, the BN + ReLU kernel once per deconv); its head tensors against the port on the
    CPU; its valid and labels equal to the dense-cell path's on the card,
    scores within 1e-5 and boxes within 1e-4 + 2e-5 relative; then the warm
    ms/cloud at B=1, and its kernel launches and device time per cloud;
@@ -254,8 +261,10 @@ Phases, none of whose failures is caught:
    ``BENCH_ITERS`` timed calls each: every child exits 0 and prints one
    JSON line with the JAX benchmark's keys, a finite rate and the card's
    name, its calls replay a captured graph, and the kernels' launches per
-   timed call are one NMS everywhere and one fused chain on the fast path
-   (bfloat16's counted as such); the lines and the launch counts printed.
+   timed call are one NMS everywhere, one fused chain on the fast path
+   (bfloat16's counted as such) and, in float32, 19 BN + ReLU kernels on
+   the dense cell and 3 (the deconvs) on the fast path; the lines and the
+   launch counts printed.
 
 23. ``configs/transfer_learning.yaml`` (stage 2 of the two-stage recipe:
    ``freeze_patterns`` pfn and block1-block3, lr 0.005, no GT sampling)
@@ -331,6 +340,11 @@ POST_ATOL = 1e-5
 # fused RPN block, kernel vs twin on the card: the same f32 products summed
 # in another order (FMAs against cuBLAS), relative to the output's max
 BLOCK_RTOL = 1e-5
+# eval BN + ReLU kernel vs twin on the card: one fma against cuDNN's own
+# order, relative to the output's max
+BN_RELU_RTOL = 1e-6
+BN_RELU_EPS = 1e-3
+L2_MB = 50  # the H100's L2 cache
 # the two front ends on the card, on the same clouds and weights: the
 # port's CPU tolerances against the JAX package
 SCORE_ATOL = 1e-5
@@ -630,6 +644,128 @@ def check_rpn_kernel(mcfg):
             "unfused_cudnn_device_ms": cudnn_dev_ms}
 
 
+def _bn_relu_shapes(mcfg, b):
+    """{label: [B, C, H, W]} of the BN inputs of the RPN: each block's
+    output and each deconv's."""
+    shapes = {}
+    for i, (h, w, _, cout, _, s) in enumerate(_block_shapes(mcfg)):
+        u = mcfg.rpn.upsample_strides[i]
+        shapes[f"block{i + 1}"] = (b, cout, h // s, w // s)
+        shapes[f"deconv{i + 1}"] = (b, mcfg.rpn.num_upsample_filters[i],
+                                    h // s * u, w // s * u)
+    return shapes
+
+
+def _bn_relu_per_call(det):
+    """BN + ReLU kernel launches of one inference call of ``det``: every
+    BatchNorm of the RPN in float32 (the fast path runs only the deconvs'
+    through it, its blocks' are folded into the fused kernel); none in
+    bfloat16."""
+    from pillars_torch.models.layers import BatchNorm
+
+    if det.dtype is not None:
+        return 0
+    rpn = det.rpn_tail if det.fast else det.network.rpn
+    return sum(isinstance(m, BatchNorm) for m in rpn.modules())
+
+
+def _bn_vectors(c, seed):
+    """Random running mean and variance, weight and bias [c] on the card."""
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    return (torch.randn(c, device=CARD, generator=g),
+            torch.rand(c, device=CARD, generator=g) * 2 + 0.05,
+            torch.randn(c, device=CARD, generator=g),
+            torch.randn(c, device=CARD, generator=g) * 0.5)
+
+
+def _bn_relu_case(ops, x, vec):
+    """The kernel against its twin on ``x``, and both timed: per call from
+    captured graphs over inputs rotating through 256 MB or more (at most
+    8), each call writing an output of its own, so that large shapes read
+    and write device memory, not L2; ``timed_mb`` what those calls move."""
+    from pillars_torch.utils.profiling import captured_ms
+
+    got = ops.bn_relu(x, *vec, BN_RELU_EPS)
+    want = ops.bn_relu_plain(x, *vec, BN_RELU_EPS)
+    torch.cuda.synchronize()
+    layout = (torch.channels_last if not x.is_contiguous()
+              else torch.contiguous_format)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not (got.shape == want.shape and got.is_contiguous(memory_format=layout)
+            and scale > 0 and err <= BN_RELU_RTOL * scale):
+        raise AssertionError(f"bn_relu {list(x.shape)}: kernel vs twin "
+                             f"{err} > {BN_RELU_RTOL} * {scale}")
+    count = min(8, max(2, -(-256 * 2**20 // (4 * x.numel()))))
+    xs = [x] + [torch.randn_like(x) for _ in range(count - 1)]
+
+    def calls(f):
+        def body():
+            outs = [f(t, *vec, BN_RELU_EPS) for t in xs]  # noqa: F841
+            return []  # no output: the graph holds the calls alone
+        return body
+
+    us, plain_us = (captured_ms(calls(f), 20) * 1e3 / count
+                    for f in (ops.bn_relu, ops.bn_relu_plain))
+    bound_us = 8 * x.numel() / HBM_BYTES_PER_S * 1e6
+    return {"abs_err": err, "rel_err": err / scale, "us": us,
+            "plain_us": plain_us, "bound_us": bound_us,
+            "gb_s": 8 * x.numel() / us / 1e3, "peak_pct": 100 * bound_us / us,
+            "timed_mb": 8 * x.numel() * count / 1e6}
+
+
+def check_bn_relu_kernel(mcfg):
+    """Kernel 3 at every BN input shape of the RPN of kitti3 (B=1) and
+    d435i (``mcfg``, B=1 and B=8; the fast path's channels-last deconv
+    outputs too): against its twin, timed beside it and its bound."""
+    from pillars_torch.config import Config
+    from pillars_torch.ops import bn_relu_cuda
+    from pillars_torch.utils.profiling import device_busy
+
+    k3 = Config.from_yaml(str(K3_CONFIG)).model
+    cases = [(f"kitti3 {k} B=1", sh, "nchw")
+             for k, sh in _bn_relu_shapes(k3, 1).items()]
+    for b in (1, 8):
+        cases += [(f"d435i {k} B={b}", sh, "nchw")
+                  for k, sh in _bn_relu_shapes(mcfg, b).items()]
+    cases.append(("d435i fast deconv B=1",
+                  _bn_relu_shapes(mcfg, 1)["deconv1"], "channels_last"))
+    rows = {}
+    for i, (label, shape, layout) in enumerate(cases):
+        x = torch.randn(shape, device=CARD)
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        vec = _bn_vectors(shape[1], seed=i)
+        r = rows[label] = {"shape": list(shape), "layout": layout,
+                           **_bn_relu_case(bn_relu_cuda, x, vec)}
+        in_l2 = ", which L2 holds" if r["timed_mb"] < L2_MB else ""
+        print(f"bn_relu {label} {list(shape)} {layout}: max |diff| "
+              f"{r['rel_err']:.2e} of max |twin|; kernel {r['us']:.2f} us "
+              f"({r['gb_s']:.0f} GB/s, {r['peak_pct']:.1f}% of 3.35 TB/s), "
+              f"library BN + relu {r['plain_us']:.2f} us; bound "
+              f"{r['bound_us']:.2f} us (captured graphs over "
+              f"{r['timed_mb']:.0f} MB{in_l2})")
+        if label == "kitti3 block1 B=1":
+            head = (x, vec)
+        del x
+    torch.cuda.empty_cache()
+    x, vec = head
+    device_ms = device_busy(
+        lambda: bn_relu_cuda.bn_relu(x, *vec, BN_RELU_EPS), 50,
+        "bn_relu_kernel")[1]
+    print(f"bn_relu kitti3 block1 B=1: {device_ms * 1e3:.2f} us device time "
+          f"(torch.profiler)")
+    row = rows["kitti3 block1 B=1"]
+    return {"name": "bn_relu", "route": "cuda",
+            "source": "pillars_torch/csrc/bn_relu.cu", "replaces": None,
+            "shape": row["shape"], "launches": None,
+            "max_abs_err": max(r["abs_err"] for r in rows.values()),
+            "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": "bytes",
+            "library_ms": row["plain_us"] / 1e3, "device_ms": device_ms,
+            "by_shape": rows}
+
+
 def _clouds(max_points, batch, n_clouds, n=19200):
     """d435i-like clouds (640x480 depth subsampled 1::4), as bench.py."""
     n = min(n, max_points)
@@ -833,21 +969,23 @@ def run_transfer(state_cpu, smi, root):
 
 
 def _reset_counts():
-    from pillars_torch.ops import nms_cuda, rpn_cuda
+    from pillars_torch.ops import bn_relu_cuda, nms_cuda, rpn_cuda
 
     nms_cuda.nms_keep_mask.launches = 0
     rpn_cuda.fused_sep_block.launches = 0
     rpn_cuda.fused_sep_block.launches_bf16 = 0
+    bn_relu_cuda.bn_relu.launches = 0
 
 
 def _read_counts():
     """Launches since :func:`_reset_counts`; ``rpn_sep_block`` counts both
     dtypes of the block kernel, ``rpn_sep_block_bf16`` the bfloat16 ones."""
-    from pillars_torch.ops import nms_cuda, rpn_cuda
+    from pillars_torch.ops import bn_relu_cuda, nms_cuda, rpn_cuda
 
     return {"nms_keep_mask": nms_cuda.nms_keep_mask.launches,
             "rpn_sep_block": rpn_cuda.fused_sep_block.launches,
-            "rpn_sep_block_bf16": rpn_cuda.fused_sep_block.launches_bf16}
+            "rpn_sep_block_bf16": rpn_cuda.fused_sep_block.launches_bf16,
+            "bn_relu": bn_relu_cuda.bn_relu.launches}
 
 
 def _check_outputs(cfg, on_card, outs):
@@ -915,6 +1053,10 @@ def run_main_path(state_cpu):
     print(f"dense-cell path: {len(on_card)} batches, launches {launches}")
     if launches["nms_keep_mask"] < len(on_card):
         raise AssertionError("the main path did not run the NMS kernel")
+    if launches["bn_relu"] != _bn_relu_per_call(det) * len(on_card):
+        raise AssertionError(f"the main path ran the BN + ReLU kernel "
+                             f"{launches['bn_relu']} times, not "
+                             f"{_bn_relu_per_call(det)} per batch")
     _check_outputs(cfg, on_card, outs)
 
     # the card against the CPU on the same clouds and weights
@@ -986,6 +1128,10 @@ def run_fast_path(state_cpu, batches, on_card, dense_outs):
     if launches["nms_keep_mask"] != len(on_card):
         raise AssertionError("the fast path did not run the NMS kernel once "
                              "per batch")
+    if launches["bn_relu"] != _bn_relu_per_call(det) * len(on_card):
+        raise AssertionError(f"the fast path ran the BN + ReLU kernel "
+                             f"{launches['bn_relu']} times, not "
+                             f"{_bn_relu_per_call(det)} per batch")
     _check_outputs(cfg, on_card, outs)
 
     head_err = 0.0
@@ -2894,7 +3040,7 @@ def _p17_captured(cfg, state_cpu, batches, device, meshes=P17_MESHES,
                           mesh=Mesh([("spatial", world)]))
     state = det.state_to_device(state_cpu)
     per_call = {"nms_keep_mask": 1, "rpn_sep_block": 0,
-                "rpn_sep_block_bf16": 0}
+                "rpn_sep_block_bf16": 0, "bn_relu": _bn_relu_per_call(det)}
     infer = {"max_abs_diff": {}, "launches_per_replay": {}}
     t0 = time.perf_counter()
     for b in (1, 2):
@@ -3029,7 +3175,8 @@ def _p17_captured_lines(cap, smi, meshes=P17_MESHES, world=1):
           f"[{smi}]")
     return {f"parallel_spatial_nccl{world}": {
         k: sum(c[k] for c in inf["launches_per_replay"].values())
-        for k in ("nms_keep_mask", "rpn_sep_block", "rpn_sep_block_bf16")}}
+        for k in ("nms_keep_mask", "rpn_sep_block", "rpn_sep_block_bf16",
+                  "bn_relu")}}
 
 
 def _p17_line(t):
@@ -3522,7 +3669,8 @@ def run_captured(state_cpu, smi):
         per_call = {"nms_keep_mask": 1,
                     "rpn_sep_block": int(det.fast),
                     "rpn_sep_block_bf16": int(det.fast and name.endswith(
-                        "bf16"))}
+                        "bf16")),
+                    "bn_relu": _bn_relu_per_call(det)}
         for b in (1, 2):
             pts, num = _clouds(cfg.model.voxel.max_points, b, 2)
             eye = torch.eye(4).expand(b, 4, 4).contiguous().cuda()
@@ -3582,7 +3730,8 @@ def run_captured(state_cpu, smi):
               for i in range(2)]
     _, worst = _replay_path("second_sparse B=1", det, state, inputs,
                             {"nms_keep_mask": 1, "rpn_sep_block": 0,
-                             "rpn_sep_block_bf16": 0})
+                             "rpn_sep_block_bf16": 0,
+                             "bn_relu": _bn_relu_per_call(det)})
     result["max_abs_diff"]["second_sparse_B1"] = worst
     print(f"captured second_sparse_d435i B=1: replay against eager max "
           f"|diff| {worst:.3e}, heads likewise")
@@ -4609,10 +4758,14 @@ def run_bench(smi):
                                  f"line: {lines[0]}")
         launches = r["detail"]["launches_per_call"]
         fast = path == "fast"
+        # BN + ReLU in float32: the dense RPN's 19 pairs, the fast path's
+        # 3 deconvs (its blocks' BN is folded into the fused kernel)
         want = {"nms_keep_mask.launches": 1.0,
                 "fused_sep_block.launches": float(fast),
                 "fused_sep_block.launches_bf16": float(
-                    fast and dtype == "bfloat16")}
+                    fast and dtype == "bfloat16"),
+                "bn_relu.launches": float(
+                    (3 if fast else 19) * (dtype == "float32"))}
         if launches != want:
             raise AssertionError(f"{label}: launches per timed call "
                                  f"{launches}, want {want}")
@@ -4669,6 +4822,7 @@ def main(argv=None):
     cfg = Config.default()
     nms = check_nms_kernel(cfg.model.postprocess.nms_iou_threshold)
     rpn = check_rpn_kernel(cfg.model)
+    bn_relu = check_bn_relu_kernel(cfg.model)
     state_cpu = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
     dense, batches, on_card, outs, dense_times = run_main_path(state_cpu)
     fast, fast_times = run_fast_path(state_cpu, batches, on_card, outs)
@@ -4741,7 +4895,16 @@ def main(argv=None):
         "kitti3_eval": kitti3["eval"]["launches"]["rpn_sep_block"]}
     rpn_bf16["launches_by_path"] = {
         f"{k}_bf16": v["rpn_sep_block_bf16"] for k, v in bf16.items()}
-    print(json.dumps({"kernels": [nms, rpn, rpn_bf16]}))
+    bn_relu["launches"] = dense["bn_relu"]
+    bn_relu["launches_by_path"] = {
+        "dense": dense["bn_relu"], "fast": fast["bn_relu"],
+        **{k: v["bn_relu"] for k, v in serving.items()},
+        **{k: sum(c["bn_relu"] for c in v) for k, v in second_paths.items()},
+        **{f"{k}_bf16": v["bn_relu"] for k, v in bf16.items()},
+        **{k: v["bn_relu"] for k, v in parallel.items()},
+        "kitti3_serve": kitti3["serve"]["counts"]["bn_relu"],
+        "kitti3_eval": kitti3["eval"]["launches"]["bn_relu"]}
+    print(json.dumps({"kernels": [nms, rpn, rpn_bf16, bn_relu]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

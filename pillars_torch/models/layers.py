@@ -26,6 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pillars_torch.ops.bn_relu_cuda import bn_relu
 from pillars_torch.parallel.collectives import all_reduce_sum
 
 
@@ -246,6 +247,20 @@ class BatchNorm(nn.Module):
         y = ((x - mean.reshape(shape)) * (inv * self.weight).reshape(shape)
              + self.bias.reshape(shape))
         return y.to(self.compute_dtype or x.dtype)
+
+    def forward_relu(self, x):
+        """``torch.relu(self(x))``. In eval, in float32, on a 4-D CUDA
+        tensor (NCHW or channels-last) whose result needs no gradient, one
+        kernel pass (ops/bn_relu_cuda.py) in place of the library BN and
+        the ReLU; the same function, to float32 rounding."""
+        if (not self.training and self.compute_dtype is None and x.is_cuda
+                and x.dtype == torch.float32 and x.dim() == 4
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or self.weight.requires_grad
+                              or self.bias.requires_grad))):
+            return bn_relu(x, self.running_mean, self.running_var,
+                           self.weight, self.bias, self.eps)
+        return torch.relu(self(x))
 
 
 class MaskedBatchNorm(BatchNorm):

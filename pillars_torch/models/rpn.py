@@ -6,7 +6,9 @@ three ConvTranspose up-branches; 1x1 heads applied per branch and summed
 :class:`RPNTail` is the part after the blocks, for the path whose blocks run
 fused (ops/rpn_blocks.py). The modules take and return NHWC like the JAX
 package; inside they are NCHW. BatchNorm follows flax's conventions in train
-mode (models/layers.py).
+mode (models/layers.py). Each BN + ReLU goes through
+``BatchNorm.forward_relu``: in float32 eval on the card one kernel pass
+(ops/bn_relu_cuda.py), elsewhere ``torch.relu(bn(x))``.
 
 ``rpn.remat`` recomputes each block and deconv in the backward
 (``torch.utils.checkpoint``); with ``rpn.remat_bf16`` the seven boundary
@@ -124,7 +126,7 @@ class _Block(nn.Module):
         for i in range(self.num_layers + 1):
             conv = getattr(self, f"conv{i}")
             x = conv(x) if halo is None else conv(halo(x), padding=(0, 1))
-            x = torch.relu(getattr(self, f"bn{i}")(x))
+            x = getattr(self, f"bn{i}").forward_relu(x)
         return x
 
 
@@ -141,8 +143,8 @@ class _Deconv(nn.Module):
         self.upcast = dtype is None  # rpn.remat_bf16's boundaries
 
     def forward(self, x):
-        return torch.relu(self.bn(self.deconv(_upcast(x) if self.upcast
-                                              else x)))
+        return self.bn.forward_relu(self.deconv(_upcast(x) if self.upcast
+                                                else x))
 
 
 class RPNTail(nn.Module):

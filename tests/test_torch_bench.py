@@ -97,7 +97,8 @@ def test_measure_on_the_cpu():
     assert t["host_ms_per_batch"] > 0 and t["first_call_s"] > 0
     assert t["launches_per_call"] == {"nms_keep_mask.launches": 0.0,
                                       "fused_sep_block.launches": 0.0,
-                                      "fused_sep_block.launches_bf16": 0.0}
+                                      "fused_sep_block.launches_bf16": 0.0,
+                                      "bn_relu.launches": 0.0}
 
 
 def test_cli_prints_one_json_line():
