@@ -21,16 +21,23 @@ from port_bench import harness
 def control_gap(wl_name: str, seed: int, device: str = "cuda") -> dict:
     """The detection gap of the TF32 reference's served detections against
     the float32 reference's, on the cell's bank for ``seed``."""
+    import shutil
+
     from port_bench.gen.bank import traffic_bank
     from port_bench.reference.compare import run_gap
-    from port_bench.reference.pointpillars import Reference, served
+    from port_bench.reference.pointpillars import served
 
     wl = harness.workload(harness.benchmark(), wl_name)
     config = harness.config_file(wl["config"])
     traffic = harness.traffic_file(wl["traffic"])
     bank = traffic_bank(config["profile"], traffic, seed)
-    ref = Reference(config["model"], str(harness.ROOT / config["weights"]),
-                    device=device)
+    cell = harness.Cell(config, traffic, seed, 0.0, False, device, 0.0)
+    try:
+        ref = harness.reference_class(config)(
+            config["model"], harness.checkpoint(cell), device=device)
+    finally:
+        if cell.scratch is not None:
+            shutil.rmtree(cell.scratch, ignore_errors=True)
     cands = ref.run(bank)
     low = ref.run(bank, tf32=True)
     deliveries = [(i, *served(c)) for i, c in enumerate(low)]

@@ -4,8 +4,19 @@ judgement, the metrics.
 Everything that belongs to one configuration, traffic mix, metric or cell
 sits in a file of its own, found by the name ``BENCHMARK.json`` gives:
 
-- ``port_bench/configs/<config>.json``: the configuration as run (the
-  program's yaml, the checkpoint, the model section the reference reads);
+- ``port_bench/configs/<config>.json``: the configuration as run: the
+  program's ``yaml`` and its ``overrides``, ``dtype``, the traffic
+  ``profile``, the ``model`` section the reference reads, and
+
+  - ``weights``: a checkpoint file, or ``{"seed": n}``: a checkpoint that
+    the configuration's reference writes at set-up from n
+    (``Reference.write_seeded``), which the program and the reference then
+    read as they read a trained one;
+  - ``reference`` (optional, default ``pointpillars``): the module of
+    ``port_bench/reference/`` whose ``Reference(model, checkpoint,
+    device)`` judges the configuration; its ``run(clouds)`` gives each
+    cloud's ``Candidates`` (with ``flops``, its own count of the cloud's
+    forward pass, which the ``mfu`` metrics read);
 - ``port_bench/traffic/<traffic>.json``: the mix's parameters, and
   ``loop``, the module of ``port_bench/loops/`` that serves it;
 - ``port_bench/metrics/<metric>.py``: ``read(record)``, the metric's value
@@ -16,22 +27,30 @@ sits in a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
 import importlib.util
 import json
+import os
 import pathlib
+import shutil
+import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from port_bench.metrics._common import device_idle_frac, host_ms_per_cloud
+from port_bench.metrics._common import (device_idle_frac, host_ms_per_cloud,
+                                       part_spans)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HERE = ROOT / "port_bench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "pillars_tpu")
+# clouds of the cell's traffic that calibrate seeded weights
+CALIBRATION_CLOUDS = 4
 
 
 def load_json(path: pathlib.Path) -> Dict:
@@ -76,12 +95,39 @@ def loop(name: str):
     return importlib.import_module(f"port_bench.loops.{name}")
 
 
+def reference_name(config: Dict) -> str:
+    return config.get("reference", "pointpillars")
+
+
+def reference_class(config: Dict):
+    """``Reference`` of ``port_bench/reference/<module>.py``, the module the
+    configuration names (module docstring)."""
+    name = reference_name(config)
+    path = HERE / "reference" / f"{name}.py"
+    key = f"port_bench.reference.{name}"
+    module = sys.modules.get(key)
+    if module is None or pathlib.Path(module.__file__).resolve() != \
+            path.resolve():
+        spec = importlib.util.spec_from_file_location(key, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    return module.Reference
+
+
 def cell_metrics(bench: Dict, wl_name: str, trace: bool) -> List[Dict]:
     """The metrics a run of ``wl_name`` reports: its end-to-end metrics, or
     with ``trace`` its per-layer ones."""
     rows = bench["per_layer"] if trace else bench["end_to_end"]
     return [m for m in rows
             if "workloads" not in m or wl_name in m["workloads"]]
+
+
+def takes_marks(bench: Dict, wl_name: str, trace: bool) -> bool:
+    """Whether a run of ``wl_name`` turns the program's tracing on: a
+    ``--trace 1`` run of a cell that reports a per-layer metric read from
+    the program's spans (``source`` ``program_span``)."""
+    return trace and any(m["source"] == "program_span"
+                         for m in cell_metrics(bench, wl_name, True))
 
 
 @dataclass
@@ -96,6 +142,14 @@ class Cell:
     trace: bool
     device: str
     t_process: float
+    # the program's tracing, turned on by the harness for this run: on
+    # through set-up (the graphs are captured with their device marks), off
+    # in the timed and traced parts, on in the marked part after them
+    # (loops/_window.py)
+    marks: bool = False
+    checkpoint: Optional[str] = None
+    scratch: Optional[str] = None  # a seeded checkpoint's directory
+    writer_s: float = 0.0  # the seeded checkpoint's writer, not set-up
     cfg: Any = None
     detector: Any = None
     state: Any = None
@@ -117,29 +171,67 @@ def program_config(config: Dict):
     return cfg
 
 
+def checkpoint(cell: Cell) -> str:
+    """The checkpoint file the program and the reference read: the file the
+    configuration's ``weights`` names, or for ``{"seed": n}`` the one its
+    reference writes from n, calibrated on :data:`CALIBRATION_CLOUDS` clouds
+    of the cell's traffic made from n, into a directory of ``TMPDIR``
+    (``cell.scratch``, which ``run_cell`` removes). The writer is the
+    reference's, not the program's: its seconds (``cell.writer_s``, the
+    CUDA context left out, which the program's set-up would make) are not
+    set-up, its cuBLAS workspaces are released and the card's peak is
+    reset after it."""
+    weights = cell.config["weights"]
+    if isinstance(weights, str):
+        return str(ROOT / weights)
+    from port_bench.gen.bank import traffic_bank
+
+    if cell.device != "cpu":
+        import torch
+
+        torch.cuda.synchronize(cell.device)  # makes the CUDA context
+    t0 = time.perf_counter()
+    seed = int(weights["seed"])
+    clouds = traffic_bank(cell.config["profile"],
+                          dict(cell.traffic, bank=CALIBRATION_CLOUDS), seed)
+    cell.scratch = tempfile.mkdtemp(prefix="port_bench_weights_")
+    path = os.path.join(cell.scratch, "seeded.pkl")
+    reference_class(cell.config).write_seeded(
+        cell.config["model"], seed, clouds, path, device=cell.device)
+    if cell.device != "cpu":
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cell.writer_s = time.perf_counter() - t0
+    return path
+
+
 def set_up(cell: Cell) -> None:
-    """The program's detector and the checkpoint's state on the device, and
-    the bank (set-up, before any loop runs)."""
+    """The checkpoint, the program's detector and its state on the device,
+    and the bank (set-up, before any loop runs). A seeded checkpoint's
+    writer is not set-up: the process's clock moves past it."""
     from pillars_torch.models.detector import PillarsDetector
     from pillars_torch.weights import from_jax_variables, load_params
 
     from port_bench.gen.bank import traffic_bank
 
+    cell.checkpoint = checkpoint(cell)
+    cell.t_process += cell.writer_s
     cell.cfg = program_config(cell.config)
     cell.detector = PillarsDetector(cell.cfg, device=cell.device)
     cell.state = cell.detector.state_to_device(from_jax_variables(
-        *load_params(str(ROOT / cell.config["weights"])), cell.cfg))
+        *load_params(cell.checkpoint), cell.cfg))
     cell.bank = traffic_bank(cell.config["profile"], cell.traffic, cell.seed)
 
 
 def judge(cell: Cell, record: Dict) -> Dict:
-    """The reference's candidates for every cloud of the bank, and the
-    comparison of every delivery with them."""
+    """The candidates of the configuration's reference for every cloud of
+    the bank, and the comparison of every delivery with them."""
     from port_bench.reference.compare import run_gap
-    from port_bench.reference.pointpillars import Reference
 
-    ref = Reference(cell.config["model"], str(ROOT / cell.config["weights"]),
-                    device=cell.device)
+    ref = reference_class(cell.config)(cell.config["model"], cell.checkpoint,
+                                       device=cell.device)
     cands = ref.run(cell.bank)
     record["cands"] = cands
     return run_gap(record["deliveries"], cands, cell.config["model"])
@@ -161,16 +253,34 @@ def run_cell(wl_name: str, seed: int, seconds: float, trace: bool,
     """One run of the cell ``wl_name``: the result line's dict, and
     ``checks`` (each compared number with its limit) last. ``device``
     "cpu" drives the program on the CPU (tests); the card's figures are
-    then absent."""
+    then absent. The program's spans and device marks
+    (``pillars_torch.utils.tracing``) are turned on only where
+    :func:`takes_marks` says, and then only in set-up and the window's
+    marked part (``Cell.marks``); tracing that the caller turned on is left
+    as it is."""
     t_process = time.perf_counter() if t_process is None else t_process
     bench = bench or benchmark()
     wl = workload(bench, wl_name)
     traffic = dict(traffic_file(wl["traffic"]), **(traffic_overrides or {}))
     cell = Cell(config_file(wl["config"]), traffic, int(seed),
                 float(seconds), bool(trace), device, t_process)
-    set_up(cell)
-    record = loop(traffic["loop"]).run(cell)
+    try:
+        return _run(cell, bench, wl)
+    finally:
+        if cell.scratch is not None:
+            shutil.rmtree(cell.scratch, ignore_errors=True)
+
+
+def _run(cell: Cell, bench: Dict, wl: Dict) -> Dict:
+    from pillars_torch.utils import tracing
+
+    cell.marks = (takes_marks(bench, wl["name"], cell.trace)
+                  and not tracing.enabled())
+    with (tracing.tracing_on() if cell.marks else contextlib.nullcontext()):
+        set_up(cell)
+        record = loop(cell.traffic["loop"]).run(cell)
     record["model"] = cell.config["model"]
+    device = cell.device
     dev = {"platform": "gpu" if device != "cpu" else "cpu",
            "kind": "cpu", "count": int(wl["chips"]),
            "memory_peak_bytes": 0}
@@ -183,7 +293,7 @@ def run_cell(wl_name: str, seed: int, seconds: float, trace: bool,
     record["device"] = dev
     free_program(cell)
     verdict = judge(cell, record)
-    limits = limits_file(wl_name)["limits"]
+    limits = limits_file(wl["name"])["limits"]
     checks = {
         "detection_gap": {"value": verdict["detection_gap"],
                           "limit": limits["detection_gap"]},
@@ -193,7 +303,7 @@ def run_cell(wl_name: str, seed: int, seconds: float, trace: bool,
     correct = (record["delivered"] > 0 and all(
         c["value"] <= c["limit"] for c in checks.values()))
     metrics = {}
-    for m in cell_metrics(bench, wl_name, trace):
+    for m in cell_metrics(bench, wl["name"], cell.trace):
         value = metric_reader(m["name"])(record)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -201,6 +311,9 @@ def run_cell(wl_name: str, seed: int, seconds: float, trace: bool,
     if summary is not None:
         dev["busy_s"] = summary["busy_s"]
         dev["window_s"] = summary["window_s"]
+    # the spans and counters of the run's last part: the marked one, where
+    # the run has one (Cell.marks)
+    part = list(record["parts"].values())[-1]
     out = {"correct": bool(correct), "attempted": int(record["attempted"]),
            "failed": int(record["attempted"] - record["delivered"]),
            "metrics": metrics, "device": dev,
@@ -215,7 +328,9 @@ def run_cell(wl_name: str, seed: int, seconds: float, trace: bool,
                       "host_ms_per_cloud": host_ms_per_cloud(record),
                       "device_idle_frac": device_idle_frac(record),
                       "latency_ms": _percentiles(record["latencies_ms"]),
-                      "setup_s": record["setup_s"]}}
+                      "setup_s": record["setup_s"],
+                      "spans": part_spans(part, part["clouds"]),
+                      "counters": part["counters"]}}
     if summary is not None:
         out["breakdown"] = {"device_ops": summary["device_ops"],
                             "idle_gaps": summary["idle_gaps"]}

@@ -4,8 +4,8 @@
 
 The clouds come in through the loop's own ``source_fn``. One thread of the
 benchmark publishes to every sensor's mailbox at ``hz_per_stream``, sensor
-``i`` the bank rotated by ``i`` (as ``pillars_torch/utils/serving_probe.py``
-does), above what the card serves, so every dispatch finds fresh clouds.
+``i`` the bank rotated by ``i``, above what the card serves, so every
+dispatch finds fresh clouds.
 The benchmark follows which cloud each dispatch took by wrapping ``take`` of
 each mailbox it is handed; the loop's ``on_detections(i, ...)`` then comes
 in dispatch order for each sensor.

@@ -6,6 +6,7 @@ want of a reading."""
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -100,25 +101,62 @@ def nms_roofline(rec: Dict) -> Optional[float]:
 
 def mfu_replay(rec: Dict) -> Optional[float]:
     """% of the card's float32 peak over the card's time: the model's
-    operations per cloud of the timed part over its mean replay time (batch
-    1: one replay a cloud)."""
+    operations per cloud of the timed part (the reference's count of each
+    cloud's forward pass) over its mean replay time (batch 1: one replay a
+    cloud)."""
     peak = _peak(rec)
     if peak is None or not rec["frames"] or not rec.get("replay_ms"):
         return None
     cands = rec["cands"]
-    flops = sum(cost.model_flops(rec["model"], cands[i].kept_points)
-                for i in rec["frames"]) / len(rec["frames"])
+    flops = sum(cands[i].flops for i in rec["frames"]) / len(rec["frames"])
     return 100.0 * flops / (rec["replay_ms"] * 1e-3) / peak.f32_flops
 
 
 def mfu(rec: Dict) -> Optional[float]:
     """% of the cards' float32 peak: the model's operations for the clouds
-    delivered in the timed part over its length."""
+    delivered in the timed part (the reference's count of each cloud's
+    forward pass) over its length."""
     peak = _peak(rec)
     if peak is None or not rec["frames"]:
         return None
     cands = rec["cands"]
-    flops = sum(cost.model_flops(rec["model"], cands[i].kept_points)
-                for i in rec["frames"])
+    flops = sum(cands[i].flops for i in rec["frames"])
     return 100.0 * flops / rec["window_s"] / (
         peak.f32_flops * rec["device"]["count"])
+
+
+# ---------------------------------------------------------------- spans
+def part_spans(part: Dict, clouds: int) -> Dict:
+    """A part's spans (``record["parts"][...]``) per name: ``count``,
+    ``ms`` and ``ms_per_cloud``, over the ``clouds`` delivered in the part,
+    and for the device marks (``device.*``) over the clouds of the replays
+    they sampled."""
+    sampled = part["counters"].get("device.sampled_clouds", 0)
+    out = {}
+    for name, row in part["spans"].items():
+        per = sampled if name.startswith("device.") else clouds
+        out[name] = {"count": row["count"], "ms": row["ns"] / 1e6,
+                     "ms_per_cloud": row["ns"] / 1e6 / per if per else None}
+    return out
+
+
+def stage_ms_per_cloud(rec: Dict, stage: str) -> Optional[float]:
+    """The card's time per cloud of one stage of the captured inference
+    graph in the marked part (``loops/_window.py``; profiler off): the
+    device mark ``device.<stage>`` summed over the replays it sampled, over
+    their clouds (``device.sampled_clouds``); None where the run took no
+    marks (no marked part, no captured graph)."""
+    part = (rec.get("parts") or {}).get("marked")
+    if part is None:
+        return None
+    span = part["spans"].get(f"device.{stage}")
+    clouds = part["counters"].get("device.sampled_clouds", 0)
+    if span is None or not clouds:
+        return None
+    return span["ns"] / 1e6 / clouds
+
+
+voxelize_ms_per_cloud = functools.partial(stage_ms_per_cloud, stage="voxelize")
+pfn_ms_per_cloud = functools.partial(stage_ms_per_cloud, stage="pfn")
+rpn_ms_per_cloud = functools.partial(stage_ms_per_cloud, stage="rpn")
+post_ms_per_cloud = functools.partial(stage_ms_per_cloud, stage="post")

@@ -1,0 +1,3 @@
+"""post_ms_per_cloud.latency: see _common.py."""
+
+from port_bench.metrics._common import post_ms_per_cloud as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""rpn_ms_per_cloud.replay: see _common.py."""
+
+from port_bench.metrics._common import rpn_ms_per_cloud as read  # noqa: F401

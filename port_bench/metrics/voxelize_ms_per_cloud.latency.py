@@ -1,0 +1,3 @@
+"""voxelize_ms_per_cloud.latency: see _common.py."""
+
+from port_bench.metrics._common import voxelize_ms_per_cloud as read  # noqa: F401

@@ -31,6 +31,10 @@ One cloud at a time through the front end, the RPN over blocks of canvases:
   SECOND's box decode, greedy NMS on the standup boxes with the
   reference's +1 IoU, the direction flip, and the serving filter
   ``score >= prediction_min_score``.
+
+A configuration without a trained checkpoint gets seeded weights
+(:meth:`Reference.write_seeded`): drawn from a seed, then calibrated by this
+reference on a few clouds of the configuration's traffic.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from port_bench import cost
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +154,7 @@ class Candidates(NamedTuple):
     boundary: float         # the best score left out of the top K
     final: np.ndarray       # indices of the served detections, served order
     nms_pairs: int          # (box, kept box before it) pairs greedy NMS met
-    kept_points: int        # points the PFN read
+    flops: float            # operations of this cloud's forward pass
 
 
 class Detections(NamedTuple):
@@ -173,16 +179,18 @@ def _tf32(on: bool):
 
 class Reference:
     """PointPillars of a configuration file's ``model`` section with a
-    checkpoint's weights, on ``device``."""
+    checkpoint's weights, on ``device``. ``checkpoint``: a checkpoint file,
+    or its (params, batch_stats) trees."""
 
-    def __init__(self, model: Dict, checkpoint: str, device="cpu"):
+    def __init__(self, model: Dict, checkpoint, device="cpu"):
         self.m = model
         self.device = torch.device(device)
-        params, stats = load_checkpoint(checkpoint)
+        params, stats = (checkpoint if isinstance(checkpoint, tuple)
+                         else load_checkpoint(checkpoint))
         dev = self.device
 
         def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
         self.p = _map_tree(params, t)
         self.s = _map_tree(stats, t)
@@ -190,12 +198,23 @@ class Reference:
         self.anchors = t(self.anchors_np)
         self.corners = torch.as_tensor(anchor_corners(model, self.anchors_np),
                                        device=dev)
+        # paths of the BatchNorms calibrated so far (write_seeded only)
+        self._calibrated = None
+
+    def flops(self, kept_points: int) -> float:
+        """Operations of one cloud's forward pass (``port_bench/cost.py``)."""
+        return cost.model_flops(self.m, kept_points)
 
     # -- front end ----------------------------------------------------------
     def _bn(self, x, path, channel_dim=-1):
         p, s = _get(self.p, path), _get(self.s, path)
         eps = self.m["rpn"]["bn_eps"] if path[0] == "rpn" \
             else self.m["pfn"]["bn_eps"]
+        if self._calibrated is not None and path not in self._calibrated:
+            dims = [d for d in range(x.dim()) if d != channel_dim % x.dim()]
+            s["mean"] = _coarse(x.mean(dim=dims))
+            s["var"] = _coarse(x.var(dim=dims, unbiased=False))
+            self._calibrated.add(path)
         shape = [1] * x.dim()
         shape[channel_dim] = -1
         inv = torch.rsqrt(s["var"] + eps)
@@ -305,20 +324,27 @@ class Reference:
         for name, width in (("box", 7), ("cls", self.m["num_class"]),
                             ("dir", 2)):
             node = rp[f"conv_{name}" if name != "dir" else "conv_dir_cls"]
+            if self._calibrated is not None:
+                _standardise(node, cat, HEAD_SPREAD[name])
             y = F.conv2d(cat, node["kernel"].permute(3, 2, 0, 1),
                          node["bias"])
             out[name] = y.permute(0, 2, 3, 1).reshape(b, -1, width)
         return out
 
     # -- postprocess ------------------------------------------------------
-    def candidates(self, box, cls, dirl, occupied, kept_points) -> Candidates:
-        """One cloud's head logits -> its top-K candidates and the served
-        detections among them."""
-        pp = self.m["postprocess"]
+    def anchor_mask(self, occupied: torch.Tensor) -> torch.Tensor:
+        """[A] anchors whose BEV box holds more occupied pillars than the
+        configuration's threshold."""
         x0, y0, x1, y1 = self.corners.unbind(1)
         sat = torch.cumsum(torch.cumsum(occupied, dim=0), dim=1)
         area = sat[y1, x1] - sat[y1, x0] - sat[y0, x1] + sat[y0, x0]
-        amask = area > self.m["anchor_area_threshold"]
+        return area > self.m["anchor_area_threshold"]
+
+    def candidates(self, box, cls, dirl, occupied, flops) -> Candidates:
+        """One cloud's head logits -> its top-K candidates and the served
+        detections among them."""
+        pp = self.m["postprocess"]
+        amask = self.anchor_mask(occupied)
         scores = torch.sigmoid(cls.amax(dim=1))
         masked = torch.where(amask, scores, torch.tensor(float("-inf"),
                                                          device=box.device))
@@ -346,8 +372,7 @@ class Reference:
         served = keep[top_np[keep] >= self.m["prediction_min_score"]]
         return Candidates(boxes.cpu().numpy(), top_np, valid, su,
                           (d[:, 0] - d[:, 1]).abs().cpu().numpy(),
-                          rot.cpu().numpy(), boundary, served, pairs,
-                          kept_points)
+                          rot.cpu().numpy(), boundary, served, pairs, flops)
 
     def run(self, clouds: List[np.ndarray], tf32: bool = False,
             block: int = 8) -> List[Candidates]:
@@ -360,8 +385,169 @@ class Reference:
                 h = self.heads(torch.stack([f[0] for f in fronts]))
                 for j, (_, occ, kept) in enumerate(fronts):
                     out.append(self.candidates(h["box"][j], h["cls"][j],
-                                               h["dir"][j], occ, kept))
+                                               h["dir"][j], occ,
+                                               self.flops(kept)))
         return out
+
+    # -- seeded weights ---------------------------------------------------
+    @staticmethod
+    def layers(model: Dict):
+        """The network's leaves in the checkpoint's (flax) layout:
+        ("kernel", path, shape, fan-in), ("bn", path, width) and ("bias",
+        path, width) of the heads."""
+        r = model["rpn"]
+        f = model["pfn"]["num_filters"]
+        d = model["num_point_features"] + 5
+        yield "kernel", ("pfn", "dense", "kernel"), (d, f), d
+        yield "bn", ("pfn", "bn"), f
+        cin = f
+        for i in range(3):
+            blk = ("rpn", f"block{i + 1}")
+            cout = r["num_filters"][i]
+            for j in range(r["layer_nums"][i] + 1):
+                conv = blk + (f"conv{j}",)
+                if r["use_separable_conv"]:
+                    yield "kernel", conv + ("depthwise", "kernel"), \
+                        (3, 3, 1, cin), 9
+                    yield "kernel", conv + ("pointwise", "kernel"), \
+                        (1, 1, cin, cout), cin
+                else:
+                    yield "kernel", conv + ("kernel",), (3, 3, cin, cout), \
+                        9 * cin
+                yield "bn", blk + (f"bn{j}",), cout
+                cin = cout
+            u, up = r["upsample_strides"][i], r["num_upsample_filters"][i]
+            yield "kernel", ("rpn", f"deconv{i + 1}", "deconv", "kernel"), \
+                (u, u, cout, up), cout
+            yield "bn", ("rpn", f"deconv{i + 1}", "bn"), up
+        per_loc = sum(len(g["rotations"]) * (len(g["sizes"]) // 3)
+                      for g in model["anchor_generators"])
+        width = sum(r["num_upsample_filters"])
+        for name, n in (("conv_box", 7), ("conv_cls", model["num_class"]),
+                        ("conv_dir_cls", 2)):
+            yield "kernel", ("rpn", name, "kernel"), \
+                (1, 1, width, per_loc * n), width
+            yield "bias", ("rpn", name, "bias"), per_loc * n
+
+    @classmethod
+    def seeded_trees(cls, model: Dict, seed: int, device="cpu"):
+        """(params, batch_stats) drawn from ``seed`` by a generator on
+        ``device``, in two calls: every kernel from N(0, 1 / fan-in), every
+        BatchNorm's scale from 1 + N(0, 0.1^2) and its bias from
+        N(0, 0.1^2); the heads' biases 0, the running statistics 0 and 1
+        (calibrated by :meth:`write_seeded`)."""
+        dev = torch.device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        leaves = list(cls.layers(model))
+        kernels = [x for x in leaves if x[0] == "kernel"]
+        bns = [x for x in leaves if x[0] == "bn"]
+        sizes = [math.prod(shape) for _, _, shape, _ in kernels]
+        widths = [w for _, _, w in bns]
+        flat = torch.randn(sum(sizes), generator=gen, device=dev)
+        bn_flat = torch.randn(2, sum(widths), generator=gen,
+                              device=dev) * 0.1
+        params: Dict = {}
+        stats: Dict = {}
+        for (_, path, shape, fan_in), part in zip(kernels,
+                                                  flat.split(sizes)):
+            _put(params, path, part.view(shape) / math.sqrt(fan_in))
+        for (_, path, w), scale, bias in zip(bns, bn_flat[0].split(widths),
+                                             bn_flat[1].split(widths)):
+            _put(params, path + ("scale",), 1.0 + scale)
+            _put(params, path + ("bias",), bias)
+            _put(stats, path + ("mean",), torch.zeros(w, device=dev))
+            _put(stats, path + ("var",), torch.ones(w, device=dev))
+        for _, path, w in (x for x in leaves if x[0] == "bias"):
+            _put(params, path, torch.zeros(w, device=dev))
+        return params, stats
+
+    def calibrate(self, clouds: List[np.ndarray]) -> None:
+        """Sets every BatchNorm's running statistics from the first batch
+        that reaches it (the front end's from the first cloud, the RPN's
+        from the canvases of all ``clouds``), standardises each head's
+        output channels on that batch (:data:`HEAD_SPREAD`), and offsets
+        the class head so that, averaged over ``clouds``, the
+        ``nms_post_max_size // 2`` best unmasked anchors of a cloud score at
+        least ``prediction_min_score`` (greedy NMS keeps fewer)."""
+        self._calibrated = set()
+        try:
+            with torch.no_grad(), _tf32(False):
+                fronts = [self.canvas(c) for c in clouds]
+                h = self.heads(torch.stack([f[0] for f in fronts]))
+                best = torch.cat([
+                    h["cls"][j].amax(dim=1)[self.anchor_mask(occ)]
+                    for j, (_, occ, _) in enumerate(fronts)])
+        finally:
+            self._calibrated = None
+        want = max(1, self.m["postprocess"]["nms_post_max_size"] // 2) \
+            * len(clouds)
+        if not len(best):
+            raise ValueError("no anchor of the calibration clouds is "
+                             "unmasked: the clouds miss the grid")
+        nth = torch.sort(best, descending=True).values[
+            min(want, len(best)) - 1]
+        score = self.m["prediction_min_score"]
+        node = self.p["rpn"]["conv_cls"]
+        node["bias"] = node["bias"] + _coarse(
+            math.log(score / (1.0 - score)) - nth)
+
+    @classmethod
+    def write_seeded(cls, model: Dict, seed: int, clouds: List[np.ndarray],
+                     path: str, device="cpu") -> None:
+        """Writes to ``path`` the checkpoint of ``model`` from ``seed``
+        (:meth:`seeded_trees`), calibrated on ``clouds`` (:meth:`calibrate`),
+        as ``{"state": {"params", "batch_stats"}}`` of float32 NumPy arrays:
+        the layout :func:`load_checkpoint` and the program's
+        ``weights.load_params`` read."""
+        ref = cls(model, cls.seeded_trees(model, seed, device), device)
+        ref.calibrate(clouds)
+
+        def host(tree):
+            return _map_tree(tree, lambda t: t.cpu().numpy())
+
+        with open(path, "wb") as f:
+            pickle.dump({"state": {"params": host(ref.p),
+                                   "batch_stats": host(ref.s)}}, f,
+                        protocol=4)
+
+
+# Why seeded weights are calibrated: kernels drawn at random leave each
+# layer's output at a scale set by the draw, and twenty layers compound it
+# (seeded full-width weights gave boxes of 1e10 m). With every running
+# statistic taken from the batch that reaches it, each layer hands the next
+# values of order one, as training leaves them; the heads, standardised per
+# output channel, keep box residuals small (boxes near their anchors, sizes
+# within a factor exp(0.5) of theirs at three spreads) and direction logits
+# of order one, and the class head's offset keeps the served detections of a
+# cloud between none and NMS's cap. Statistics and scales are rounded to
+# eight significant bits, so that the order in which a device sums them
+# does not change the file.
+
+# (mean, spread) of each head's output channels on the calibration batch
+HEAD_SPREAD = {"box": (0.0, 0.1), "cls": (0.0, 1.0), "dir": (0.0, 1.0)}
+COARSE_BITS = 8
+
+
+def _coarse(x):
+    """``x`` (a tensor or a float) rounded to :data:`COARSE_BITS`
+    significant bits."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    m, e = torch.frexp(t)
+    return torch.ldexp(torch.round(m * 2.0 ** COARSE_BITS)
+                       / 2.0 ** COARSE_BITS, e.to(torch.float32))
+
+
+def _standardise(node: Dict, x: torch.Tensor, target) -> None:
+    """Rescales the 1x1 head ``node`` (flax kernel [1, 1, C, O], bias [O])
+    so that its output channels over the batch ``x`` [B, C, H, W] have the
+    ``target`` (mean, spread)."""
+    y = F.conv2d(x, node["kernel"].permute(3, 2, 0, 1), node["bias"])
+    mean = _coarse(y.mean(dim=(0, 2, 3)))
+    std = y.std(dim=(0, 2, 3), unbiased=False)
+    scale = _coarse(target[1] / torch.where(std > 0, std,
+                                            torch.ones_like(std)))
+    node["kernel"] = node["kernel"] * scale
+    node["bias"] = (node["bias"] - mean) * scale + target[0]
 
 
 def served(c: Candidates) -> Detections:
@@ -436,6 +622,12 @@ def _get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
 
 
 def nms_margin(c: Candidates, threshold: float) -> np.ndarray:

@@ -49,20 +49,64 @@ def test_mix_runs_end_to_end_and_is_correct(wl):
     # the graph's replay time is read by CUDA events: the card's only
     assert set(out["metrics"]) == wanted - {"replay_ms"}
     assert all(v["value"] > 0 for v in out["metrics"].values())
+    assert out["detail"]["spans"] == {}  # tracing stays off
+    assert isinstance(out["detail"]["counters"], dict)
 
 
 def test_a_traced_run_times_and_traces_two_parts():
     """``--trace 1``: a timed part with the profiler off, then the traced
     part; the host's clock reads the first (the CPU has no device
-    operations, so the trace's own metrics read nothing here)."""
+    operations, so the trace's own metrics read nothing here). In a cell
+    that reads the program's spans a marked part follows, the only one with
+    tracing on."""
+    from port_bench.loops import _window
+
+    records = []
+    record = _window.Window.record
+
+    def keep(self, *a, **kw):
+        records.append(record(self, *a, **kw))
+        return records[-1]
+
     over, _ = TINY["d435i_sensor1"]
-    out = harness.run_cell("d435i_sensor1", SEED, 1.5, True, device="cpu",
-                           traffic_overrides=dict(over, trace_seconds=1.0))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_window.Window, "record", keep)
+        out = harness.run_cell("d435i_sensor1", SEED, 1.5, True,
+                               device="cpu",
+                               traffic_overrides=dict(over, trace_seconds=1.0))
     assert out["correct"], out["checks"]
     assert out["detail"]["window_clouds"] > 0
     assert out["detail"]["traced_per_s"] > 0
     assert out["device"]["window_s"] > 0.9
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+    # the program's spans of the marked part, on for this run only
+    spans, counters = out["detail"]["spans"], out["detail"]["counters"]
+    assert spans["stream.dispatch"]["count"] == counters["stream.dispatches"]
+    assert spans["stream.dispatch"]["ms_per_cloud"] > 0
+    parts = records[-1]["parts"]
+    assert list(parts) == ["timed", "traced", "marked"]
+    assert parts["marked"]["clouds"] > 0
+    # and off in the others: at most a span open at a toggle closes
+    for name in ("timed", "traced"):
+        assert parts[name]["counters"]["stream.dispatches"] > 2
+        assert parts[name]["spans"].get(
+            "stream.dispatch", {"count": 0})["count"] <= 1
+    from pillars_torch.utils import tracing
+
+    assert not tracing.enabled()
+
+
+def test_tracing_follows_the_cells_metrics():
+    """A ``--trace 1`` run turns the program's tracing on only in a cell
+    that reports a metric read from the program's spans."""
+    bench = harness.benchmark()
+    for wl in bench["workloads"]:
+        reads_spans = any(m["source"] == "program_span" for m in
+                          harness.cell_metrics(bench, wl["name"], True))
+        assert harness.takes_marks(bench, wl["name"], True) == reads_spans
+        assert not harness.takes_marks(bench, wl["name"], False)
+    assert harness.takes_marks(bench, "d435i_sensor1", True)
+    assert not harness.takes_marks(bench, "d435i_sensors8", True)
 
 
 def _shifted(postprocess):
