@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from port_bench import harness
+from port_bench.tests import contract
 
 
 @pytest.fixture
@@ -113,18 +114,17 @@ def test_a_configuration_of_another_reference_with_seeded_weights_runs(
 
 @pytest.mark.parametrize("config", harness.benchmark()["configs"],
                          ids=lambda c: c["name"])
-def test_the_existing_configurations_resolve_to_pointpillars(config):
-    data = harness.config_file(config["name"])
-    assert "reference" not in data
-    assert harness.reference_name(data) == "pointpillars"
-    ref = harness.reference_class(data)
-    assert ref.__module__ == "port_bench.reference.pointpillars"
-    from port_bench.reference import pointpillars
+def test_every_configuration_resolves_to_its_reference_module(config):
+    """The module the file names, or ``pointpillars`` where it names none;
+    a checkpoint file is the path that the program and the reference
+    read."""
+    contract.reference_resolves(harness.benchmark(), harness.HERE, config)
 
-    assert ref is pointpillars.Reference
-    cell = harness.Cell(data, {}, 1, 1.0, False, "cpu", 0.0)
-    assert harness.checkpoint(cell) == str(harness.ROOT / data["weights"])
-    assert cell.scratch is None
+
+@pytest.mark.parametrize("config", harness.benchmark()["configs"],
+                         ids=lambda c: c["name"])
+def test_every_reference_is_a_class_with_run(config):
+    contract.reference_runs(harness.benchmark(), harness.HERE, config)
 
 
 def _seeded(tmp_path, seed, name):
