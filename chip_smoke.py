@@ -26,17 +26,25 @@ Phases, none of whose failures is caught:
      BN, then ``torch.relu``) timed in captured graphs, inputs rotating
      over 256 MB or more, against 8 bytes an element at 3.35 TB/s, and the
      kernel's device time under torch.profiler at kitti3's block1;
+   - eval PFN (``ops/pfn_cuda.py::pfn_max``): kitti3's point-major front
+     end at B=1 (P = 12000, N = 100, 131,072 point rows) and the d435i
+     dense cell at B=1 and B=8, on voxelized random clouds with random
+     weights; max |kernel - twin| <= 1e-6 * max |twin|, the dense cell's
+     counts equal; kernel and twin (the modules' library path) timed in
+     captured graphs, the kernel's device time under torch.profiler, beside
+     the bytes it must move at 3.35 TB/s;
 4. the dense-cell main path: ``PillarsDetector(Config.default())`` with the
    trained checkpoint ``benchmarks/hard_synth/weights_59.pkl`` through
    ``make_inference_fn`` on d435i-sized clouds (19200 points, NumPy seed 0)
    at B=1 and B=2, with the kernels' launch counts set to 0 before that run
-   and read after it (19 BN + ReLU kernels a batch); the head tensors against the same clouds through the
+   and read after it (19 BN + ReLU kernels and one PFN kernel a batch); the head tensors against the same clouds through the
    port on the CPU, and the card's postprocess fed the CPU's head tensors
    against the CPU's predictions; then the warm ms/cloud at B=1;
 5. the point-major fast path: the same config with ``model.pfn.dense_cell``
    false and ``model.rpn.use_pallas_blocks`` true, the same checkpoint and
    clouds, launch counts set to 0 before and read after (the fused blocks
-   and NMS once each per batch, the BN + ReLU kernel once per deconv); its head tensors against the port on the
+   and NMS once each per batch, the BN + ReLU kernel once per deconv, the
+   PFN kernel once per batch); its head tensors against the port on the
    CPU; its valid and labels equal to the dense-cell path's on the card,
    scores within 1e-5 and boxes within 1e-4 + 2e-5 relative; then the warm
    ms/cloud at B=1, and its kernel launches and device time per cloud;
@@ -766,6 +774,101 @@ def check_bn_relu_kernel(mcfg):
             "by_shape": rows}
 
 
+# the PFN kernel's cases: (label, kitti3 config, dense cell, B, points a
+# cloud, points in one pillar); about as many points and pillars as the
+# cells' clouds hold (kitti3 7k-9k pillars, d435i about 14.6k points)
+PFN_MAX_CASES = (("kitti3 B=1", True, False, 1, 9000, 150),
+                 ("d435i dense B=1", False, True, 1, 14600, 120),
+                 ("d435i dense B=8", False, True, 8, 14600, 120))
+PFN_MAX_RTOL = 1e-6  # kernel vs twin: the Linear summed in another order
+
+
+def _pfn_max_bytes(args, kwargs):
+    """The bytes the kernel must move for these inputs: every point's kept
+    flag; each kept point's features, mean xyz, cell and row (and count on
+    the dense cell); each written row's mask and count (point-major); the
+    [rows, F] output once (and the dense cell's [rows] counts)."""
+    points, _, cell, row, kept = args[:5]
+    rows, n_filters = args[-1], args[5].shape[0]
+    dense = "count" in kwargs
+    n_kept = int(kept.sum())
+    per_point = 4 * points.shape[1] + 12 + 4 * (1 if dense else 3) + 4 \
+        + (4 if dense else 0)
+    reads = kept.numel() + n_kept * per_point
+    if not dense:
+        reads += 5 * int(torch.unique(row[kept]).numel())
+    return reads + 4 * rows * n_filters + (4 * rows if dense else 8)
+
+
+def check_pfn_max_kernel():
+    """Kernel 4, the eval PFN, at the three cells' shapes (kitti3 point-major
+    at B=1, the d435i dense cell at B=1 and B=8): against its twin (the
+    modules' former library path), both timed in captured graphs, beside
+    the bytes it must move at 3.35 TB/s."""
+    from pillars_torch.config import Config
+    from pillars_torch.ops import pfn_cuda
+    from pillars_torch.utils.profiling import captured_ms, device_busy
+
+    parity = _parity()
+    rows = {}
+    for label, kitti3, dense, b, n, clump in PFN_MAX_CASES:
+        if kitti3:
+            cfg = (Config.from_yaml(str(K3_CONFIG))
+                   .override("model.voxel.max_voxels", 12000)
+                   .override("model.voxel.max_points_per_voxel", 100))
+        else:
+            cfg = Config.default()
+        mcfg = cfg.model
+        pts, num = parity.pfn_clouds(mcfg.voxel, mcfg.num_point_features, b,
+                                     n, seed=7, clump=clump)
+        _, args, kwargs = parity.pfn_case(
+            mcfg, torch.from_numpy(pts).cuda(), torch.from_numpy(num).cuda(),
+            dense, seed=7)
+        with torch.no_grad():
+            got = pfn_cuda.pfn_max(*args, **kwargs)
+            want = pfn_cuda.pfn_max_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        g, w = (got[0], want[0]) if dense else (got, want)
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        counts_equal = not dense or torch.equal(got[1], want[1])
+        if not (g.shape == w.shape and scale > 0 and counts_equal
+                and err <= PFN_MAX_RTOL * scale):
+            raise AssertionError(f"pfn_max {label}: kernel vs twin {err} > "
+                                 f"{PFN_MAX_RTOL} * {scale} or counts "
+                                 f"unequal ({counts_equal})")
+        with torch.no_grad():
+            us, plain_us = (captured_ms(lambda f=f: f(*args, **kwargs), 50)
+                            * 1e3 for f in (pfn_cuda.pfn_max,
+                                            pfn_cuda.pfn_max_plain))
+            dev_us = device_busy(lambda: pfn_cuda.pfn_max(*args, **kwargs),
+                                 50, "pfn_max_kernel")[1] * 1e3
+        nbytes = _pfn_max_bytes(args, kwargs)
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        r = rows[label] = {
+            "rows": args[-1], "points": int(args[4].numel()),
+            "kept": int(args[4].sum()), "features": args[5].shape[0],
+            "abs_err": err, "rel_err": err / scale, "us": us,
+            "device_us": dev_us, "plain_us": plain_us, "bound_us": bound_us,
+            "mb": nbytes / 1e6, "peak_pct": 100 * bound_us / us}
+        print(f"pfn_max {label}: M {r['points']}, kept {r['kept']}, rows "
+              f"{r['rows']}, F {r['features']}: max |diff| "
+              f"{r['rel_err']:.2e} of max |twin|; kernel {us:.2f} us a "
+              f"captured call ({dev_us:.2f} us device, torch.profiler), "
+              f"twin {plain_us:.2f} us; bound {bound_us:.2f} us "
+              f"({r['mb']:.2f} MB at 3.35 TB/s, {r['peak_pct']:.1f}%)")
+    head = rows["kitti3 B=1"]
+    return {"name": "pfn_max", "route": "cuda",
+            "source": "pillars_torch/csrc/pfn_max.cu", "replaces": None,
+            "shape": [head["points"], head["rows"], head["features"]],
+            "launches": None,
+            "max_abs_err": max(r["abs_err"] for r in rows.values()),
+            "ms": head["us"] / 1e3, "plain_ms": head["plain_us"] / 1e3,
+            "bound_ms": head["bound_us"] / 1e3, "bound_by": "bytes",
+            "library_ms": None, "device_ms": head["device_us"] / 1e3,
+            "by_shape": rows}
+
+
 def _clouds(max_points, batch, n_clouds, n=19200):
     """d435i-like clouds (640x480 depth subsampled 1::4), as bench.py."""
     n = min(n, max_points)
@@ -969,23 +1072,25 @@ def run_transfer(state_cpu, smi, root):
 
 
 def _reset_counts():
-    from pillars_torch.ops import bn_relu_cuda, nms_cuda, rpn_cuda
+    from pillars_torch.ops import bn_relu_cuda, nms_cuda, pfn_cuda, rpn_cuda
 
     nms_cuda.nms_keep_mask.launches = 0
     rpn_cuda.fused_sep_block.launches = 0
     rpn_cuda.fused_sep_block.launches_bf16 = 0
     bn_relu_cuda.bn_relu.launches = 0
+    pfn_cuda.pfn_max.launches = 0
 
 
 def _read_counts():
     """Launches since :func:`_reset_counts`; ``rpn_sep_block`` counts both
     dtypes of the block kernel, ``rpn_sep_block_bf16`` the bfloat16 ones."""
-    from pillars_torch.ops import bn_relu_cuda, nms_cuda, rpn_cuda
+    from pillars_torch.ops import bn_relu_cuda, nms_cuda, pfn_cuda, rpn_cuda
 
     return {"nms_keep_mask": nms_cuda.nms_keep_mask.launches,
             "rpn_sep_block": rpn_cuda.fused_sep_block.launches,
             "rpn_sep_block_bf16": rpn_cuda.fused_sep_block.launches_bf16,
-            "bn_relu": bn_relu_cuda.bn_relu.launches}
+            "bn_relu": bn_relu_cuda.bn_relu.launches,
+            "pfn_max": pfn_cuda.pfn_max.launches}
 
 
 def _check_outputs(cfg, on_card, outs):
@@ -1057,6 +1162,9 @@ def run_main_path(state_cpu):
         raise AssertionError(f"the main path ran the BN + ReLU kernel "
                              f"{launches['bn_relu']} times, not "
                              f"{_bn_relu_per_call(det)} per batch")
+    if launches["pfn_max"] != len(on_card):
+        raise AssertionError(f"the PFN kernel ran {launches['pfn_max']} "
+                             f"times, not once per batch")
     _check_outputs(cfg, on_card, outs)
 
     # the card against the CPU on the same clouds and weights
@@ -1132,6 +1240,9 @@ def run_fast_path(state_cpu, batches, on_card, dense_outs):
         raise AssertionError(f"the fast path ran the BN + ReLU kernel "
                              f"{launches['bn_relu']} times, not "
                              f"{_bn_relu_per_call(det)} per batch")
+    if launches["pfn_max"] != len(on_card):
+        raise AssertionError(f"the PFN kernel ran {launches['pfn_max']} "
+                             f"times, not once per batch")
     _check_outputs(cfg, on_card, outs)
 
     head_err = 0.0
@@ -3040,7 +3151,8 @@ def _p17_captured(cfg, state_cpu, batches, device, meshes=P17_MESHES,
                           mesh=Mesh([("spatial", world)]))
     state = det.state_to_device(state_cpu)
     per_call = {"nms_keep_mask": 1, "rpn_sep_block": 0,
-                "rpn_sep_block_bf16": 0, "bn_relu": _bn_relu_per_call(det)}
+                "rpn_sep_block_bf16": 0, "bn_relu": _bn_relu_per_call(det),
+                "pfn_max": 1}
     infer = {"max_abs_diff": {}, "launches_per_replay": {}}
     t0 = time.perf_counter()
     for b in (1, 2):
@@ -3670,7 +3782,8 @@ def run_captured(state_cpu, smi):
                     "rpn_sep_block": int(det.fast),
                     "rpn_sep_block_bf16": int(det.fast and name.endswith(
                         "bf16")),
-                    "bn_relu": _bn_relu_per_call(det)}
+                    "bn_relu": _bn_relu_per_call(det),
+                    "pfn_max": int(det.dtype is None)}
         for b in (1, 2):
             pts, num = _clouds(cfg.model.voxel.max_points, b, 2)
             eye = torch.eye(4).expand(b, 4, 4).contiguous().cuda()
@@ -3731,7 +3844,8 @@ def run_captured(state_cpu, smi):
     _, worst = _replay_path("second_sparse B=1", det, state, inputs,
                             {"nms_keep_mask": 1, "rpn_sep_block": 0,
                              "rpn_sep_block_bf16": 0,
-                             "bn_relu": _bn_relu_per_call(det)})
+                             "bn_relu": _bn_relu_per_call(det),
+                             "pfn_max": 0})
     result["max_abs_diff"]["second_sparse_B1"] = worst
     print(f"captured second_sparse_d435i B=1: replay against eager max "
           f"|diff| {worst:.3e}, heads likewise")
@@ -4759,13 +4873,15 @@ def run_bench(smi):
         launches = r["detail"]["launches_per_call"]
         fast = path == "fast"
         # BN + ReLU in float32: the dense RPN's 19 pairs, the fast path's
-        # 3 deconvs (its blocks' BN is folded into the fused kernel)
+        # 3 deconvs (its blocks' BN is folded into the fused kernel); the
+        # PFN kernel once a call in float32
         want = {"nms_keep_mask.launches": 1.0,
                 "fused_sep_block.launches": float(fast),
                 "fused_sep_block.launches_bf16": float(
                     fast and dtype == "bfloat16"),
                 "bn_relu.launches": float(
-                    (3 if fast else 19) * (dtype == "float32"))}
+                    (3 if fast else 19) * (dtype == "float32")),
+                "pfn_max.launches": float(dtype == "float32")}
         if launches != want:
             raise AssertionError(f"{label}: launches per timed call "
                                  f"{launches}, want {want}")
@@ -4823,6 +4939,7 @@ def main(argv=None):
     nms = check_nms_kernel(cfg.model.postprocess.nms_iou_threshold)
     rpn = check_rpn_kernel(cfg.model)
     bn_relu = check_bn_relu_kernel(cfg.model)
+    pfn = check_pfn_max_kernel()
     state_cpu = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
     dense, batches, on_card, outs, dense_times = run_main_path(state_cpu)
     fast, fast_times = run_fast_path(state_cpu, batches, on_card, outs)
@@ -4904,7 +5021,8 @@ def main(argv=None):
         **{k: v["bn_relu"] for k, v in parallel.items()},
         "kitti3_serve": kitti3["serve"]["counts"]["bn_relu"],
         "kitti3_eval": kitti3["eval"]["launches"]["bn_relu"]}
-    print(json.dumps({"kernels": [nms, rpn, rpn_bf16, bn_relu]}))
+    pfn["launches"] = dense["pfn_max"]
+    print(json.dumps({"kernels": [nms, rpn, rpn_bf16, bn_relu, pfn]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

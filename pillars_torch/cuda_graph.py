@@ -76,14 +76,15 @@ import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
-from pillars_torch.ops import bn_relu_cuda, nms_cuda, rpn_cuda
+from pillars_torch.ops import bn_relu_cuda, nms_cuda, pfn_cuda, rpn_cuda
 from pillars_torch.utils import tracing
 
 # (wrapper, attribute) of every kernel launch count a graph replays
 COUNTERS = ((nms_cuda.nms_keep_mask, "launches"),
             (rpn_cuda.fused_sep_block, "launches"),
             (rpn_cuda.fused_sep_block, "launches_bf16"),
-            (bn_relu_cuda.bn_relu, "launches"))
+            (bn_relu_cuda.bn_relu, "launches"),
+            (pfn_cuda.pfn_max, "launches"))
 
 _pool = None
 

@@ -16,6 +16,12 @@ with the batch statistics of the reference's dense layout, taken in float32.
 computes in float32 and rounds to it, and the scatter-max, its -inf fill,
 relu(bn(0)) and the count channel are in it (models/layers.py); the pillar
 features come out in it.
+
+In eval, in float32, on CUDA tensors whose result needs no gradient (the
+rule of ``BatchNorm.forward_relu``), ``PointwisePFN`` and ``DenseCellPFN``
+are one kernel from the points to the pillar rows (ops/pfn_cuda.py
+``pfn_max``, csrc/pfn_max.cu); otherwise they compute what its plain twin
+computes, in library ops that they share with it.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from torch import nn
 from pillars_torch.config import ModelConfig
 from pillars_torch.models.layers import (BatchNorm, Linear, MaskedBatchNorm,
                                          at_least_f32)
+from pillars_torch.ops.pfn_cuda import (max_over_cells, max_over_pillars,
+                                        pfn_max, pillar_centres,
+                                        point_features)
 
 
 class _PointwiseMaskedBN(BatchNorm):
@@ -68,12 +77,30 @@ def _encode(pfn, points, mean, cx, cy, kept, count=None):
     not ``kept``, through Linear + BN + ReLU -> (x [M, F], relu(bn(0)) [F]),
     both in the PFN's dtype. ``count``: the dense layout's row count, for
     train-mode statistics."""
-    feats = torch.cat([points, points[:, :3] - mean,
-                       (points[:, 0] - cx)[:, None],
-                       (points[:, 1] - cy)[:, None]], dim=-1)
+    feats = point_features(points, mean, cx, cy)
     feats = torch.where(kept[:, None], feats, torch.zeros_like(feats))
     x, zero_vec = pfn.bn(pfn.dense(feats), kept, count)
     return torch.relu(x), torch.relu(zero_vec).to(x.dtype)
+
+
+def _takes_kernel(pfn, points, mean) -> bool:
+    """``BatchNorm.forward_relu``'s rule: in eval, in float32, on CUDA
+    tensors whose result needs no gradient, the PFN is one kernel
+    (ops/pfn_cuda.py); training, bfloat16 and the CPU take the modules'
+    own computation."""
+    return (not pfn.training and pfn.bn.compute_dtype is None
+            and points.is_cuda and points.dtype == torch.float32
+            and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (points, mean, pfn.dense.weight,
+                                          pfn.bn.weight, pfn.bn.bias))))
+
+
+def _eval_params(pfn):
+    """The Linear weight and the eval BN's vectors and eps, as
+    ``pfn_max`` takes them."""
+    bn = pfn.bn
+    return (pfn.dense.weight, bn.running_mean, bn.running_var, bn.weight,
+            bn.bias, bn.eps)
 
 
 class PointwisePFN(nn.Module):
@@ -99,30 +126,20 @@ class PointwisePFN(nn.Module):
         rows, at most P), point_kept [M], point_mean [M, >=3], point_zyx
         [M, 3], num_points / pillar_mask [P]."""
         vcfg = self.cfg.voxel
-        vx, vy = vcfg.voxel_size[:2]
-        pcr = vcfg.point_cloud_range
-        n_pillars = num_points.shape[0]
-        kept = point_kept[:, None]
-        cx = point_zyx[:, 2].to(points.dtype) * vx + (vx / 2 + pcr[0])
-        cy = point_zyx[:, 1].to(points.dtype) * vy + (vy / 2 + pcr[1])
-
+        if _takes_kernel(self, points, point_mean):
+            return pfn_max(points, point_mean, point_zyx, point_pillar,
+                           point_kept, *_eval_params(self), vcfg,
+                           num_points.shape[0], num_points=num_points,
+                           pillar_mask=pillar_mask)
+        cx, cy = pillar_centres(point_zyx, points.dtype, vcfg)
         # train-mode BN: real pillars x N rows of the dense layout
         count = (pillar_mask.sum() * vcfg.max_points_per_voxel
                  if self.training else None)
         x, zero_contrib = _encode(self, points, point_mean[:, :3], cx, cy,
                                   point_kept, count)
-        neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
-        x = torch.where(kept, x, neg)  # dropped points cannot win a max
-        # one spare row takes the id P (the JAX package drops it)
-        seg = torch.full((n_pillars + 1, x.shape[1]), float("-inf"),
-                         dtype=x.dtype, device=x.device)
-        seg.scatter_reduce_(0, point_pillar.long()[:, None].expand_as(x), x,
-                            "amax")
-        seg = seg[:n_pillars]
-        pad_rows = (num_points < vcfg.max_points_per_voxel)[:, None]
-        seg = torch.maximum(seg, torch.where(pad_rows, zero_contrib[None], neg))
-        return torch.where(pillar_mask[:, None] & torch.isfinite(seg), seg,
-                           torch.zeros_like(seg))
+        return max_over_pillars(x, zero_contrib, point_pillar, point_kept,
+                                num_points, pillar_mask,
+                                vcfg.max_points_per_voxel)
 
 
 class DenseCellPFN(nn.Module):
@@ -152,52 +169,17 @@ class DenseCellPFN(nn.Module):
         if self.training and num_pillars is None:
             raise ValueError("a train-mode DenseCellPFN needs num_pillars")
         vcfg = self.cfg.voxel
-        vx, vy = vcfg.voxel_size[:2]
-        pcr = vcfg.point_cloud_range
-        x_offset = vx / 2 + pcr[0]
-        y_offset = vy / 2 + pcr[1]
-        nx, ny, nz = vcfg.grid_size
-        n_filters = self.cfg.pfn.num_filters
-        N = vcfg.max_points_per_voxel
-
+        if _takes_kernel(self, points, mean):
+            return pfn_max(points, mean, cell_local, cell_global, kept,
+                           *_eval_params(self), vcfg, n_cells_total,
+                           count=count)
         # pillar-centre offsets straight from the cell id
-        rem = torch.remainder(cell_local, ny * nx)
-        cyi = torch.div(rem, nx, rounding_mode="floor")
-        cxi = rem - cyi * nx
-        cx = cxi.to(points.dtype) * vx + x_offset
-        cy = cyi.to(points.dtype) * vy + y_offset
-
-        rows = num_pillars * N if self.training else None
+        cx, cy = pillar_centres(cell_local, points.dtype, vcfg)
+        rows = (num_pillars * vcfg.max_points_per_voxel if self.training
+                else None)
         x, zero_contrib = _encode(self, points, mean, cx, cy, kept, rows)
-
-        neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
-        xm = torch.where(kept[:, None], x, neg)
-        # the per-cell count rides the same scatter as channel F: every
-        # valid row of a cell carries the same count, so max == count;
-        # invalid rows are -inf everywhere and cannot corrupt the row they
-        # alias (a sample's sentinel is the next sample's cell 0)
-        valid = cell_local < nx * ny * nz
-        cnt_ch = torch.where(valid, count.to(x.dtype), neg)
-        aug = torch.cat([xm, cnt_ch[:, None]], dim=-1)
-
-        # one spare row takes the last sample's sentinel
-        seg = torch.full((n_cells_total + 1, n_filters + 1), float("-inf"),
-                         dtype=x.dtype, device=x.device)
-        seg.scatter_reduce_(0, cell_global.long()[:, None].expand_as(aug),
-                            aug, "amax")
-        seg = seg[:n_cells_total]
-        cell_feats = seg[:, :n_filters]
-        npts = seg[:, n_filters]
-
-        occupied = npts > 0
-        pad_rows = npts < N  # empty cells (-inf) are masked below anyway
-        cell_feats = torch.maximum(
-            cell_feats, torch.where(pad_rows[:, None], zero_contrib[None], neg))
-        cell_feats = torch.where(occupied[:, None], cell_feats,
-                                 torch.zeros_like(cell_feats))
-        num_points = torch.where(occupied, npts,
-                                 torch.zeros_like(npts)).to(torch.int32)
-        return cell_feats, num_points
+        return max_over_cells(x, zero_contrib, cell_local, cell_global, kept,
+                              count, n_cells_total, vcfg)
 
 
 class PillarFeatureNet(nn.Module):

@@ -569,3 +569,75 @@ def _same_detection(w, i, g, j, label, box_rtol):
         d = (rot_g - rot_w + period / 2) % period - period / 2
         assert abs(d) <= BF16_BOX_ATOL + box_rtol * abs(rot_w), (
             label, name, rot_g, rot_w)
+
+
+def pfn_clouds(vcfg, d, b, n, seed, clump=0):
+    """Clouds for a PFN: sample i holds ``n - 97 * i`` points (at least 0)
+    uniform over ``vcfg``'s range and 5% beyond each side of it, columns
+    after xyz uniform in [0, 1), the first ``clump`` of them in one pillar
+    (more than N points: the cap); zero padding to ``vcfg.max_points``.
+    Returns (points [b, max_points, d] float32, num_valid [b] int32)."""
+    r = np.random.RandomState(seed)
+    lo, hi = np.asarray(vcfg.point_cloud_range, np.float32).reshape(2, 3)
+    pts = np.zeros((b, vcfg.max_points, d), np.float32)
+    num = np.maximum(n - 97 * np.arange(b), 0).astype(np.int32)
+    for i, k in enumerate(num):
+        p = np.concatenate([r.uniform(lo - 0.05 * (hi - lo),
+                                      hi + 0.05 * (hi - lo), (k, 3)),
+                            r.uniform(0, 1, (k, d - 3))], 1)
+        c = min(clump, k)
+        vs = np.asarray(vcfg.voxel_size, np.float32)
+        corner = lo + np.floor(0.5 * (hi - lo) / vs) * vs
+        p[:c, :3] = corner + r.uniform(0.25, 0.75, (c, 3)) * vs
+        pts[i, :k] = r.permutation(p)
+    return pts, num
+
+
+def pfn_case(mcfg, pts, num_valid, dense, seed):
+    """A PFN module of ``mcfg`` in eval with random weights and running
+    statistics (NumPy ``seed``), on the clouds' device, and the arguments of
+    ``ops.pfn_cuda.pfn_max`` for the clouds ``pts`` [B, M, D] /
+    ``num_valid`` [B] (tensors), voxelized and folded over the batch as the
+    detector folds them: (module, args, kwargs)."""
+    import torch
+
+    from pillars_torch.models.pfn import (DenseCellPFN, PointwisePFN,
+                                          _eval_params)
+    from pillars_torch.ops.voxelize import (make_cell_voxelizer,
+                                            make_point_voxelizer)
+
+    vcfg = mcfg.voxel
+    dev = pts.device
+    b = pts.shape[0]
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
+    if dense:
+        v = make_cell_voxelizer(vcfg)(pts, num_valid)
+        n_cells = int(np.prod(vcfg.grid_size))
+        off = torch.arange(b, dtype=torch.int32, device=dev)[:, None] * n_cells
+        args = (flat(v.points), flat(v.mean), flat(v.cell),
+                flat(v.cell + off), flat(v.kept))
+        kwargs, rows = {"count": flat(v.count)}, b * n_cells
+    else:
+        v = make_point_voxelizer(vcfg)(pts, num_valid)
+        p = vcfg.max_voxels
+        off = torch.arange(b, dtype=torch.int32, device=dev)[:, None] * p
+        args = (flat(v.points), flat(v.point_mean), flat(v.point_zyx),
+                flat(v.point_pillar + off), flat(v.point_kept))
+        kwargs = {"num_points": flat(v.num_points),
+                  "pillar_mask": flat(v.pillar_mask)}
+        rows = b * p
+    module = (DenseCellPFN if dense else PointwisePFN)(mcfg).eval()
+    r = np.random.RandomState(seed)
+    f, k = module.dense.weight.shape
+    values = {"dense.weight": r.randn(f, k) * 0.5,
+              "bn.weight": r.uniform(0.5, 1.5, f) * r.choice([-1, 1], f),
+              "bn.bias": r.randn(f) * 0.5,
+              "bn.running_mean": r.randn(f),
+              "bn.running_var": r.uniform(0.2, 4.0, f)}
+    state = dict(module.named_parameters())
+    state.update(module.named_buffers())
+    with torch.no_grad():
+        for name, value in values.items():
+            state[name].copy_(torch.from_numpy(value.astype(np.float32)))
+    module.to(dev)
+    return module, args + _eval_params(module) + (vcfg, rows), kwargs
