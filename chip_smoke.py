@@ -1071,26 +1071,31 @@ def run_transfer(state_cpu, smi, root):
     return result
 
 
-def _reset_counts():
-    from pillars_torch.ops import bn_relu_cuda, nms_cuda, pfn_cuda, rpn_cuda
+# the launch counters (utils/tracing.py) under the names the checks use
+LAUNCH_COUNTERS = {"nms_keep_mask": "nms_keep_mask.launches",
+                   "rpn_sep_block": "fused_sep_block.launches",
+                   "rpn_sep_block_bf16": "fused_sep_block.launches_bf16",
+                   "bn_relu": "bn_relu.launches",
+                   "pfn_max": "pfn_max.launches"}
+_counted_from = {}
 
-    nms_cuda.nms_keep_mask.launches = 0
-    rpn_cuda.fused_sep_block.launches = 0
-    rpn_cuda.fused_sep_block.launches_bf16 = 0
-    bn_relu_cuda.bn_relu.launches = 0
-    pfn_cuda.pfn_max.launches = 0
+
+def _mark_counts():
+    """Takes the counters that :func:`_read_counts` counts from."""
+    from pillars_torch.utils import tracing
+
+    _counted_from.clear()
+    _counted_from.update(tracing.counters())
 
 
 def _read_counts():
-    """Launches since :func:`_reset_counts`; ``rpn_sep_block`` counts both
+    """Launches since :func:`_mark_counts`; ``rpn_sep_block`` counts both
     dtypes of the block kernel, ``rpn_sep_block_bf16`` the bfloat16 ones."""
-    from pillars_torch.ops import bn_relu_cuda, nms_cuda, pfn_cuda, rpn_cuda
+    from pillars_torch.utils import tracing
 
-    return {"nms_keep_mask": nms_cuda.nms_keep_mask.launches,
-            "rpn_sep_block": rpn_cuda.fused_sep_block.launches,
-            "rpn_sep_block_bf16": rpn_cuda.fused_sep_block.launches_bf16,
-            "bn_relu": bn_relu_cuda.bn_relu.launches,
-            "pfn_max": pfn_cuda.pfn_max.launches}
+    now = tracing.counters()
+    return {k: now.get(c, 0) - _counted_from.get(c, 0)
+            for k, c in LAUNCH_COUNTERS.items()}
 
 
 def _check_outputs(cfg, on_card, outs):
@@ -1150,7 +1155,7 @@ def run_main_path(state_cpu):
                for p, n in batches]
 
     # the main path, with every kernel's launch count read around it
-    _reset_counts()
+    _mark_counts()
     outs = [fn(state, p, n, eye[p.shape[0]], eye[p.shape[0]])
             for p, n in on_card]
     torch.cuda.synchronize()
@@ -1223,7 +1228,7 @@ def run_fast_path(state_cpu, batches, on_card, dense_outs):
     fn = det.make_inference_fn()
     eye = {b: torch.eye(4).expand(b, 4, 4).contiguous().cuda() for b in (1, 2)}
 
-    _reset_counts()
+    _mark_counts()
     outs = [fn(state, p, n, eye[p.shape[0]], eye[p.shape[0]])
             for p, n in on_card]
     torch.cuda.synchronize()
@@ -1471,7 +1476,7 @@ def run_serving(state_cpu, smi):
     state = det.state_to_device(state_cpu)
     for buckets in (None, (9984, 19968)):
         served = []
-        _reset_counts()
+        _mark_counts()
         stats = run_stream(cfg, det, state, hz=120.0, duration_s=3.0,
                            buckets=buckets,
                            on_detections=lambda b, s: served.append((b, s)))
@@ -1502,7 +1507,7 @@ def run_serving(state_cpu, smi):
         for n_streams in streams:
             served = []
             counter.calls = 0
-            _reset_counts()
+            _mark_counts()
             stats = run_multi_stream(
                 run_cfg, det, state, num_streams=n_streams, hz=30.0,
                 duration_s=3.0,
@@ -1573,7 +1578,7 @@ def run_evaluate(state_cpu, smi, root):
     cfg = _with_split(Config.default(), root)
     det = PillarsDetector(cfg)
     ev = Evaluator(cfg, det, measure_time=True)
-    _reset_counts()
+    _mark_counts()
     t0 = time.perf_counter()
     text, bev, d3, aos, score = ev.evaluate(det.state_to_device(state_cpu))
     seconds = time.perf_counter() - t0
@@ -1932,7 +1937,7 @@ def _trainer_epoch(cfg, epoch, resume=None, eager=False, params=False):
         return state, metrics
 
     def evaluate(*args, **kwargs):
-        _reset_counts()
+        _mark_counts()
         t0 = time.perf_counter()
         out = inner_eval(*args, **kwargs)
         evals.append((out[4], _read_counts()["nms_keep_mask"],
@@ -2077,7 +2082,7 @@ def _post_close(det, det_cpu, preds_cpu, amask_cpu, rect, trv2c, label):
 
 def _counted(fn, state, batches):
     """Launch counts around ``fn`` over ``batches`` (dicts on the card)."""
-    _reset_counts()
+    _mark_counts()
     outs = [fn(state, b["points"], b["num_points"], b["rect"], b["trv2c"])
             for b in batches]
     torch.cuda.synchronize()
@@ -2209,7 +2214,7 @@ def run_second_sparse(smi, root):
     print("second sparse: " + json.dumps(times))
 
     golden = json.loads(SECOND_GOLDEN.read_text())
-    _reset_counts()
+    _mark_counts()
     t0 = time.perf_counter()
     text, bev, d3, aos, score = ev.evaluate(state)
     seconds = time.perf_counter() - t0
@@ -2571,7 +2576,7 @@ def run_bf16_paths(state_cpu, batches, on_card, f32_times):
         det32_cpu = PillarsDetector(cfg, device="cpu")
         state = det.state_to_device(state_cpu)
         fn, fn_cpu = det.make_inference_fn(), det_cpu.make_inference_fn()
-        _reset_counts()
+        _mark_counts()
         outs = [fn(state, p, n, eye[p.shape[0]], eye[p.shape[0]])
                 for p, n in on_card]
         torch.cuda.synchronize()
@@ -2643,7 +2648,7 @@ def run_bf16_evaluate(state_cpu, smi, root):
         "runtime.compute_dtype", "bfloat16")
     det = PillarsDetector(cfg)
     ev = Evaluator(cfg, det, measure_time=True)
-    _reset_counts()
+    _mark_counts()
     t0 = time.perf_counter()
     text, bev, d3, aos, score = ev.evaluate(det.state_to_device(state_cpu))
     seconds = time.perf_counter() - t0
@@ -3037,7 +3042,7 @@ def _p17_rank(rank, device, spec_file):
             raise AssertionError("the distributed Evaluator does not replay "
                                  "graphs")
         state = det.state_to_device(state_cpu)
-        _reset_counts()
+        _mark_counts()
         t0 = time.perf_counter()
         annos, _ = ev.run(state, progress=False)
         torch.cuda.synchronize()
@@ -3169,7 +3174,7 @@ def _p17_captured(cfg, state_cpu, batches, device, meshes=P17_MESHES,
         if worst != 0:
             raise AssertionError(f"{label}: replay against eager max |diff| "
                                  f"{worst}")
-        _reset_counts()
+        _mark_counts()
         fn(state, *inputs[0])
         torch.cuda.synchronize()
         infer["launches_per_replay"][f"B{b}"] = _read_counts()
@@ -3496,7 +3501,7 @@ def _p21_trainer(cfg, state_cpu, device):
         return state, metrics
 
     def evaluate(*args, **kwargs):
-        _reset_counts()
+        _mark_counts()
         t0 = time.perf_counter()
         out = inner_eval(*args, **kwargs)
         torch.cuda.synchronize()
@@ -3699,7 +3704,7 @@ def _replay_path(label, det, state, inputs, launches_per_call):
     first = fn(state, *a)
     want = fn.eager(state, *a)
     worst = _replay_close(first, want, f"{label} first call")
-    _reset_counts()
+    _mark_counts()
     got = [fn(state, *a) for _ in range(3)]
     torch.cuda.synchronize()
     counts = _read_counts()
@@ -4479,7 +4484,6 @@ def _nms_inputs(fn, state, b):
         seen.append((boxes.clone(), valid.clone(), thr))
         return inner(boxes, valid, thr)
 
-    spy.launches = 0  # the wrapper counts into the module's function
     nms_cuda.nms_keep_mask = spy
     try:
         fn.eager(state, b["points"], b["num_points"], b["rect"], b["trv2c"])
@@ -4603,7 +4607,7 @@ def _k3_evaluate(cfg, ev, state, smi):
     from pillars_torch.utils.profiling import cuda_ms
 
     golden = json.loads(K3_GOLDEN.read_text())
-    _reset_counts()
+    _mark_counts()
     t0 = time.perf_counter()
     text, bev, d3, aos, score = ev.evaluate(state)
     seconds = time.perf_counter() - t0

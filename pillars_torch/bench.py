@@ -49,6 +49,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pillars_torch.utils import tracing
+from pillars_torch.utils.profiling import back_to_back
+
 BASELINE_FPS = 120.0
 WEIGHTS = (pathlib.Path(__file__).resolve().parent.parent / "benchmarks"
            / "hard_synth" / "weights_59.pkl")
@@ -106,12 +109,9 @@ def timed_call(det, state, pts, num, eye):
 
 
 def _launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count (``cuda_graph.COUNTERS``), as
-    ``wrapper.attribute``."""
-    from pillars_torch.cuda_graph import COUNTERS
-
-    return {f"{obj.__name__}.{attr}": getattr(obj, attr)
-            for obj, attr in COUNTERS}
+    """The kernel wrappers' launch counters (``<wrapper>.launches`` and
+    ``fused_sep_block.launches_bf16``, which the wrappers declare)."""
+    return {k: v for k, v in tracing.counters().items() if ".launches" in k}
 
 
 def measure(call, device: torch.device, iters: int) -> Dict[str, object]:
@@ -132,19 +132,7 @@ def measure(call, device: torch.device, iters: int) -> Dict[str, object]:
     sync()
 
     before = _launch_counts()
-    device_ms = None
-    t0 = time.perf_counter()
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    for i in range(iters):
-        call(i)
-    if device.type == "cuda":
-        end.record()
-        torch.cuda.synchronize(device)
-        device_ms = start.elapsed_time(end) / iters
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    device_ms, host_ms = back_to_back(call, iters, device)
     after = _launch_counts()
 
     latency = []
@@ -209,7 +197,7 @@ def run(path: str = "dense", dtype: str = "float32", batch: int = 1,
 
     on_card = dev.type == "cuda"
     ms = t["device_ms_per_batch"] if on_card else t["host_ms_per_batch"]
-    fps = 1000.0 * batch / ms
+    fps = round(1000.0 * batch / ms, 2)  # the reported value
     card = card_name_and_power(dev)
     rep = roofline_report(cfg, ms, batch=batch, device_name=card["name"],
                           dtype_bytes=4 if dtype == "float32" else 2)
@@ -217,7 +205,7 @@ def run(path: str = "dense", dtype: str = "float32", batch: int = 1,
     return {
         "metric": (f"pointclouds/sec/{per} (e2e batch={batch}, {path}, "
                    f"{dtype}, {clock} ms/cloud={ms / batch:.3f})"),
-        "value": round(fps, 2),
+        "value": fps,
         "unit": "clouds/s",
         "vs_baseline": round(fps / BASELINE_FPS, 3),
         "mfu": rep["flop_frac"],

@@ -37,10 +37,10 @@ train/bn_recal.py) and the profiled stages
 - The outputs: the graph packs its outputs into one static buffer, which
   each replay clones, so call *n*'s outputs outlive call *n+1*, as
   ``jax.jit``'s fresh arrays do.
-- Launch counts: a kernel wrapper counts its launches in Python, which a
-  replay does not run. Each graph records what its capture launched, and
-  every replay adds that to the wrappers' counts; the capture itself adds
-  nothing.
+- Counters: a kernel wrapper counts its launches in Python (utils/
+  tracing.py), which a replay does not run. Each graph records what its
+  capture counted on the capturing thread, and every replay adds that
+  again; the capture itself adds nothing.
 - Tracing (utils/tracing.py): a call is the span ``graph.call``, with the
   children ``graph.state_load`` (:class:`CapturedInference`),
   ``graph.stage_inputs``, ``graph.replay`` (the launch) and
@@ -76,15 +76,8 @@ import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
-from pillars_torch.ops import bn_relu_cuda, nms_cuda, pfn_cuda, rpn_cuda
 from pillars_torch.utils import tracing
-
-# (wrapper, attribute) of every kernel launch count a graph replays
-COUNTERS = ((nms_cuda.nms_keep_mask, "launches"),
-            (rpn_cuda.fused_sep_block, "launches"),
-            (rpn_cuda.fused_sep_block, "launches_bf16"),
-            (bn_relu_cuda.bn_relu, "launches"),
-            (pfn_cuda.pfn_max, "launches"))
+from pillars_torch.utils.profiling import cuda_ms
 
 _pool = None
 
@@ -110,15 +103,6 @@ def pool_mib() -> float:
         if tuple(seg["segment_pool_id"]) == pool:
             total += seg["total_size"]
     return total / 2**20
-
-
-def _read_counts() -> Tuple[int, ...]:
-    return tuple(getattr(obj, attr) for obj, attr in COUNTERS)
-
-
-def _set_counts(values) -> None:
-    for (obj, attr), v in zip(COUNTERS, values):
-        setattr(obj, attr, v)
 
 
 class StaticState:
@@ -232,7 +216,7 @@ class _Graph(NamedTuple):
     inputs: Tuple[torch.Tensor, ...]   # static device inputs
     packed: Optional[torch.Tensor]     # static packed outputs
     layout: Tuple[Tuple[torch.dtype, Tuple[int, ...], int], ...]
-    launches: Tuple[int, ...]          # per replay, in COUNTERS order
+    counts: Tuple[Tuple[str, int], ...]  # what each replay counts
     seconds: float                     # eager first call + capture
     marks: Optional[tracing.DeviceMarks]  # captured while tracing was on
 
@@ -285,7 +269,8 @@ class CapturedCall:
             if g.marks is not None:
                 g.marks.after_replay()
             tracing.count("graph.replays")
-            _set_counts(a + b for a, b in zip(_read_counts(), g.launches))
+            for name, n in g.counts:
+                tracing.count(name, n)
             if g.packed is None:
                 return []
             with tracing.span("graph.outputs"):
@@ -317,17 +302,16 @@ class CapturedCall:
             return outs, (_pack(outs) if outs else None)
 
         first = _run_on_side_stream(run, self.device)
-        before = _read_counts()
-        with (tracing.capturing_marks() if self.marks
-              else contextlib.nullcontext(())) as marks:
+        with tracing.capturing_counts() as counts, (
+                tracing.capturing_marks() if self.marks
+                else contextlib.nullcontext(())) as marks:
             graph, (outs, packed) = _capture_graph(run_packed)
-        launches = tuple(a - b for a, b in zip(_read_counts(), before))
-        _set_counts(before)  # a capture launches nothing
         layout = tuple((t.dtype, tuple(t.shape), t.numel() * t.element_size())
                        for t in outs)
         batch = key[0][0] if key and key[0] else 1
         self.graphs[key] = _Graph(
-            graph, static, packed, layout, launches, time.perf_counter() - t0,
+            graph, static, packed, layout, tuple(counts.items()),
+            time.perf_counter() - t0,
             tracing.DeviceMarks(marks, batch) if marks else None)
         tracing.count("graph.captures")
         return first
@@ -372,17 +356,7 @@ def replay_ms(call: CapturedCall, iters: int) -> float:
     if len(call.graphs) != 1:
         raise ValueError(f"replay_ms times one graph, the call holds "
                          f"{len(call.graphs)}")
-    graph = next(iter(call.graphs.values())).graph
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return cuda_ms(next(iter(call.graphs.values())).graph.replay, iters)
 
 
 def _run_on_side_stream(run: Callable, device):

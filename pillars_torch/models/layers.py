@@ -249,18 +249,26 @@ class BatchNorm(nn.Module):
         return y.to(self.compute_dtype or x.dtype)
 
     def forward_relu(self, x):
-        """``torch.relu(self(x))``. In eval, in float32, on a 4-D CUDA
-        tensor (NCHW or channels-last) whose result needs no gradient, one
-        kernel pass (ops/bn_relu_cuda.py) in place of the library BN and
-        the ReLU; the same function, to float32 rounding."""
-        if (not self.training and self.compute_dtype is None and x.is_cuda
-                and x.dtype == torch.float32 and x.dim() == 4
-                and not (torch.is_grad_enabled()
-                         and (x.requires_grad or self.weight.requires_grad
-                              or self.bias.requires_grad))):
+        """``torch.relu(self(x))``. On a 4-D tensor (NCHW or channels-last)
+        that :func:`takes_kernel`, one kernel pass (ops/bn_relu_cuda.py) in
+        place of the library BN and the ReLU; the same function, to float32
+        rounding."""
+        if x.dim() == 4 and takes_kernel(self, x, *self.parameters()):
             return bn_relu(x, self.running_mean, self.running_var,
                            self.weight, self.bias, self.eps)
         return torch.relu(self(x))
+
+
+def takes_kernel(bn: BatchNorm, x: torch.Tensor, *tensors) -> bool:
+    """The rule by which an eval module takes its hand-written kernel in
+    place of its library ops: its BatchNorm ``bn`` in eval and computing in
+    float32, its input ``x`` a float32 CUDA tensor, and no gradient wanted
+    of ``x`` or of ``tensors`` (its other inputs and its parameters).
+    Training, bfloat16 and the CPU take the module's own computation."""
+    return (not bn.training and bn.compute_dtype is None and x.is_cuda
+            and x.dtype == torch.float32
+            and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, *tensors))))
 
 
 class MaskedBatchNorm(BatchNorm):

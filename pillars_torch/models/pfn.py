@@ -18,10 +18,10 @@ relu(bn(0)) and the count channel are in it (models/layers.py); the pillar
 features come out in it.
 
 In eval, in float32, on CUDA tensors whose result needs no gradient (the
-rule of ``BatchNorm.forward_relu``), ``PointwisePFN`` and ``DenseCellPFN``
-are one kernel from the points to the pillar rows (ops/pfn_cuda.py
-``pfn_max``, csrc/pfn_max.cu); otherwise they compute what its plain twin
-computes, in library ops that they share with it.
+rule of models/layers.py::takes_kernel), ``PointwisePFN`` and
+``DenseCellPFN`` are one kernel from the points to the pillar rows
+(ops/pfn_cuda.py ``pfn_max``, csrc/pfn_max.cu); otherwise they compute what
+its plain twin computes, in library ops that they share with it.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from torch import nn
 
 from pillars_torch.config import ModelConfig
 from pillars_torch.models.layers import (BatchNorm, Linear, MaskedBatchNorm,
-                                         at_least_f32)
+                                         at_least_f32, takes_kernel)
 from pillars_torch.ops.pfn_cuda import (max_over_cells, max_over_pillars,
                                         pfn_max, pillar_centres,
                                         point_features)
@@ -83,18 +83,6 @@ def _encode(pfn, points, mean, cx, cy, kept, count=None):
     return torch.relu(x), torch.relu(zero_vec).to(x.dtype)
 
 
-def _takes_kernel(pfn, points, mean) -> bool:
-    """``BatchNorm.forward_relu``'s rule: in eval, in float32, on CUDA
-    tensors whose result needs no gradient, the PFN is one kernel
-    (ops/pfn_cuda.py); training, bfloat16 and the CPU take the modules'
-    own computation."""
-    return (not pfn.training and pfn.bn.compute_dtype is None
-            and points.is_cuda and points.dtype == torch.float32
-            and not (torch.is_grad_enabled() and any(
-                t.requires_grad for t in (points, mean, pfn.dense.weight,
-                                          pfn.bn.weight, pfn.bn.bias))))
-
-
 def _eval_params(pfn):
     """The Linear weight and the eval BN's vectors and eps, as
     ``pfn_max`` takes them."""
@@ -126,7 +114,7 @@ class PointwisePFN(nn.Module):
         rows, at most P), point_kept [M], point_mean [M, >=3], point_zyx
         [M, 3], num_points / pillar_mask [P]."""
         vcfg = self.cfg.voxel
-        if _takes_kernel(self, points, point_mean):
+        if takes_kernel(self.bn, points, point_mean, *self.parameters()):
             return pfn_max(points, point_mean, point_zyx, point_pillar,
                            point_kept, *_eval_params(self), vcfg,
                            num_points.shape[0], num_points=num_points,
@@ -169,7 +157,7 @@ class DenseCellPFN(nn.Module):
         if self.training and num_pillars is None:
             raise ValueError("a train-mode DenseCellPFN needs num_pillars")
         vcfg = self.cfg.voxel
-        if _takes_kernel(self, points, mean):
+        if takes_kernel(self.bn, points, mean, *self.parameters()):
             return pfn_max(points, mean, cell_local, cell_global, kept,
                            *_eval_params(self), vcfg, n_cells_total,
                            count=count)

@@ -5,7 +5,7 @@ W], in one read and one write of ``x``: NCHW-contiguous and channels-last
 tensors each have a kernel, another layout is made contiguous first. It has no TPU counterpart: the JAX package
 leaves BN + ReLU to XLA, which fuses them. A CUDA tensor launches the kernel
 (or raises); a CPU tensor takes the plain twin :func:`bn_relu_plain`.
-``bn_relu.launches`` counts kernel launches.
+The counter ``bn_relu.launches`` (utils/tracing.py) counts kernel launches.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from torch.nn import functional as F
 
 from pillars_torch.ops import _build
+from pillars_torch.utils import tracing
 
 
 # after the six pointers (x, mean, var, weight, bias, y)
@@ -85,8 +86,8 @@ def bn_relu(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                         *shape, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"bn_relu kernel launch failed: CUDA error {err}")
-    bn_relu.launches += 1
+    tracing.count("bn_relu.launches")
     return y
 
 
-bn_relu.launches = 0
+tracing.count("bn_relu.launches", 0)

@@ -2,8 +2,8 @@
 
 The port of pillars_tpu/ops/nms_pallas.py::nms_keep_mask_pallas. A CUDA
 tensor launches the kernel (or raises); a CPU tensor takes the plain twin
-:func:`pillars_torch.ops.nms.keep_mask_plain`. ``nms_keep_mask.launches``
-counts kernel launches.
+:func:`pillars_torch.ops.nms.keep_mask_plain`. The counter
+``nms_keep_mask.launches`` (utils/tracing.py) counts kernel launches.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 
 from pillars_torch.ops import _build
 from pillars_torch.ops.nms import keep_mask_plain
+from pillars_torch.utils import tracing
 
 MAX_K = 1024  # the sweep keeps a row's 32 words in one warp's lanes
 
@@ -74,8 +75,8 @@ def nms_keep_mask(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                     keep.data_ptr(), b, k, float(iou_threshold), stream)
     if err != 0:
         raise RuntimeError(f"nms_keep_mask kernel launch failed: CUDA error {err}")
-    nms_keep_mask.launches += 1
+    tracing.count("nms_keep_mask.launches")
     return keep
 
 
-nms_keep_mask.launches = 0
+tracing.count("nms_keep_mask.launches", 0)

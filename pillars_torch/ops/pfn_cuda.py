@@ -22,7 +22,8 @@ non-decreasing over the points, a row that takes a value holds a kept point
 points; every valid point of a cell carries the cell's count). It has no
 TPU counterpart: the JAX package leaves the PFN to XLA, which fuses it. A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-twin :func:`pfn_max_plain`. ``pfn_max.launches`` counts kernel launches.
+twin :func:`pfn_max_plain`. The counter ``pfn_max.launches``
+(utils/tracing.py) counts kernel launches.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from torch.nn import functional as F
 
 from pillars_torch.ops import _build
+from pillars_torch.utils import tracing
 
 
 class _Args(ctypes.Structure):
@@ -269,10 +271,10 @@ def pfn_max(points, mean, cell, row, kept, weight, bn_mean, bn_var,
         err = _fn()(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"pfn_max kernel launch failed: CUDA error {err}")
-    pfn_max.launches += 1
+    tracing.count("pfn_max.launches")
     if dense:
         return out, buf[n_rows * n_filters:]
     return out
 
 
-pfn_max.launches = 0
+tracing.count("pfn_max.launches", 0)

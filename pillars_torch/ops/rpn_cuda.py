@@ -8,9 +8,9 @@ bfloat16 one (bfloat16 in and out, float32 inside each block, the Pallas
 kernel under ``runtime.compute_dtype=bfloat16``); any other dtype raises. A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin :func:`pillars_torch.ops.rpn_blocks.fused_sep_block_plain`.
-``fused_sep_block.launches`` counts kernel launches of either wrapper and
-either dtype, ``fused_sep_block.launches_bf16`` those of the bfloat16
-kernel among them.
+The counter ``fused_sep_block.launches`` (utils/tracing.py) counts kernel
+launches of either wrapper and either dtype, ``fused_sep_block.launches_bf16``
+those of the bfloat16 kernel among them.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from pillars_torch.ops import _build
 from pillars_torch.ops.rpn_blocks import (FoldedLayer, PackedBlock,
                                           fused_sep_block_plain, pack_block)
+from pillars_torch.utils import tracing
 
 MAX_BLOCKS = 4  # blocks per launch (kMaxBlocks in the source)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -92,8 +93,9 @@ def _launch(x: torch.Tensor, blocks: Sequence[PackedBlock],
         raise RuntimeError(f"rpn_sep_block kernel launch failed: CUDA error "
                            f"{err} (1 also when a tile's buffers exceed the "
                            f"SM's shared memory: fewer channels fit)")
-    fused_sep_block.launches += 1
-    fused_sep_block.launches_bf16 += bf16
+    tracing.count("fused_sep_block.launches")
+    if bf16:
+        tracing.count("fused_sep_block.launches_bf16")
     return outs
 
 
@@ -150,5 +152,5 @@ def fused_sep_block(x: torch.Tensor, layers: Sequence[FoldedLayer],
     return fused_sep_chain(x, [pack_block(layers, num_layers, stride)])[0]
 
 
-fused_sep_block.launches = 0
-fused_sep_block.launches_bf16 = 0
+tracing.count("fused_sep_block.launches", 0)
+tracing.count("fused_sep_block.launches_bf16", 0)

@@ -1,37 +1,24 @@
 """Timing: the host-side stage timer with the reference's stage names, a
-Chrome trace of a block (``profiler_trace``), and on the card CUDA-event
-timers, per-stage breakdowns of the d435i inference paths (each stage a
-captured graph of its own, timed in device ms), the train step's launches
-and device ms by stage (``train_stage_breakdown``) and a torch.profiler
-pass for the device's busy share.
+Chrome trace of a block (``profiler_trace``), and on the card the one
+back-to-back CUDA-event loop (``back_to_back``) and the timers built on it,
+the train step's launches and device ms by stage
+(``train_stage_breakdown``) and a torch.profiler pass for the device's busy
+share (``device_busy``).
 
-    python -m pillars_torch.utils.profiling [--path dense|fast] [--iters 50]
-                                            [--out FILE]
-
-runs ``PillarsDetector`` with the trained checkpoint on d435i-sized clouds
-(19200 points, NumPy seed 0) at B=1: ``--path dense`` (the default) the
-dense-cell path of ``Config.default()``, ``--path fast`` the point-major path
-whose RPN blocks run fused (``model.pfn.dense_cell`` false,
-``model.rpn.use_pallas_blocks`` true). It prints, in ms per cloud: each stage
-alone (captured, replayed back to back), the whole path as
-``make_inference_fn`` gives it (a captured CUDA graph; three times, for the
-spread) and run eagerly, the device time per cloud summed over its kernels,
-the idle share, the graph and kernel launches per cloud and the longest
-kernels. Needs a card; the numbers name it.
+The device time of each stage of a served cloud, on any path, comes from
+the graph's device marks (utils/tracing.py: ``pillars-torch stream --trace
+FILE``); the JAX package's three stages, each captured alone, from
+``PillarsDetector.profile_stages``.
 """
 
 from __future__ import annotations
 
-import argparse
 import contextlib
-import json
 import pathlib
-import subprocess
 import time
 from collections import defaultdict, deque
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 # reference SURVEY 5.1: rolling last-10-sample windows (train.py:629-861)
@@ -100,19 +87,35 @@ def profiler_trace(log_dir: str):
     prof.export_chrome_trace(str(path / "trace.json"))
 
 
+def back_to_back(fn: Callable[[int], object], iters: int,
+                 device: torch.device) -> Tuple[Optional[float], float]:
+    """``fn(i)`` for ``i`` in ``range(iters)``, back to back, on ``device``:
+    (ms per call between two CUDA events around the calls, None off the
+    card; host ms per call from the first call until the card has run the
+    last). When the host issues work slower than the card runs it, the
+    event time is the issue rate."""
+    on_card = device.type == "cuda"
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    if on_card:
+        start.record()
+    for i in range(iters):
+        fn(i)
+    if on_card:
+        end.record()
+        torch.cuda.synchronize(device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    return (start.elapsed_time(end) / iters if on_card else None), host_ms
+
+
 def cuda_ms(fn: Callable[[], object], iters: int) -> float:
-    """Warm mean ms per call of ``fn`` between two CUDA events. When the
-    host issues work slower than the card runs it, this is the issue rate."""
+    """Warm mean ms per call of ``fn`` on the card, called once and then
+    ``iters`` times back to back (:func:`back_to_back`)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return back_to_back(lambda _: fn(), iters, torch.device("cuda"))[0]
 
 
 def _tensors(out) -> List[torch.Tensor]:
@@ -135,104 +138,6 @@ def captured_ms(fn: Callable[[], object], iters: int) -> float:
     call()
     call()
     return replay_ms(call, iters)
-
-
-def profile_stages(det, state, points, num_valid, rect, trv2c,
-                   iters: int) -> Dict[str, float]:
-    """ms per call of each stage of the dense-cell path, each captured
-    alone on inputs made by the stage before it (device ms, replays timed
-    with CUDA events), and of the whole path (``t_full_*``: the captured
-    function, replay and the staging of its inputs and the copy of its
-    outputs, at the host's call rate; ``t_full_eager``: the eager one)."""
-    thr = det.config.eval_input.anchor_area_threshold
-    net = det.dense_network
-    net.load_state_dict(state)
-    b = points.shape[0]
-    nx, ny, nz = det.mcfg.voxel.grid_size
-    n_cells = nx * ny * nz
-    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
-
-    def front(cv):
-        offset = torch.arange(b, dtype=torch.int32,
-                              device=points.device)[:, None] * n_cells
-        feats, npts = net.pfn(flat(cv.points), flat(cv.cell),
-                              flat(cv.cell + offset), flat(cv.kept),
-                              flat(cv.count), flat(cv.mean), b * n_cells)
-        return feats.reshape(b, nz, ny, nx, -1).sum(dim=1), npts
-
-    fn = det.make_inference_fn()
-    with torch.inference_mode():
-        cv = net.cell_voxelize(points, num_valid)
-        canvas, _ = front(cv)
-        preds_full, amask = det._forward_dense(state, points, num_valid, thr)
-        return {
-            "t_voxelize": captured_ms(
-                lambda: net.cell_voxelize(points, num_valid), iters),
-            "t_pfn_canvas": captured_ms(lambda: front(cv), iters),
-            "t_rpn": captured_ms(lambda: net.rpn(canvas), iters),
-            "t_forward_dense": captured_ms(
-                lambda: det._forward_dense(state, points, num_valid, thr),
-                iters),
-            "t_postprocess": captured_ms(
-                lambda: det.postprocess(preds_full, amask, rect, trv2c),
-                iters),
-            **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
-                                                 rect, trv2c), iters)
-               for i in range(3)},
-            "t_full_eager": cuda_ms(lambda: fn.eager(
-                state, points, num_valid, rect, trv2c), iters),
-        }
-
-
-def profile_fast_stages(det, state, points, num_valid, rect, trv2c,
-                        iters: int) -> Dict[str, float]:
-    """ms per call of each stage of the point-major fast path (voxelize,
-    PFN + canvas, the three fused blocks, the RPN tail, postprocess), each
-    captured alone on inputs made by the stage before it, and of the whole
-    path (as :func:`profile_stages`)."""
-    from pillars_torch.models.detector import _front_state, _sub_state
-    from pillars_torch.ops.rpn_blocks import fused_rpn_blocks
-
-    thr = det.config.eval_input.anchor_area_threshold
-    tail_state = _sub_state(state, det.rpn_tail, "rpn.")
-
-    def front(v):
-        return torch.func.functional_call(det.network, _front_state(state),
-                                          (v,), {"canvas_only": True})
-
-    def tail(blocks):
-        return torch.func.functional_call(det.rpn_tail, tail_state,
-                                          tuple(blocks))
-
-    fn = det.make_inference_fn()
-    with torch.inference_mode():
-        v = det.voxelize_batch(points, num_valid)
-        canvas = front(v)
-        blocks = fused_rpn_blocks(canvas, state, det.mcfg.rpn,
-                                  det.folded_blocks)
-        preds = tail(blocks)
-        amask = det.anchors_mask_batch(v.coords, v.pillar_mask, thr)
-        return {
-            "t_voxelize": captured_ms(
-                lambda: det.voxelize_batch(points, num_valid), iters),
-            "t_anchors_mask": captured_ms(
-                lambda: det.anchors_mask_batch(v.coords, v.pillar_mask, thr),
-                iters),
-            "t_pfn_canvas": captured_ms(lambda: front(v), iters),
-            "t_rpn_blocks": captured_ms(
-                lambda: fused_rpn_blocks(canvas, state, det.mcfg.rpn,
-                                         det.folded_blocks), iters),
-            "t_rpn_tail": captured_ms(lambda: tail(blocks), iters),
-            "t_forward_fast": captured_ms(
-                lambda: det._forward_fast(state, v), iters),
-            "t_postprocess": captured_ms(
-                lambda: det.postprocess(preds, amask, rect, trv2c), iters),
-            **{f"t_full_{i}": cuda_ms(lambda: fn(state, points, num_valid,
-                                                 rect, trv2c), iters)
-               for i in range(3)},
-            "t_full_eager": cuda_ms(lambda: fn.eager(
-                state, points, num_valid, rect, trv2c), iters),
-        }
 
 
 def device_busy(fn: Callable[[], object], iters: int,
@@ -372,75 +277,3 @@ def train_stage_breakdown(step, state, batch, iters: int
             state, _ = step(state, batch)
         torch.cuda.synchronize()
     return range_breakdown(prof, TRAIN_STAGES, iters)
-
-
-def main():
-    from pillars_torch.config import Config
-    from pillars_torch.models.detector import PillarsDetector
-    from pillars_torch.weights import from_jax_variables, load_params
-
-    root = pathlib.Path(__file__).resolve().parents[2]
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--weights", default=str(
-        root / "benchmarks" / "hard_synth" / "weights_59.pkl"))
-    ap.add_argument("--path", choices=("dense", "fast"), default="dense",
-                    help="dense-cell path, or point-major with fused blocks")
-    ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--out", default=None, help="write the result as JSON")
-    args = ap.parse_args()
-
-    cfg = Config.default()
-    if args.path == "fast":
-        cfg = (cfg.override("model.pfn.dense_cell", False)
-               .override("model.rpn.use_pallas_blocks", True))
-    det = PillarsDetector(cfg)
-    state = det.state_to_device(
-        from_jax_variables(*load_params(args.weights), cfg))
-    rng = np.random.RandomState(0)
-    n, maxpts = 19200, cfg.model.voxel.max_points
-    pts = np.zeros((1, maxpts, 3), np.float32)
-    pts[0, :n] = np.stack([rng.uniform(0.0, 6.4, n),
-                           rng.uniform(-2.56, 2.56, n),
-                           rng.uniform(-3.0, 3.0, n)], 1)
-    points = torch.from_numpy(pts).cuda()
-    num = torch.tensor([n], dtype=torch.int32, device="cuda")
-    eye = torch.eye(4, device="cuda")[None]
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    stages = (profile_fast_stages if args.path == "fast" else profile_stages)(
-        det, state, points, num, eye, eye, args.iters)
-    fn = det.make_inference_fn()
-    wall, device, rows, graphs = device_busy(
-        lambda: fn(state, points, num, eye, eye), args.iters,
-        "nms_keep_mask_kernel")
-    # idle share against the event time of the whole path without the
-    # profiler, whose own overhead slows the host
-    full = sorted(v for k, v in stages.items() if k.startswith("t_full"))
-    idle = 1.0 - device / full[len(full) // 2]
-    result = {"card": card, "path": args.path, "batch": 1,
-              "iters": args.iters,
-              "stages_ms": stages, "profiled_wall_ms": wall,
-              "device_ms": device, "idle_share": idle,
-              "graph_launches": graphs,
-              "kernels": [{"name": k, "per_cloud": c, "ms": t}
-                          for k, c, t in rows]}
-    print(card)
-    for k, v in stages.items():
-        print(f"{k:>16}: {v:.4f} ms")
-    print(f"whole path: device {device:.4f} ms/cloud summed over kernels, "
-          f"idle share {idle:.3f} of the median t_full; host wall "
-          f"{wall:.4f} ms/cloud under the profiler")
-    print(f"{graphs:g} graph launches and {sum(c for _, c, _ in rows):g} "
-          f"kernel launches per cloud; the 12 longest, and the port's own:")
-    for i, (k, c, t) in enumerate(rows):
-        if i < 12 or "nms_keep_mask" in k or "rpn_sep_" in k:
-            print(f"  {t * 1e3:9.2f} us  x{c:g}  {k[:90]}")
-    if args.out:
-        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
-
-
-if __name__ == "__main__":
-    main()

@@ -37,8 +37,11 @@ counts of what the serving loops and the graphs did.
   each sampled replay) and ``device.skipped_replays`` say what the totals
   cover.
 - **Counters.** :func:`count` adds to a named integer, always (one writing
-  thread per counter). :func:`counters` returns them together with the
-  kernel launch counts that the graphs replay (``cuda_graph.COUNTERS``).
+  thread per counter); :func:`counters` returns them all. A kernel wrapper
+  (``ops/*_cuda.py``) counts its launches as ``<wrapper>.launches`` and
+  declares that counter at 0 when it is imported. A launch inside a captured
+  graph runs at each replay, not in Python, so a capture collects what its
+  body counted (:func:`capturing_counts`) and every replay adds it again.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ _local = threading.local()
 _totals: Dict[str, List[int]] = {}   # name -> [count, total ns, max ns]
 _ring: collections.deque = collections.deque(maxlen=RING)
 _counts: Dict[str, int] = {}
+_moved: Dict[int, Dict[str, int]] = {}  # by thread, what its capture counted
 _marks: Optional[List[Tuple[str, torch.cuda.Event]]] = None
 
 
@@ -266,20 +270,35 @@ def dump(path: str) -> int:
 
 # ---------------------------------------------------------------- counters
 def count(name: str, n: int = 1) -> None:
-    """Adds ``n`` to the counter ``name`` (always on)."""
+    """Adds ``n`` to the counter ``name`` (always on; ``n`` = 0 declares
+    it)."""
     _counts[name] = _counts.get(name, 0) + n
+    if _moved:
+        moved = _moved.get(threading.get_ident())
+        if moved is not None:
+            moved[name] = moved.get(name, 0) + n
 
 
 def counters() -> Dict[str, int]:
-    """Every counter, with the kernel launch counts the graphs replay
-    (``<wrapper>.<attribute>`` of ``cuda_graph.COUNTERS``)."""
-    from pillars_torch import cuda_graph
+    """Every counter."""
+    return dict(_counts)
 
-    out = dict(_counts)
-    for obj, attr in cuda_graph.COUNTERS:
-        out[f"{getattr(obj, '__name__', type(obj).__name__)}.{attr}"] = \
-            int(getattr(obj, attr))
-    return out
+
+@contextlib.contextmanager
+def capturing_counts():
+    """Collects what :func:`count` adds on this thread inside the block (a
+    graph's capture) and takes it off the counters again at its end, since a
+    capture runs nothing; yields the ``{name: n}`` that each replay of the
+    graph adds back. Counts of other threads stay as they are."""
+    tid = threading.get_ident()
+    moved: Dict[str, int] = {}
+    _moved[tid] = moved
+    try:
+        yield moved
+    finally:
+        del _moved[tid]
+        for name, n in moved.items():
+            _counts[name] -= n
 
 
 # ------------------------------------------------------------ device marks

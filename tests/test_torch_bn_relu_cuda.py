@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from pillars_torch.config import Config
+from pillars_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -59,10 +60,10 @@ def _vectors(c, card, seed):
 
 
 def _check(ops, x, vectors):
-    before = ops.bn_relu.launches
+    before = tracing.counters()["bn_relu.launches"]
     got = ops.bn_relu(x, *vectors, EPS)
     torch.cuda.synchronize()
-    assert ops.bn_relu.launches == before + 1
+    assert tracing.counters()["bn_relu.launches"] == before + 1
     want = ops.bn_relu_plain(x, *vectors, EPS)
     assert got.shape == want.shape and got.dtype == torch.float32
     # the input's layout, or NCHW for a layout that is neither
@@ -167,11 +168,11 @@ def test_wrapper_refusals(ops, card, monkeypatch):
                     64, EPS, torch.cuda.current_stream().cuda_stream)
     assert err != 0
     monkeypatch.setattr(ops, "_fn", lambda name: (lambda *args: err))
-    before = ops.bn_relu.launches
+    before = tracing.counters()["bn_relu.launches"]
     for t in (x, x.contiguous(memory_format=torch.channels_last)):
         with pytest.raises(RuntimeError):
             ops.bn_relu(t, mean, var, weight, bias, EPS)
-    assert ops.bn_relu.launches == before
+    assert tracing.counters()["bn_relu.launches"] == before
 
 
 def _clouds(cfg, seed):
@@ -237,11 +238,11 @@ def test_launches_a_replay(card, ops, config, per_replay):
     assert isinstance(fn, CapturedInference)
     args = _clouds(cfg, seed=3)
     fn(state, *args)                      # eager first call, then capture
-    before = ops.bn_relu.launches
+    before = tracing.counters()["bn_relu.launches"]
     for _ in range(3):
         fn(state, *args)
     torch.cuda.synchronize()
-    assert ops.bn_relu.launches == before + 3 * per_replay
+    assert tracing.counters()["bn_relu.launches"] == before + 3 * per_replay
 
 
 def test_replay_reads_bn_values_changed_after_capture(card):
@@ -286,9 +287,9 @@ def test_no_launch_in_a_captured_train_step(card, ops):
     assert isinstance(step, CapturedTrainStep)
     batches = train_batches(13, 3, b=2, maxpts=cfg.model.voxel.max_points,
                             max_gt=cfg.model.target.max_gt_boxes, n=17000)
-    before = ops.bn_relu.launches
+    before = tracing.counters()["bn_relu.launches"]
     for batch in batches:             # eager first call, capture, replays
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     assert len(step.graphs) == 1
-    assert ops.bn_relu.launches == before
+    assert tracing.counters()["bn_relu.launches"] == before

@@ -26,7 +26,10 @@ On the CPU, where nothing can be captured:
   static tensors and refold the fast path's blocks in place; the same
   tensors do not;
 - through the wrapper: replays follow every state swap, and call n's
-  predictions outlive call n+1.
+  predictions outlive call n+1;
+- counters: with a stand-in graph whose replay runs nothing, a capture
+  leaves the counters as they were and each replay adds what its body
+  counted on the capturing thread, and nothing that another thread counted.
 
 Marked ``cuda`` (skip here): replay against eager on the card, the state
 swap and the outputs of call n after call n+1. Run them on a machine with a
@@ -36,6 +39,7 @@ tests/test_torch_capture.py -m cuda``.
 
 import functools
 import pathlib
+import threading
 import traceback
 
 import numpy as np
@@ -47,6 +51,7 @@ from pillars_torch import cuda_graph
 from pillars_torch.config import Config as TorchConfig
 from pillars_torch.models.detector import PillarsDetector as TorchDetector
 from pillars_torch.models.detector import Predictions
+from pillars_torch.utils import tracing
 from torch_parity import (SMALL_OVERRIDES, compare_predictions,
                           d435i_clouds, fast_config, small_config)
 
@@ -383,6 +388,51 @@ def test_replays_follow_the_state_and_keep_earlier_outputs(rerun_graphs):
     assert len(fn.graphs) == 1
 
 
+class _IdleGraph:
+    """A graph whose replay runs nothing, as a card's replay runs no
+    Python."""
+
+    def replay(self):
+        pass
+
+
+@pytest.mark.parametrize("where,after_capture,per_replay", [
+    ("this_thread", 2, 2), ("other_thread", 4, 0)])
+def test_a_replay_adds_what_its_capture_counted(monkeypatch, where,
+                                                after_capture, per_replay):
+    """A body counts ``probe.calls`` twice. Counted on the capturing
+    thread, the eager first call's two stay, the capture's are taken off
+    again and every replay adds two; counted by another thread, both calls'
+    stay and no replay adds any."""
+    monkeypatch.setattr(cuda_graph, "_run_on_side_stream",
+                        lambda run, device: run())
+    monkeypatch.setattr(cuda_graph, "_capture_graph",
+                        lambda run: (_IdleGraph(), run()))
+    name = f"probe.calls.{where}"
+
+    def count_twice():
+        tracing.count(name)
+        tracing.count(name)
+
+    def body(x):
+        if where == "this_thread":
+            count_twice()
+        else:
+            worker = threading.Thread(target=count_twice)
+            worker.start()
+            worker.join()
+        return []
+
+    call = cuda_graph.CapturedCall(body, "cpu")
+    before = tracing.counters().get(name, 0)
+    call(torch.zeros(3))
+    assert tracing.counters()[name] == before + after_capture
+    for i in range(1, 4):
+        call(torch.zeros(3))
+        assert tracing.counters()[name] == (before + after_capture
+                                            + i * per_replay)
+
+
 def test_make_inference_fn_is_eager_on_the_cpu():
     det = TorchDetector(small_config(TorchConfig), device="cpu")
     fn = det.make_inference_fn()
@@ -413,7 +463,6 @@ def _same(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["dense_cell", "point_major_fast"])
 def test_replay_matches_eager_on_the_card(card, path):
-    from pillars_torch.ops import nms_cuda
     from pillars_torch.weights import from_jax_variables, load_params
 
     cfg = TorchConfig.default()
@@ -428,9 +477,9 @@ def test_replay_matches_eager_on_the_card(card, path):
         args = [a.cuda() for a in _clouds_d435i(b, cfg.model.voxel.max_points,
                                                 seed=b)]
         fn(state, *args)
-        before = nms_cuda.nms_keep_mask.launches
+        before = tracing.counters()["nms_keep_mask.launches"]
         got = fn(state, *args)
-        assert nms_cuda.nms_keep_mask.launches == before + 1
+        assert tracing.counters()["nms_keep_mask.launches"] == before + 1
         want = fn.eager(state, *args)
         assert want.valid.any()
         _same(got, want)

@@ -9,6 +9,7 @@ copy equals the JAX package's."""
 
 import ast
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -41,6 +42,48 @@ def _imported_roots(path):
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"
+
+
+def _imported_modules(path):
+    """Every module ``path`` imports, at any depth of its tree (the imports
+    inside functions too), with ``from a import b`` giving ``a.b``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
+
+
+@pytest.mark.parametrize("name", ["pillars_torch/cuda_graph.py",
+                                  "pillars_torch/utils/tracing.py"])
+def test_capture_and_tracing_know_no_kernel(name):
+    """The capture layer and the tracing layer import no kernel wrapper
+    (``pillars_torch.ops.*_cuda``), and tracing not the capture layer: the
+    launch counts reach them as counters."""
+    bad = sorted(
+        m for m in set(_imported_modules(ROOT / name))
+        if m == "pillars_torch.cuda_graph"
+        or (m.startswith("pillars_torch.ops.") and m.endswith("_cuda")))
+    assert not bad, f"{name} imports {bad}"
+
+
+def test_a_detector_declares_every_launch_counter():
+    """Importing the detector declares the five launch counters of the
+    kernel wrappers it calls, at 0, in a fresh process."""
+    script = ("import json, pillars_torch.models.detector\n"
+              "from pillars_torch.utils import tracing\n"
+              "print(json.dumps(tracing.counters()))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    counters = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("nms_keep_mask.launches", "fused_sep_block.launches",
+                 "fused_sep_block.launches_bf16", "bn_relu.launches",
+                 "pfn_max.launches"):
+        assert counters[name] == 0, name
 
 
 _BLOCKED_RUN = """

@@ -1,9 +1,10 @@
 """The eval PFN kernel (``csrc/pfn_max.cu``, ``ops/pfn_cuda.py::pfn_max``).
 
 On the CPU: the modules' rule for taking the kernel (eval, float32, CUDA
-tensors, no gradient wanted; ``BatchNorm.forward_relu``'s), under which a
-CPU tensor, train mode, bfloat16 and a tensor that wants a gradient take the
-modules' own computation and count no launch; the plain twin equal to the
+tensors, no gradient wanted; ``models/layers.py::takes_kernel``, which
+``BatchNorm.forward_relu`` asks too), under which a CPU tensor, train
+mode, bfloat16 and a tensor that wants a gradient take the modules' own
+computation and count no launch; the plain twin equal to the
 modules' eval output bit for bit; what the kernel relies on from the
 voxelizers; and the kernel's algorithm (warps of 32 points, a run per row,
 an integer max on the float's bits into a zeroed output, the point-major
@@ -32,8 +33,10 @@ import torch
 
 from pillars_torch.config import Config
 from pillars_torch.models import pfn as pfn_mod
+from pillars_torch.models.layers import BatchNorm, takes_kernel
 from pillars_torch.ops import pfn_cuda
 from pillars_torch.ops.pfn_cuda import pfn_max, pfn_max_plain
+from pillars_torch.utils import tracing
 from torch_parity import fast_config, pfn_case, pfn_clouds
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -109,21 +112,37 @@ def _fake(is_cuda=True, dtype=torch.float32, requires_grad=False):
                                  requires_grad=requires_grad)
 
 
+def _rule_args(kind, module, x):
+    """The arguments with which ``kind``'s module asks ``takes_kernel``:
+    the PFNs (models/pfn.py) their BN, the points, the point means and
+    their parameters; ``BatchNorm.forward_relu`` itself, its input and its
+    parameters."""
+    if kind == "bn_relu":
+        return (module, x, *module.parameters())
+    return (module.bn, x, _fake(), *module.parameters())
+
+
 @pytest.mark.parametrize("mode,want", [
     ("eval_cuda", True), ("cpu", False), ("train", False),
     ("bfloat16", False), ("points_want_grad", False),
     ("weights_want_grad", False), ("weights_under_no_grad", True)])
-def test_the_rule_for_taking_the_kernel(mode, want):
-    module = pfn_mod.PointwisePFN(
-        _d435i(**{"pfn.dense_cell": False}),
-        dtype=torch.bfloat16 if mode == "bfloat16" else None).eval()
+@pytest.mark.parametrize("kind", ["pointwise_pfn", "dense_cell_pfn",
+                                  "bn_relu"])
+def test_the_rule_for_taking_the_kernel(kind, mode, want):
+    dtype = torch.bfloat16 if mode == "bfloat16" else None
+    if kind == "bn_relu":
+        module = BatchNorm(64, 1e-3, 0.99, dtype=dtype)
+    else:
+        module = {"pointwise_pfn": pfn_mod.PointwisePFN,
+                  "dense_cell_pfn": pfn_mod.DenseCellPFN}[kind](
+            _d435i(**{"pfn.dense_cell": kind == "dense_cell_pfn"}),
+            dtype=dtype)
     module.train(mode == "train")
-    points = _fake(is_cuda=mode != "cpu",
-                   requires_grad=mode == "points_want_grad")
+    x = _fake(is_cuda=mode != "cpu", requires_grad=mode == "points_want_grad")
     if mode not in ("weights_want_grad", "weights_under_no_grad"):
         module.requires_grad_(False)
     with torch.set_grad_enabled(mode != "weights_under_no_grad"):
-        assert pfn_mod._takes_kernel(module, points, _fake()) is want
+        assert takes_kernel(*_rule_args(kind, module, x)) is want
 
 
 @pytest.mark.parametrize("mode", ["eval", "train", "bfloat16",
@@ -140,11 +159,11 @@ def test_modules_off_the_kernel_count_no_launch(dense, mode):
     module.train(mode == "train")
     if mode == "requires_grad":
         args = (args[0].clone().requires_grad_(True),) + args[1:]
-    before = pfn_cuda.pfn_max.launches
+    before = tracing.counters()["pfn_max.launches"]
     with torch.set_grad_enabled(mode in ("train", "requires_grad")):
         out = _module_call(module, args, kwargs)
     feats = out[0] if dense else out
-    assert pfn_cuda.pfn_max.launches == before
+    assert tracing.counters()["pfn_max.launches"] == before
     assert feats.shape == (args[-1], mcfg.pfn.num_filters)
     assert bool(torch.isfinite(feats).all()) and bool((feats > 0).any())
     assert feats.requires_grad == (mode in ("train", "requires_grad"))
@@ -154,12 +173,12 @@ def test_modules_off_the_kernel_count_no_launch(dense, mode):
 def test_twin_is_the_modules_eval_output(case):
     _, make, dense, b, n, clump = case
     module, args, kwargs = _case(make(), dense, b, n, seed=5, clump=clump)
-    before = pfn_cuda.pfn_max.launches
+    before = tracing.counters()["pfn_max.launches"]
     with torch.no_grad():
         want = _module_call(module, args, kwargs)
     twin = pfn_max_plain(*args, **kwargs)
     wrapped = pfn_max(*args, **kwargs)  # a CPU tensor takes the twin
-    assert pfn_cuda.pfn_max.launches == before
+    assert tracing.counters()["pfn_max.launches"] == before
     for got in (twin, wrapped):
         for g, w in zip(got if dense else [got], want if dense else [want]):
             assert g.dtype == w.dtype and torch.equal(g, w)
@@ -309,10 +328,10 @@ def _check(args, kwargs):
     """The kernel against the twin on the card: one launch; features
     within REL_TOL of max |twin|, non-finite values where the twin's are;
     the dense cell's counts exact."""
-    before = pfn_cuda.pfn_max.launches
+    before = tracing.counters()["pfn_max.launches"]
     got = pfn_max(*args, **kwargs)
     torch.cuda.synchronize()
-    assert pfn_cuda.pfn_max.launches == before + 1
+    assert tracing.counters()["pfn_max.launches"] == before + 1
     with torch.no_grad():
         want = pfn_max_plain(*args, **kwargs)
     dense = "count" in kwargs
@@ -410,12 +429,12 @@ def test_captured_graph_reads_weights_changed_after_capture(card, name):
     pfn_max(*args, **kwargs)  # build and load outside the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = pfn_cuda.pfn_max.launches
+    before = tracing.counters()["pfn_max.launches"]
     with torch.cuda.graph(graph):
         out = pfn_max(*args, **kwargs)
     graph.replay()
     torch.cuda.synchronize()
-    assert pfn_cuda.pfn_max.launches == before + 1
+    assert tracing.counters()["pfn_max.launches"] == before + 1
     first = [t.clone() for t in (out if dense else [out])]
     _same(first[0], pfn_max(*args, **kwargs)[0] if dense
           else pfn_max(*args, **kwargs))
@@ -454,11 +473,11 @@ def test_one_launch_a_replay(card, config):
     args = [torch.from_numpy(pts).to(card), torch.from_numpy(num).to(card),
             eye, eye]
     fn(state, *args)                      # eager first call, then capture
-    before = pfn_cuda.pfn_max.launches
+    before = tracing.counters()["pfn_max.launches"]
     for _ in range(3):
         fn(state, *args)
     torch.cuda.synchronize()
-    assert pfn_cuda.pfn_max.launches == before + 3
+    assert tracing.counters()["pfn_max.launches"] == before + 3
 
 
 @pytest.mark.cuda
@@ -484,7 +503,7 @@ def test_wrapper_refusals(card, monkeypatch):
         pfn_max(deep, *args[1:], **kwargs)
     # a reported launch error makes the wrapper raise and count nothing
     monkeypatch.setattr(pfn_cuda, "_fn", lambda: (lambda *a: 98))
-    before = pfn_cuda.pfn_max.launches
+    before = tracing.counters()["pfn_max.launches"]
     with pytest.raises(RuntimeError):
         pfn_max(*args, **kwargs)
-    assert pfn_cuda.pfn_max.launches == before
+    assert tracing.counters()["pfn_max.launches"] == before

@@ -27,6 +27,7 @@ from pillars_torch.ops.rpn_blocks import (FoldedBlocksCache, FoldedLayer,
                                           fold_block_params,
                                           fused_rpn_blocks,
                                           fused_sep_block_plain, pack_block)
+from pillars_torch.utils import tracing
 from pillars_torch.weights import convert_tree
 from pillars_tpu.config import Config as JaxConfig
 from pillars_tpu.models.rpn import RPN as JaxRPN
@@ -183,9 +184,9 @@ def test_wrapper_takes_the_twin_on_the_cpu():
     layers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
     x = torch.from_numpy(np.random.RandomState(3).randn(1, 6, 8, 8)
                          .astype(np.float32))
-    before = rpn_cuda.fused_sep_block.launches
+    before = tracing.counters()["fused_sep_block.launches"]
     got = rpn_cuda.fused_sep_block(x, layers, 1, 2)
-    assert rpn_cuda.fused_sep_block.launches == before
+    assert tracing.counters()["fused_sep_block.launches"] == before
     assert torch.equal(got, fused_sep_block_plain(x, layers, 1, 2))
 
 
@@ -283,9 +284,9 @@ def test_chain_on_the_cpu_is_the_twin_block_by_block():
               for i, (cin, cout, n, s) in enumerate(shapes)]
     x = torch.from_numpy(np.random.RandomState(11).randn(2, 8, 12, 8)
                          .astype(np.float32))
-    before = rpn_cuda.fused_sep_block.launches
+    before = tracing.counters()["fused_sep_block.launches"]
     got = rpn_cuda.fused_sep_chain(x, blocks)
-    assert rpn_cuda.fused_sep_block.launches == before
+    assert tracing.counters()["fused_sep_block.launches"] == before
     assert [tuple(g.shape) for g in got] == [(2, 8, 12, 12), (2, 4, 6, 8),
                                              (2, 2, 3, 16)]
     for g, blk in zip(got, blocks):
@@ -351,12 +352,12 @@ def test_wrappers_reject_other_dtypes_before_a_launch(dtype):
     raw = _random_layers(5, 8, 8, 1)
     layers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
     x = torch.zeros(1, 6, 8, 8, dtype=dtype)
-    before = rpn_cuda.fused_sep_block.launches
+    before = tracing.counters()["fused_sep_block.launches"]
     with pytest.raises(TypeError):
         rpn_cuda.fused_sep_block(x, layers, 1, 1)
     with pytest.raises(TypeError):
         rpn_cuda.fused_sep_chain(x, [pack_block(layers, 1, 1)])
-    assert rpn_cuda.fused_sep_block.launches == before
+    assert tracing.counters()["fused_sep_block.launches"] == before
 
 
 def test_bf16_chain_takes_the_twin_on_the_cpu():
@@ -366,11 +367,11 @@ def test_bf16_chain_takes_the_twin_on_the_cpu():
     layers = [FoldedLayer(*map(torch.from_numpy, t)) for t in raw]
     x = torch.from_numpy(np.random.RandomState(6).rand(1, 6, 8, 8).astype(
         np.float32)).to(torch.bfloat16)
-    before = (rpn_cuda.fused_sep_block.launches,
-              rpn_cuda.fused_sep_block.launches_bf16)
+    before = (tracing.counters()["fused_sep_block.launches"],
+              tracing.counters()["fused_sep_block.launches_bf16"])
     got = rpn_cuda.fused_sep_chain(x, [pack_block(layers, 1, 2)] * 1)
-    assert (rpn_cuda.fused_sep_block.launches,
-            rpn_cuda.fused_sep_block.launches_bf16) == before
+    assert (tracing.counters()["fused_sep_block.launches"],
+            tracing.counters()["fused_sep_block.launches_bf16"]) == before
     assert got[0].dtype == torch.bfloat16
     assert torch.equal(got[0], fused_sep_block_plain(x, layers, 1, 2))
 

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from pillars_torch.utils import tracing
+
 pytestmark = pytest.mark.cuda
 
 REL_TOL = 1e-5
@@ -67,10 +69,10 @@ def test_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride):
     layers = _layers(b * 100 + n, cin, cout, n)
     x = torch.from_numpy(np.maximum(np.random.RandomState(b).randn(
         b, h, w, cin), 0).astype(np.float32)).cuda()
-    before = cuda_rpn.fused_sep_block.launches
+    before = tracing.counters()["fused_sep_block.launches"]
     got = cuda_rpn.fused_sep_block(x, layers, n, stride)
     torch.cuda.synchronize()
-    assert cuda_rpn.fused_sep_block.launches == before + 1
+    assert tracing.counters()["fused_sep_block.launches"] == before + 1
     want = fused_sep_block_plain(x, layers, n, stride)
     assert got.shape == want.shape == (b, h // stride, w // stride, cout)
     scale = want.abs().max().item()
@@ -88,15 +90,15 @@ def test_chain_matches_single_blocks(cuda_rpn):
               for i, (cin, cout, n, s) in enumerate(shapes)]
     x = torch.from_numpy(np.maximum(np.random.RandomState(7).randn(
         2, 12, 20, 16), 0).astype(np.float32)).cuda()
-    before = cuda_rpn.fused_sep_block.launches
+    before = tracing.counters()["fused_sep_block.launches"]
     got = cuda_rpn.fused_sep_chain(x, blocks)
-    assert cuda_rpn.fused_sep_block.launches == before + 1
+    assert tracing.counters()["fused_sep_block.launches"] == before + 1
     y = x
     for g, blk in zip(got, blocks):
         y = cuda_rpn.fused_sep_block(y, blk.layers, blk.num_layers,
                                      blk.stride)
         assert torch.equal(g, y)
-    assert cuda_rpn.fused_sep_block.launches == before + 4
+    assert tracing.counters()["fused_sep_block.launches"] == before + 4
     assert got[-1].shape == (2, 3, 5, 32)
 
 
@@ -122,11 +124,11 @@ def test_fused_rpn_blocks_on_a_sliced_canvas(cuda_rpn):
     canvas = padded[:, :ny * nx].reshape(2, ny, nx, -1)
     assert not canvas.is_contiguous()
     want = fused_rpn_blocks(canvas, state, mcfg.rpn)
-    before = cuda_rpn.fused_sep_block.launches
+    before = tracing.counters()["fused_sep_block.launches"]
     state_gpu = {k: v.cuda() for k, v in state.items()}
     got = fused_rpn_blocks(canvas.cuda(), state_gpu, mcfg.rpn)
     torch.cuda.synchronize()
-    assert cuda_rpn.fused_sep_block.launches == before + 1
+    assert tracing.counters()["fused_sep_block.launches"] == before + 1
     for g, w in zip(got, want):
         scale = w.abs().max().item()
         assert scale > 0
@@ -176,13 +178,12 @@ def test_bf16_kernel_matches_plain(cuda_rpn, b, h, w, cin, cout, n, stride):
     layers = _layers(b * 100 + n, cin, cout, n)
     x = torch.from_numpy(np.maximum(np.random.RandomState(b).randn(
         b, h, w, cin), 0).astype(np.float32)).cuda().to(torch.bfloat16)
-    before = (cuda_rpn.fused_sep_block.launches,
-              cuda_rpn.fused_sep_block.launches_bf16)
+    before = tracing.counters()
     got = cuda_rpn.fused_sep_block(x, layers, n, stride)
     torch.cuda.synchronize()
-    assert (cuda_rpn.fused_sep_block.launches,
-            cuda_rpn.fused_sep_block.launches_bf16) == (before[0] + 1,
-                                                        before[1] + 1)
+    after = tracing.counters()
+    for name in ("fused_sep_block.launches", "fused_sep_block.launches_bf16"):
+        assert after[name] == before[name] + 1
     want = fused_sep_block_plain(x, layers, n, stride)
     assert got.dtype == want.dtype == torch.bfloat16
     assert got.shape == want.shape == (b, h // stride, w // stride, cout)
@@ -232,11 +233,11 @@ def test_bf16_fused_rpn_blocks_against_the_cpu(cuda_rpn):
             state[k] = state[k] * 2
     canvas = torch.relu(torch.randn(2, ny, nx, mcfg.pfn.num_filters)).to(
         torch.bfloat16)
-    before = cuda_rpn.fused_sep_block.launches_bf16
+    before = tracing.counters()["fused_sep_block.launches_bf16"]
     got = fused_rpn_blocks(canvas.cuda(),
                            {k: v.cuda() for k, v in state.items()}, mcfg.rpn)
     torch.cuda.synchronize()
-    assert cuda_rpn.fused_sep_block.launches_bf16 == before + 1
+    assert tracing.counters()["fused_sep_block.launches_bf16"] == before + 1
     x = canvas
     for g, blk in zip(got, fold_rpn_blocks(state, mcfg.rpn)):
         w = fused_sep_block_plain(x, blk.layers, blk.num_layers, blk.stride)
@@ -249,9 +250,9 @@ def test_kernel_rejects_other_dtypes(cuda_rpn):
     layers = _layers(0, 8, 8, 1)
     for dtype in (torch.float16, torch.float64):
         x = torch.zeros(1, 6, 8, 8, device="cuda", dtype=dtype)
-        before = cuda_rpn.fused_sep_block.launches
+        before = tracing.counters()["fused_sep_block.launches"]
         with pytest.raises(TypeError):
             cuda_rpn.fused_sep_block(x, layers, 1, 1)
         with pytest.raises(TypeError):
             cuda_rpn.fused_sep_chain(x, [])
-        assert cuda_rpn.fused_sep_block.launches == before
+        assert tracing.counters()["fused_sep_block.launches"] == before

@@ -9,22 +9,28 @@ from the root of a checkout, on the card (``--spans 0`` makes the same run
 and report with tracing left off). Tracing is turned on before the cell's
 set-up, so that the builds and the captures are spans and the
 inference graph is captured with its device marks; the window's parts are
-the benchmark's (``port_bench/loops/_window.py``: with ``--trace 1`` a timed
-part with the profiler off, then a traced part under torch.profiler, whose
-idle gaps are then labelled by the program's spans). It prints the
-benchmark's result line with, under ``detail``:
+the benchmark's (``port_bench/loops/_window.py``: a timed part with the
+profiler off, with ``--trace 1`` then a traced part under torch.profiler,
+and in a cell whose metrics read the program's spans a marked part, during
+which alone the benchmark keeps tracing on). It prints the benchmark's
+result line with, under ``detail``:
 
-- ``spans`` / ``spans_traced``: per span name of the timed / traced part,
-  ``count``, ``ms`` and ``ms_per_cloud`` (the part's total over the clouds
-  delivered in it); the ``device.*`` totals per sampled cloud instead;
-- ``counters`` / ``counters_traced``: what each counter added in the part;
+- ``spans`` / ``spans_traced`` / ``spans_marked``: per span name of the
+  timed / traced / marked part, ``count``, ``ms`` and ``ms_per_cloud``
+  (the part's total over the clouds delivered in it); the ``device.*``
+  totals per sampled cloud instead;
+- ``counters`` / ``counters_traced`` / ``counters_marked``: what each
+  counter added in the part;
 - ``setup_spans``: the spans before the window opened (builds, captures);
-- ``readings``: the per-layer numbers these spans give (:func:`readings`);
+- ``readings``: the per-layer numbers the timed part's spans give
+  (:func:`readings`);
 - ``graph_clock_ms_per_cloud`` and ``latency_mean_ms``: the benchmark's
   own clock of the timed part's replays, per slot, and its mean latency.
 
-The benchmark's files are used as they are: this script wraps the window's
-edges in its own process only.
+The parts and their readings are the benchmark's own (``record["parts"]``,
+``_window.added``, ``metrics/_common.py``); this script adds the set-up's
+spans, which the record does not keep, by reading the edge at the window's
+opening in its own process.
 """
 
 from __future__ import annotations
@@ -39,33 +45,13 @@ from typing import Dict, Optional
 T_PROCESS = time.perf_counter()
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from port_bench.loops._window import added, edge  # noqa: E402
+from port_bench.metrics._common import (part_spans,  # noqa: E402
+                                        stage_ms_per_cloud)
+
 STAGES = ("voxelize", "pfn", "rpn", "post")
-
-
-def _edge() -> Dict:
-    from pillars_torch.utils import tracing
-
-    return {"spans": tracing.snapshot(), "counters": tracing.counters()}
-
-
-def part_spans(a: Dict, b: Dict, clouds: int) -> Dict:
-    """Per span name, what the part between edges ``a`` and ``b`` added:
-    ``count``, ``ms`` and ``ms_per_cloud`` (the ``device.*`` totals over
-    the sampled clouds); and the counters it added."""
-    counters = {k: v - a["counters"].get(k, 0)
-                for k, v in b["counters"].items()
-                if v != a["counters"].get(k, 0)}
-    sampled = counters.get("device.sampled_clouds", 0)
-    spans = {}
-    for name, row in b["spans"].items():
-        before = a["spans"].get(name, {"count": 0, "ns": 0})
-        n, ns = row["count"] - before["count"], row["ns"] - before["ns"]
-        if n <= 0:
-            continue
-        per = sampled if name.startswith("device.") else clouds
-        spans[name] = {"count": n, "ms": ns / 1e6,
-                       "ms_per_cloud": ns / 1e6 / per if per else None}
-    return {"spans": spans, "counters": counters}
 
 
 def _ms(spans: Dict, *names: str) -> Optional[float]:
@@ -76,18 +62,23 @@ def _ms(spans: Dict, *names: str) -> Optional[float]:
 
 
 def readings(timed: Dict, setup: Dict) -> Dict:
-    """The per-layer numbers the timed part's spans give: the card's time
-    per cloud of each stage of the inference graph, the host's dispatch
-    (the capture wrapper's call and the fetch's enqueue) and the stream
-    loop's take and staging per cloud, and the set-up's builds and
-    captures in seconds."""
-    s = timed["spans"]
-    out = {f"{st}_ms_per_cloud": _ms(s, f"device.{st}") for st in STAGES}
-    out["stages_ms_per_cloud"] = _ms(s, *(f"device.{st}" for st in STAGES))
+    """The per-layer numbers of the part ``timed`` (as ``added`` gives it,
+    with the ``clouds`` delivered in it): the card's time per cloud of each
+    stage of the inference graph (the benchmark's stage reader, handed this
+    part), the host's dispatch (the capture wrapper's call and the fetch's
+    enqueue) and the stream loop's take and staging per cloud; and from
+    ``setup`` (the same, before the window) the builds and captures in
+    seconds."""
+    s = part_spans(timed, timed["clouds"])
+    part = {"parts": {"marked": timed}}
+    out = {f"{st}_ms_per_cloud": stage_ms_per_cloud(part, st)
+           for st in STAGES}
+    stages = list(out.values())
+    out["stages_ms_per_cloud"] = (None if None in stages else sum(stages))
     out["device_replay_ms_per_cloud"] = _ms(s, "device.replay")
     out["dispatch_ms_per_cloud"] = _ms(s, "graph.call", "fetch.enqueue")
     out["stage_ms_per_cloud"] = _ms(s, "stream.take", "stream.stage")
-    total = lambda n: (setup["spans"][n]["ms"] / 1e3  # noqa: E731
+    total = lambda n: (setup["spans"][n]["ns"] / 1e9  # noqa: E731
                        if n in setup["spans"] else None)
     out["capture_s"] = total("graph.capture")
     out["build_s"] = total("build.extensions")
@@ -110,36 +101,24 @@ def main(argv=None) -> int:
     ap.add_argument("--dump", default=None,
                     help="write the spans of the run as a Chrome trace")
     args = ap.parse_args(argv)
-    sys.path.insert(0, str(ROOT))
     from pillars_torch.utils import tracing
     from port_bench import harness
     from port_bench.loops import _window
 
-    edges, records = {}, []
+    opened, records = [], []
     win = _window.Window
-    orig = {k: getattr(win, k) for k in ("open", "_start_trace", "close",
-                                           "record")}
+    orig = {k: getattr(win, k) for k in ("open", "record")}
 
     def open_(self):
+        opened.append(edge())
         orig["open"](self)
-        edges["open"] = _edge()
-
-    def start_trace(self):
-        edges["timed_end"] = _edge()
-        orig["_start_trace"](self)
-
-    def close(self):
-        edges.setdefault("timed_end" if self.phase == "timed"
-                         else "traced_end", _edge())
-        orig["close"](self)
 
     def record(self, *a, **kw):
         rec = orig["record"](self, *a, **kw)
         records.append(rec)
         return rec
 
-    win.open, win._start_trace, win.close, win.record = (
-        open_, start_trace, close, record)
+    win.open, win.record = open_, record
     if args.spans:
         tracing.enable()
     try:
@@ -153,18 +132,14 @@ def main(argv=None) -> int:
         for k, v in orig.items():
             setattr(win, k, v)
     rec = records[-1]
-    zero = {"spans": {}, "counters": {}}
-    setup = part_spans(zero, edges["open"], 1)
-    timed = part_spans(edges["open"], edges["timed_end"], rec["clouds"])
+    setup = dict(added({"spans": {}, "counters": {}}, opened[0]), clouds=1)
     d = out["detail"]
-    d["spans"], d["counters"] = timed["spans"], timed["counters"]
-    d["setup_spans"] = setup["spans"]
-    if "traced_end" in edges:
-        traced = part_spans(edges["timed_end"], edges["traced_end"],
-                            rec["traced_clouds"])
-        d["spans_traced"] = traced["spans"]
-        d["counters_traced"] = traced["counters"]
-    d["readings"] = readings(timed, setup)
+    for name, part in rec["parts"].items():
+        suffix = "" if name == "timed" else f"_{name}"
+        d[f"spans{suffix}"] = part_spans(part, part["clouds"])
+        d[f"counters{suffix}"] = part["counters"]
+    d["setup_spans"] = part_spans(setup, 1)
+    d["readings"] = readings(rec["parts"]["timed"], setup)
     # the benchmark's clock of the same replays, per slot of the graph
     d["graph_clock_ms_per_cloud"] = (rec["replay_ms"] / rec["slots"]
                                      if rec.get("replay_ms") else None)
