@@ -26,6 +26,12 @@ Phases, none of whose failures is caught:
      BN, then ``torch.relu``) timed in captured graphs, inputs rotating
      over 256 MB or more, against 8 bytes an element at 3.35 TB/s, and the
      kernel's device time under torch.profiler at kitti3's block1;
+   - eval 3x3 conv + BN + ReLU (``ops/conv_cuda.py::conv3x3_bn_relu``):
+     kitti3's three stride-1 block conv shapes at B=1; max |kernel - twin|
+     <= 2e-6 * max |twin|, two launches bit-equal; kernel, twin and the
+     library pair (cuDNN's conv, then the BN + ReLU kernel) timed in
+     captured graphs, the kernel's device time under torch.profiler, each
+     against the operations at 67 TFLOP/s;
    - eval PFN (``ops/pfn_cuda.py::pfn_max``): kitti3's point-major front
      end at B=1 (P = 12000, N = 100, 131,072 point rows) and the d435i
      dense cell at B=1 and B=8, on voxelized random clouds with random
@@ -664,17 +670,31 @@ def _bn_relu_shapes(mcfg, b):
     return shapes
 
 
+def _conv_per_call(det):
+    """Conv + BN + ReLU kernel launches of one inference call of ``det``:
+    the plain stride-1 block convs of its RPN in float32 (none on the fast
+    path, whose blocks are fused, none with separable convs, none in
+    bfloat16)."""
+    from pillars_torch.models.rpn import _Block
+
+    if det.dtype is not None or det.fast:
+        return 0
+    return sum(m.fits(i) for m in det.network.rpn.modules()
+               if isinstance(m, _Block) for i in range(m.num_layers + 1))
+
+
 def _bn_relu_per_call(det):
     """BN + ReLU kernel launches of one inference call of ``det``: every
-    BatchNorm of the RPN in float32 (the fast path runs only the deconvs'
-    through it, its blocks' are folded into the fused kernel); none in
-    bfloat16."""
+    BatchNorm of the RPN in float32 but those of the convs that the conv
+    kernel runs with theirs (the fast path runs only the deconvs' through
+    it, its blocks' are folded into the fused kernel); none in bfloat16."""
     from pillars_torch.models.layers import BatchNorm
 
     if det.dtype is not None:
         return 0
     rpn = det.rpn_tail if det.fast else det.network.rpn
-    return sum(isinstance(m, BatchNorm) for m in rpn.modules())
+    return (sum(isinstance(m, BatchNorm) for m in rpn.modules())
+            - _conv_per_call(det))
 
 
 def _bn_vectors(c, seed):
@@ -772,6 +792,84 @@ def check_bn_relu_kernel(mcfg):
             "bound_ms": row["bound_us"] / 1e3, "bound_by": "bytes",
             "library_ms": row["plain_us"] / 1e3, "device_ms": device_ms,
             "by_shape": rows}
+
+
+# the conv kernel's cases: kitti3's stride-1 block convs at B=1 (label,
+# C_in, C_out, H, W)
+CONV_CASES = (("kitti3 block1", 64, 64, 496, 432),
+              ("kitti3 block2", 128, 128, 248, 216),
+              ("kitti3 block3", 256, 256, 124, 108))
+# kernel vs twin: C_in * 9 products summed in another order (and a shared
+# tile's partials added), over 2304 terms at most; 8 to 18 times what the
+# card reads (1.1e-7 to 2.5e-7 of max |twin| on these inputs; the card
+# tests hold every element to its f32 accumulation bound)
+CONV_RTOL = 2e-6
+
+
+def check_conv3x3_bn_relu_kernel():
+    """Kernel 5 at kitti3's stride-1 block shapes, B=1: against its twin
+    (cuDNN's conv with TF32 off, BN, ReLU), two launches bit-equal; the
+    kernel, the twin and the library pair the port ran before (cuDNN's conv,
+    then the BN + ReLU kernel) timed in captured graphs, and the kernel's
+    device time under torch.profiler, each against the operations at 67
+    TFLOP/s."""
+    from torch.nn import functional as F
+
+    from pillars_torch.ops import bn_relu_cuda, conv_cuda
+    from pillars_torch.utils.profiling import captured_ms, device_busy
+
+    torch.backends.cudnn.allow_tf32 = False  # the program's setting
+    rows = {}
+    for i, (label, c_in, c_out, h, w) in enumerate(CONV_CASES):
+        g = torch.Generator(device=CARD).manual_seed(i)
+        x = torch.randn((1, c_in, h, w), device=CARD, generator=g)
+        weight = torch.randn((c_out, c_in, 3, 3), device=CARD,
+                             generator=g) / (3 * c_in ** 0.5)
+        vec = _bn_vectors(c_out, seed=i)
+        got = conv_cuda.conv3x3_bn_relu(x, weight, *vec, BN_RELU_EPS)
+        again = conv_cuda.conv3x3_bn_relu(x, weight, *vec, BN_RELU_EPS)
+        want = conv_cuda.conv3x3_bn_relu_plain(x, weight, *vec, BN_RELU_EPS)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not (torch.equal(got, again) and scale > 0
+                and err <= CONV_RTOL * scale):
+            raise AssertionError(f"conv3x3_bn_relu {label}: kernel vs twin "
+                                 f"{err} > {CONV_RTOL} * {scale}, or two "
+                                 f"launches differ")
+        fns = {"us": lambda: conv_cuda.conv3x3_bn_relu(x, weight, *vec,
+                                                        BN_RELU_EPS),
+               "plain_us": lambda: conv_cuda.conv3x3_bn_relu_plain(
+                   x, weight, *vec, BN_RELU_EPS),
+               "library_us": lambda: bn_relu_cuda.bn_relu(
+                   F.conv2d(x, weight, None, 1, 1), *vec, BN_RELU_EPS)}
+        r = rows[label] = {
+            "shape": [1, c_in, h, w], "c_out": c_out, "abs_err": err,
+            "rel_err": err / scale,
+            **{k: captured_ms(f, 20) * 1e3 for k, f in fns.items()}}
+        r["device_us"] = device_busy(fns["us"], 20,
+                                     "conv3x3_bn_relu_kernel")[1] * 1e3
+        r["bound_us"] = 2 * h * w * c_in * c_out * 9 / F32_FLOPS * 1e6
+        for k in ("us", "device_us", "plain_us", "library_us"):
+            r[k.replace("us", "pct")] = 100 * r["bound_us"] / r[k]
+        print(f"conv3x3_bn_relu {label} [1, {c_in}, {h}, {w}] -> {c_out}: "
+              f"max |diff| {r['rel_err']:.2e} of max |twin|, two launches "
+              f"bit-equal; kernel {r['us']:.2f} us a call "
+              f"({r['pct']:.1f}% of 67 TFLOP/s), {r['device_us']:.2f} us "
+              f"device ({r['device_pct']:.1f}%); twin {r['plain_us']:.2f} "
+              f"us; library (cuDNN conv + bn_relu) {r['library_us']:.2f} "
+              f"us ({r['library_pct']:.1f}%); bound {r['bound_us']:.2f} us")
+        del x, got, again, want
+    torch.cuda.empty_cache()
+    row = rows["kitti3 block1"]
+    return {"name": "conv3x3_bn_relu", "route": "cuda",
+            "source": "pillars_torch/csrc/conv3x3_bn_relu.cu",
+            "replaces": None, "shape": row["shape"], "launches": None,
+            "max_abs_err": max(r["abs_err"] for r in rows.values()),
+            "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": "operations",
+            "library_ms": row["library_us"] / 1e3,
+            "device_ms": row["device_us"] / 1e3, "by_shape": rows}
 
 
 # the PFN kernel's cases: (label, kitti3 config, dense cell, B, points a
@@ -1076,6 +1174,7 @@ LAUNCH_COUNTERS = {"nms_keep_mask": "nms_keep_mask.launches",
                    "rpn_sep_block": "fused_sep_block.launches",
                    "rpn_sep_block_bf16": "fused_sep_block.launches_bf16",
                    "bn_relu": "bn_relu.launches",
+                   "conv3x3_bn_relu": "conv3x3_bn_relu.launches",
                    "pfn_max": "pfn_max.launches"}
 _counted_from = {}
 
@@ -1167,6 +1266,10 @@ def run_main_path(state_cpu):
         raise AssertionError(f"the main path ran the BN + ReLU kernel "
                              f"{launches['bn_relu']} times, not "
                              f"{_bn_relu_per_call(det)} per batch")
+    if launches["conv3x3_bn_relu"] != _conv_per_call(det) * len(on_card):
+        raise AssertionError(f"the main path ran the conv kernel "
+                             f"{launches['conv3x3_bn_relu']} times, not "
+                             f"{_conv_per_call(det)} per batch")
     if launches["pfn_max"] != len(on_card):
         raise AssertionError(f"the PFN kernel ran {launches['pfn_max']} "
                              f"times, not once per batch")
@@ -1245,6 +1348,9 @@ def run_fast_path(state_cpu, batches, on_card, dense_outs):
         raise AssertionError(f"the fast path ran the BN + ReLU kernel "
                              f"{launches['bn_relu']} times, not "
                              f"{_bn_relu_per_call(det)} per batch")
+    if launches["conv3x3_bn_relu"] != 0:
+        raise AssertionError(f"the fast path ran the conv kernel "
+                             f"{launches['conv3x3_bn_relu']} times")
     if launches["pfn_max"] != len(on_card):
         raise AssertionError(f"the PFN kernel ran {launches['pfn_max']} "
                              f"times, not once per batch")
@@ -2080,17 +2186,19 @@ def _post_close(det, det_cpu, preds_cpu, amask_cpu, rect, trv2c, label):
     return err
 
 
-def _counted(fn, state, batches):
-    """Launch counts around ``fn`` over ``batches`` (dicts on the card)."""
+def _counted(det, fn, state, batches):
+    """Launch counts around ``fn`` (``det``'s inference) over ``batches``
+    (dicts on the card)."""
     _mark_counts()
     outs = [fn(state, b["points"], b["num_points"], b["rect"], b["trv2c"])
             for b in batches]
     torch.cuda.synchronize()
     launches = _read_counts()
-    if (launches["nms_keep_mask"] != len(batches)
-            or launches["rpn_sep_block"] != 0):
-        raise AssertionError(f"launches {launches} for {len(batches)} "
-                             f"batches")
+    n = len(batches)
+    if (launches["nms_keep_mask"] != n or launches["rpn_sep_block"] != 0
+            or launches["bn_relu"] != _bn_relu_per_call(det) * n
+            or launches["conv3x3_bn_relu"] != _conv_per_call(det) * n):
+        raise AssertionError(f"launches {launches} for {n} batches")
     for out in outs:
         if not out.valid.any():
             raise AssertionError("no valid detection")
@@ -2146,8 +2254,8 @@ def run_second_sparse(smi, root):
     items = [ev.dataset[i] for i in range(6)]
     batches = [collate([it]) for it in items[:4]] + [collate(items[4:])]
     on_card = [_on_card(b) for b in batches]
-    launches = {"B1": _counted(fn, state, on_card[:4]),
-                "B2": _counted(fn, state, on_card[4:])}
+    launches = {"B1": _counted(det, fn, state, on_card[:4]),
+                "B2": _counted(det, fn, state, on_card[4:])}
     print(f"SECOND sparse, 4 batches at B=1 and 1 at B=2: launches "
           f"{launches}")
 
@@ -2296,7 +2404,7 @@ def run_second_dense(smi):
         on_card[b] = {"points": torch.from_numpy(pts[0]).cuda(),
                       "num_points": torch.from_numpy(num).cuda(),
                       "rect": eye.cuda(), "trv2c": eye.cuda()}
-        launches[f"B{b}"] = _counted(fn, state, [on_card[b]])
+        launches[f"B{b}"] = _counted(det, fn, state, [on_card[b]])
         with torch.inference_mode():
             v = det.voxelize_batch(on_card[b]["points"],
                                    on_card[b]["num_points"])
@@ -2350,7 +2458,7 @@ def run_kitti_second(smi):
     bc = {"points": torch.from_numpy(pts).cuda(),
           "num_points": torch.from_numpy(num).cuda(), "rect": eye.cuda(),
           "trv2c": eye.cuda()}
-    launches = _counted(fn, state, [bc])
+    launches = _counted(det, fn, state, [bc])
     with torch.inference_mode():
         v = det.voxelize_batch(bc["points"], bc["num_points"])
         v_cpu = det_cpu.voxelize_batch(torch.from_numpy(pts),
@@ -2703,7 +2811,7 @@ def run_bf16_second(root):
     dataset = Evaluator(cfg_bf, det_cpu).dataset
     batches = [collate([dataset[i]]) for i in range(4)]
     on_card = [_on_card(b) for b in batches]
-    launches = _counted(fn, state, on_card)
+    launches = _counted(det, fn, state, on_card)
     worst, exceptions = {}, 0
     with torch.inference_mode():
         for b, bc in zip(batches, on_card):
@@ -3157,7 +3265,7 @@ def _p17_captured(cfg, state_cpu, batches, device, meshes=P17_MESHES,
     state = det.state_to_device(state_cpu)
     per_call = {"nms_keep_mask": 1, "rpn_sep_block": 0,
                 "rpn_sep_block_bf16": 0, "bn_relu": _bn_relu_per_call(det),
-                "pfn_max": 1}
+                "conv3x3_bn_relu": _conv_per_call(det), "pfn_max": 1}
     infer = {"max_abs_diff": {}, "launches_per_replay": {}}
     t0 = time.perf_counter()
     for b in (1, 2):
@@ -3293,7 +3401,7 @@ def _p17_captured_lines(cap, smi, meshes=P17_MESHES, world=1):
     return {f"parallel_spatial_nccl{world}": {
         k: sum(c[k] for c in inf["launches_per_replay"].values())
         for k in ("nms_keep_mask", "rpn_sep_block", "rpn_sep_block_bf16",
-                  "bn_relu")}}
+                  "bn_relu", "conv3x3_bn_relu")}}
 
 
 def _p17_line(t):
@@ -3788,6 +3896,7 @@ def run_captured(state_cpu, smi):
                     "rpn_sep_block_bf16": int(det.fast and name.endswith(
                         "bf16")),
                     "bn_relu": _bn_relu_per_call(det),
+                    "conv3x3_bn_relu": _conv_per_call(det),
                     "pfn_max": int(det.dtype is None)}
         for b in (1, 2):
             pts, num = _clouds(cfg.model.voxel.max_points, b, 2)
@@ -3850,6 +3959,7 @@ def run_captured(state_cpu, smi):
                             {"nms_keep_mask": 1, "rpn_sep_block": 0,
                              "rpn_sep_block_bf16": 0,
                              "bn_relu": _bn_relu_per_call(det),
+                             "conv3x3_bn_relu": _conv_per_call(det),
                              "pfn_max": 0})
     result["max_abs_diff"]["second_sparse_B1"] = worst
     print(f"captured second_sparse_d435i B=1: replay against eager max "
@@ -4523,7 +4633,7 @@ def _k3_serving(cfg, det, det_cpu, ev, state, state_cpu, smi):
     fn = det.make_inference_fn()
     if not isinstance(fn, CapturedInference):
         raise AssertionError("kitti3: make_inference_fn did not capture")
-    launches = _counted(fn, state, on_card)
+    launches = _counted(det, fn, state, on_card)
     print(f"kitti3 serving, 2 batches at B=1 and 1 at B=2 of "
           f"{cfg.model.voxel.max_points}-point pads: launches {launches}")
 
@@ -4885,6 +4995,7 @@ def run_bench(smi):
                     fast and dtype == "bfloat16"),
                 "bn_relu.launches": float(
                     (3 if fast else 19) * (dtype == "float32")),
+                "conv3x3_bn_relu.launches": 0.0,  # separable convs
                 "pfn_max.launches": float(dtype == "float32")}
         if launches != want:
             raise AssertionError(f"{label}: launches per timed call "
@@ -4944,6 +5055,7 @@ def main(argv=None):
     rpn = check_rpn_kernel(cfg.model)
     bn_relu = check_bn_relu_kernel(cfg.model)
     pfn = check_pfn_max_kernel()
+    conv = check_conv3x3_bn_relu_kernel()
     state_cpu = from_jax_variables(*load_params(str(WEIGHTS)), cfg)
     dense, batches, on_card, outs, dense_times = run_main_path(state_cpu)
     fast, fast_times = run_fast_path(state_cpu, batches, on_card, outs)
@@ -5026,7 +5138,17 @@ def main(argv=None):
         "kitti3_serve": kitti3["serve"]["counts"]["bn_relu"],
         "kitti3_eval": kitti3["eval"]["launches"]["bn_relu"]}
     pfn["launches"] = dense["pfn_max"]
-    print(json.dumps({"kernels": [nms, rpn, rpn_bf16, bn_relu, pfn]}))
+    conv["launches"] = kitti3["serve"]["counts"]["conv3x3_bn_relu"]
+    conv["launches_by_path"] = {
+        "dense": dense["conv3x3_bn_relu"], "fast": fast["conv3x3_bn_relu"],
+        **{k: v["conv3x3_bn_relu"] for k, v in serving.items()},
+        **{k: sum(c["conv3x3_bn_relu"] for c in v)
+           for k, v in second_paths.items()},
+        **{f"{k}_bf16": v["conv3x3_bn_relu"] for k, v in bf16.items()},
+        **{k: v["conv3x3_bn_relu"] for k, v in parallel.items()},
+        "kitti3_serve": kitti3["serve"]["counts"]["conv3x3_bn_relu"],
+        "kitti3_eval": kitti3["eval"]["launches"]["conv3x3_bn_relu"]}
+    print(json.dumps({"kernels": [nms, rpn, rpn_bf16, bn_relu, pfn, conv]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

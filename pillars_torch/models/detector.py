@@ -54,8 +54,8 @@ from pillars_torch.models.sparse_middle import (SparseMiddleExtractor,
                                                 output_dims)
 # the kernel wrappers the paths below call: importing them declares their
 # launch counters (utils/tracing.py) wherever a detector is
-from pillars_torch.ops import (bn_relu_cuda, nms_cuda,  # noqa: F401
-                               pfn_cuda, rpn_cuda)
+from pillars_torch.ops import (bn_relu_cuda, conv_cuda,  # noqa: F401
+                               nms_cuda, pfn_cuda, rpn_cuda)
 from pillars_torch.ops.anchors import (anchors_mask_batched,
                                        anchors_mask_from_dense, build_anchors,
                                        clamp_sat_tables)

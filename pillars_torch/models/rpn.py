@@ -8,7 +8,9 @@ fused (ops/rpn_blocks.py). The modules take and return NHWC like the JAX
 package; inside they are NCHW. BatchNorm follows flax's conventions in train
 mode (models/layers.py). Each BN + ReLU goes through
 ``BatchNorm.forward_relu``: in float32 eval on the card one kernel pass
-(ops/bn_relu_cuda.py), elsewhere ``torch.relu(bn(x))``.
+(ops/bn_relu_cuda.py), elsewhere ``torch.relu(bn(x))``. A plain stride-1
+block conv that :meth:`_Block.takes_kernel` runs with its BN + ReLU as one
+kernel instead (ops/conv_cuda.py).
 
 ``rpn.remat`` recomputes each block and deconv in the backward
 (``torch.utils.checkpoint``); with ``rpn.remat_bf16`` the seven boundary
@@ -31,7 +33,9 @@ from torch.utils.checkpoint import checkpoint
 
 from pillars_torch.config import ModelConfig
 from pillars_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d,
-                                         SeparableConv, promote)
+                                         SeparableConv, promote,
+                                         takes_kernel)
+from pillars_torch.ops import conv_cuda
 
 
 def _upcast(x):
@@ -117,16 +121,44 @@ class _Block(nn.Module):
             self.add_module(f"bn{i}", BatchNorm(features, bn_eps, bn_momentum,
                                                 dtype=dtype))
 
+    def fits(self, i: int, padding=None) -> bool:
+        """Whether conv ``i`` (at ``padding``, else its own) is of a form
+        the conv kernel computes (ops/conv_cuda.py): a plain float32 conv,
+        stride 1. Strided and separable convs and bfloat16 are not."""
+        conv = getattr(self, f"conv{i}")
+        return (isinstance(conv, Conv2d) and conv.compute_dtype is None
+                and conv_cuda.takes(conv.weight.shape, conv.stride,
+                                    padding or conv.padding, conv.groups,
+                                    conv.dilation))
+
+    def takes_kernel(self, i: int, x, padding=None) -> bool:
+        """Whether conv ``i`` and its BN + ReLU run as one launch of the
+        conv kernel on ``x``: :meth:`fits`, under
+        models/layers.py::takes_kernel (eval, float32, CUDA, no gradient
+        wanted); training and the CPU do not."""
+        bn = getattr(self, f"bn{i}")
+        return self.fits(i, padding) and takes_kernel(
+            bn, x, getattr(self, f"conv{i}").weight, *bn.parameters())
+
     def forward(self, x, halo=None):
         """``halo``: for a band of rows (parallel/spatial.py), the function
         that adds one neighbour row on each side; each conv then pads only
         along x."""
         if self.upcast:
             x = _upcast(x)
+        padding = None if halo is None else (0, 1)
         for i in range(self.num_layers + 1):
-            conv = getattr(self, f"conv{i}")
-            x = conv(x) if halo is None else conv(halo(x), padding=(0, 1))
-            x = getattr(self, f"bn{i}").forward_relu(x)
+            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+            if halo is not None:
+                x = halo(x)
+            if self.takes_kernel(i, x, padding):
+                x = conv_cuda.conv3x3_bn_relu(
+                    x, conv.weight, bn.running_mean, bn.running_var,
+                    bn.weight, bn.bias, bn.eps,
+                    padding=padding or conv.padding)
+            else:
+                x = bn.forward_relu(conv(x) if halo is None
+                                    else conv(x, padding=padding))
         return x
 
 

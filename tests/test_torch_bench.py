@@ -99,7 +99,8 @@ def test_measure_on_the_cpu():
                                       "fused_sep_block.launches": 0.0,
                                       "fused_sep_block.launches_bf16": 0.0,
                                       "bn_relu.launches": 0.0,
-                                      "pfn_max.launches": 0.0}
+                                      "pfn_max.launches": 0.0,
+                                      "conv3x3_bn_relu.launches": 0.0}
 
 
 def test_cli_prints_one_json_line():

@@ -214,12 +214,14 @@ def _d435i_state(cfg, det):
 
 
 @pytest.mark.parametrize("config,per_replay", [("d435i_dense", 19),
-                                               ("kitti3", 19),
+                                               ("kitti3", 5),
                                                ("d435i_fast", 3)])
 def test_launches_a_replay(card, ops, config, per_replay):
-    """19 on the served RPNs; 3 on the fast path, whose blocks are fused
-    (their BN folded) and whose deconvs read the blocks' NHWC output and
-    give channels-last tensors."""
+    """19 on the separable RPN; 5 on kitti3's plain one, whose 14 stride-1
+    block convs run their BN + ReLU in the conv kernel
+    (test_torch_conv_bn_relu_cuda.py); 3 on the fast path, whose blocks are
+    fused (their BN folded) and whose deconvs read the blocks' NHWC output
+    and give channels-last tensors."""
     from pillars_torch.cuda_graph import CapturedInference
     from pillars_torch.models.detector import PillarsDetector
     from torch_parity import fast_config

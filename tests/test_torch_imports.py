@@ -70,7 +70,7 @@ def test_capture_and_tracing_know_no_kernel(name):
 
 
 def test_a_detector_declares_every_launch_counter():
-    """Importing the detector declares the five launch counters of the
+    """Importing the detector declares the six launch counters of the
     kernel wrappers it calls, at 0, in a fresh process."""
     script = ("import json, pillars_torch.models.detector\n"
               "from pillars_torch.utils import tracing\n"
@@ -82,7 +82,7 @@ def test_a_detector_declares_every_launch_counter():
     counters = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("nms_keep_mask.launches", "fused_sep_block.launches",
                  "fused_sep_block.launches_bf16", "bn_relu.launches",
-                 "pfn_max.launches"):
+                 "pfn_max.launches", "conv3x3_bn_relu.launches"):
         assert counters[name] == 0, name
 
 
